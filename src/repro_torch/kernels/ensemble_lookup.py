@@ -1,0 +1,205 @@
+"""The fused IIsy match-action pipeline (tree family): CUDA kernel + wrapper.
+
+Replaces the Pallas TPU kernels of ``repro/kernels/ensemble_lookup.py``:
+``_fused_kernel`` (:112, select='matmul') and ``_fused_compare_kernel``
+(:132, select='compare'), both reached from ``ensemble_lookup_fused``
+(:169). One CUDA source, ``csrc/ensemble_lookup.cu``, holds both selects.
+
+Per row: range match -> decision key per tree -> decision-table read ->
+vote count or payload sum. The TPU wrote each lookup as a one-hot matmul
+because Pallas has no gather; on Hopper one thread owns one row and gathers
+from the tables, staged in shared memory when they fit (``SMEM_BUDGET_BYTES``)
+and read through the read-only cache otherwise.
+
+Bound: memory. Each call must read x and the tables once and write the
+output. At the serving shape (N=2048, F=5, U~40, T=10, Sp~136, Co=2) that is
+about 75 KB — about 22 ns at 3.35 TB/s, far below a launch — so the design
+keeps to one launch per classify. PERF.md holds the measured time (~16 us of
+device time per launch: the per-thread latency chain, not bytes).
+
+Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+``ensemble_lookup_fused_ref``, the plain version on the same flat tables.
+Every value is an integer carried in f32 below 2^24, so the two agree bit
+for bit. ``LAUNCHES`` counts kernel launches per select, and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.artifact import build_dtable_flat, flatten_ftable, pad_dtable
+from repro_torch.device import on_kernel_path
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import bucketize_ref
+from repro_torch.kernels.tuning import DEFAULT_TILES
+
+# select='auto' crossover, kept from the reference (ensemble_lookup.py:63)
+# so the port routes every artifact to the same strategy as repro. On this
+# card both selects are gathers, so the crossover costs nothing either way.
+SELECT_MATMUL_MAX = 8192
+
+# Dynamic shared memory one Hopper block can use (227 KB, opt-in above 48 KB).
+SMEM_BUDGET_BYTES = 232448
+
+MAX_CLASSES = 32        # EL_MAX_CO in the CUDA source: outputs kept in registers
+
+LAUNCHES = {"matmul": 0, "compare": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def resolve_select(select: str, t: int, s_pad: int, cout: int) -> str:
+    if select == "auto":
+        return "matmul" if t * s_pad * cout <= SELECT_MATMUL_MAX else "compare"
+    if select not in ("matmul", "compare"):
+        raise ValueError(f"select must be matmul|compare|auto, got {select!r}")
+    return select
+
+
+def smem_bytes(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
+               cout: int, select: str, staged: bool, tile_n: int) -> int:
+    """Dynamic shared memory of one launch (mirrors ``el_smem_bytes`` in
+    the CUDA source): per-thread row offsets, plus the staged tables when
+    ``staged``."""
+    n_bytes = 4 * f * tile_n
+    if staged:
+        d = (1 if select == "compare" else cout) * t * s_pad
+        n_bytes += 4 * (f * u + f * b_pad * t_pad + d)
+    return n_bytes
+
+
+def fits_smem(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
+              cout: int, select: str, tile_n: int) -> bool:
+    """The shared-memory fit check: stage the tables in shared memory when
+    they fit in one block's budget, else read them from global memory. It
+    picks where the kernel reads from; it never routes away from the kernel."""
+    return smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, True,
+                      tile_n) <= SMEM_BUDGET_BYTES
+
+
+def decision_keys(x, edges, ftable_flat, t: int) -> torch.Tensor:
+    """(N, T) int64 decision keys from the flat feature table: range match,
+    then key[t] = sum_f ftable_flat[f*Bp + bin_f, t] (exact integer sums)."""
+    f = x.shape[1]
+    b_pad = ftable_flat.shape[0] // f
+    bins = bucketize_ref(x, edges).long()                   # (N, F)
+    rows = bins + torch.arange(f, device=x.device)[None, :] * b_pad
+    return ftable_flat[rows][:, :, :t].sum(dim=1).long()
+
+
+def ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat, dtable_pad,
+                              *, select: str = "auto") -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on the same flat tables."""
+    cout, t, s_pad = dtable_flat.shape
+    select = resolve_select(select, t, s_pad, cout)
+    keys = decision_keys(x, edges, ftable_flat, t)          # (N, T)
+    t_idx = torch.arange(t, device=x.device)[None, :]
+    if select == "matmul":
+        return dtable_flat[:, t_idx, keys].sum(dim=2).t().contiguous()
+    leaf = dtable_pad[t_idx, keys]                          # (N, T)
+    if cout > 1:
+        c_iota = torch.arange(cout, dtype=torch.float32, device=x.device)
+        return (leaf[:, :, None] == c_iota).to(torch.float32).sum(dim=1)
+    return leaf.sum(dim=1, keepdim=True)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("ensemble_lookup")
+    if lib.ensemble_lookup_launch.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.ensemble_lookup_launch.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
+        lib.ensemble_lookup_launch.restype = ctypes.c_int
+        lib.ensemble_lookup_error_string.argtypes = [i]
+        lib.ensemble_lookup_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_operands(x, *tables) -> None:
+    for name, a in (("x", x),) + tables:
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
+                          select: str = "auto", tile_n: int = None,
+                          staged: bool = None) -> torch.Tensor:
+    """Fused pipeline on pre-flattened tables -> (N, Co) f32.
+
+    x (N, F) f32 (any N); edges (F, U) f32; ftable_flat (F*Bp, Tp) f32
+    stride-premultiplied (``finalize_artifact``); dtable_flat (Co, T, Sp)
+    f32 decision+aggregation table; dtable_pad (T, Sp) f32 raw decision
+    table. select: 'matmul' reads dtable_flat, 'compare' reads dtable_pad,
+    'auto' keeps the reference's crossover. Returns per-class votes (vote)
+    or payload sums (Co == 1). tile_n is the CUDA block size; staged=None
+    stages the tables in shared memory when ``fits_smem`` says so.
+    """
+    n, f = x.shape
+    u = edges.shape[1]
+    fb, t_pad = ftable_flat.shape
+    cout, t, s_pad = dtable_flat.shape
+    select = resolve_select(select, t, s_pad, cout)
+    if not on_kernel_path(x):
+        return ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat,
+                                         dtable_pad, select=select)
+    tile_n = tile_n or DEFAULT_TILES.tile_n
+    _check_operands(x, ("edges", edges), ("ftable_flat", ftable_flat),
+                    ("dtable_flat", dtable_flat), ("dtable_pad", dtable_pad))
+    if edges.shape[0] != f or fb % f or t_pad < t or dtable_pad.shape != (t, s_pad):
+        raise ValueError(
+            f"inconsistent shapes: x {tuple(x.shape)}, edges "
+            f"{tuple(edges.shape)}, ftable_flat {tuple(ftable_flat.shape)}, "
+            f"dtable_flat {tuple(dtable_flat.shape)}, dtable_pad "
+            f"{tuple(dtable_pad.shape)}")
+    if cout > MAX_CLASSES:
+        raise ValueError(f"the kernel supports up to {MAX_CLASSES} output "
+                         f"columns, got {cout}")
+    b_pad = fb // f
+    if staged is None:
+        staged = fits_smem(f, u, b_pad, t_pad, t, s_pad, cout, select, tile_n)
+    if smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, staged,
+                  tile_n) > SMEM_BUDGET_BYTES:
+        raise ValueError("launch needs more shared memory than a block has; "
+                         "lower tile_n or pass staged=False")
+    out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    lib = _library()
+    table = dtable_pad if select == "compare" else dtable_flat
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ensemble_lookup_launch(
+            x.data_ptr(), edges.data_ptr(), ftable_flat.data_ptr(),
+            table.data_ptr(), out.data_ptr(), n, f, u, b_pad, t_pad, t,
+            s_pad, cout, int(select == "compare"), int(staged), tile_n,
+            stream)
+    if err:
+        raise RuntimeError("ensemble_lookup launch failed: "
+                           + lib.ensemble_lookup_error_string(err).decode())
+    LAUNCHES[select] += 1
+    return out
+
+
+def ensemble_lookup(x, edges, ftable, strides, dtable, *, n_classes: int,
+                    vote: bool, select: str = "auto",
+                    tile_n: int = None) -> torch.Tensor:
+    """Run the fused pipeline from unflattened tables (the counterpart of
+    the reference's compat entry ``ensemble_lookup_pallas``).
+
+    Flattens ftable/strides/dtable on the fly (serving uses the artifact's
+    pre-flattened copies instead). x (N, F) f32; edges (F, U) f32; ftable
+    (F, U+1, T) int32; strides (T, F) int32; dtable (T, S) class ids or
+    quantized payloads. Returns (N, n_classes) votes or (N, 1) sums.
+    """
+    return ensemble_lookup_fused(
+        x, edges, flatten_ftable(ftable, strides),
+        build_dtable_flat(dtable, n_classes, vote), pad_dtable(dtable),
+        select=select, tile_n=tile_n)

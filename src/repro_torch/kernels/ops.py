@@ -1,0 +1,163 @@
+"""Public wrappers over the kernels: routing, the shared-memory fit check,
+and the scalar epilogues that turn kernel outputs into (pred, confidence).
+
+Port of ``repro/kernels/ops.py`` (the batch-classify part). Routing follows
+``device.on_kernel_path``: on a CUDA tensor ``fused_classify`` launches the
+hand-written kernel, on a CPU tensor it runs the kernel's plain version.
+``TileConfig.impl='ref'`` runs the plain gather version on either device,
+and only when the caller sets it.
+
+The reference's VMEM fit check (``VMEM_BUDGET_BYTES``, a TPU v5e figure)
+becomes a shared-memory fit check: it decides whether the kernel stages the
+tables in shared memory or reads them from global memory, and never routes
+away from the kernel.
+
+Not yet ported: the classical lookup kernel (B3: SVM/NB/K-Means on the
+card raise NotImplementedError; on the CPU they run ``classical_lookup_ref``),
+the per-feature-loop kernel (B7: ``impl='loop'`` on the card raises), and
+the streaming wrappers (``pad_window``, ``evict_fill``, ``stream_update``,
+``bucketize``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.artifact import (TableArtifact, build_dtable_flat,
+                                       flatten_ftable, pad_dtable)
+from repro_torch.core.inference import classical_aggregate
+from repro_torch.device import on_kernel_path, resolve_device, true_div
+from repro_torch.kernels import ensemble_lookup as _ek
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig
+
+
+def _pad_batch(x: torch.Tensor, tile: int):
+    """Pad N up to a tile multiple by replicating the last valid row.
+
+    Replication (not zeros) keeps every padded lane on a real sample: a zero
+    row is out-of-distribution for the tables and could perturb telemetry
+    computed before slicing. The CUDA kernel masks its ragged last block, so
+    batch classify needs no padding; the streaming slice's ``pad_window``
+    pads its windows with this.
+    """
+    n = x.shape[0]
+    pad = (-n) % tile
+    if pad:
+        x = torch.cat([x, x[n - 1:n].expand((pad,) + tuple(x.shape[1:]))])
+    return x, n
+
+
+def _flat_tree_tables(art: TableArtifact, vote: bool):
+    """Pre-flattened tables from the artifact, or flattened on the fly."""
+    if art.ftable_flat is not None:
+        return art.ftable_flat, art.dtable_flat, art.dtable_pad
+    dtable = art.dtable_class if vote else art.dtable_value.q
+    return (flatten_ftable(art.ftable, art.strides),
+            build_dtable_flat(dtable, art.n_classes, vote),
+            pad_dtable(dtable))
+
+
+def tree_tables_smem_bytes(art: TableArtifact,
+                           tiles: TileConfig = None) -> int:
+    """Shared memory a staged launch needs for this artifact: the edges, the
+    flat feature table and the one decision table the chosen select reads,
+    plus the kernel's per-thread row offsets."""
+    tiles = tiles or DEFAULT_TILES
+    ftable_flat, dtable_flat, _ = _flat_tree_tables(art, art.agg == "vote")
+    f, u = art.edges.shape
+    fb, t_pad = ftable_flat.shape
+    cout, t, s_pad = dtable_flat.shape
+    select = _ek.resolve_select(tiles.select, t, s_pad, cout)
+    return _ek.smem_bytes(f, u, fb // f, t_pad, t, s_pad, cout, select,
+                          True, tiles.tile_n)
+
+
+def fits_smem(art: TableArtifact, tiles: TileConfig = None) -> bool:
+    """True when the kernel stages this artifact's tables in shared memory;
+    False means it reads them from global memory (same kernel, same result)."""
+    if art.ftable is None:
+        raise NotImplementedError("classical_lookup (B3) is not ported yet")
+    return tree_tables_smem_bytes(art, tiles) <= _ek.SMEM_BUDGET_BYTES
+
+
+# ---------------------------------------------------------------------------
+# fused classify
+# ---------------------------------------------------------------------------
+
+def _tree_epilogue(art: TableArtifact, out: torch.Tensor):
+    if art.agg == "vote":
+        pred = torch.argmax(out, dim=1)
+        conf = true_div(out.max(dim=1).values, art.n_trees)
+        return pred, conf
+    total = out[:, 0] / art.dtable_value.scale
+    if art.agg == "wsum_sigmoid":
+        p1 = torch.sigmoid(art.base_score + art.learning_rate * total)
+        return (p1 > 0.5).to(torch.int32), torch.maximum(p1, 1.0 - p1)
+    if art.agg == "iforest":
+        n = torch.full((), art.iforest_subsample, dtype=torch.float32,
+                       device=out.device)
+        cfac = 2.0 * (torch.log(n - 1.0) + 0.5772156649) - 2.0 * (n - 1.0) / n
+        score = torch.pow(2.0, -true_div(total, art.n_trees) / cfac)
+        return (score > 0.5).to(torch.int32), torch.maximum(score, 1.0 - score)
+    raise ValueError(art.agg)
+
+
+def _classical_epilogue(art: TableArtifact, out: torch.Tensor):
+    return classical_aggregate(art, out / art.vtable.scale)
+
+
+def classify_batch_rows(art: TableArtifact, n: int, *,
+                        tiles: TileConfig = None) -> int:
+    """Rows ``fused_classify`` processes for an n-row batch: exactly n on
+    every route, since the CUDA kernel masks its ragged last block instead
+    of padding the batch as the reference's TPU grid had to."""
+    return n
+
+
+def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
+                   device=None):
+    """(pred, confidence) through the fused kernel path.
+
+    device=None runs on CUDA (and raises without a card); pass
+    device="cpu" for the plain path. ``tiles.impl``: 'fused' (the CUDA
+    kernel on the card, its plain version on the CPU), 'ref' (the plain
+    gather version on either), 'loop' (not ported: raises on the card).
+    """
+    tiles = tiles or DEFAULT_TILES
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    art = art.to(dev)
+    impl = tiles.impl
+    if impl not in ("fused", "loop", "ref"):
+        raise ValueError(f"impl must be fused|loop|ref, got {impl!r}")
+    kernel = on_kernel_path(x)
+
+    if art.ftable is not None:
+        vote = art.agg == "vote"
+        if impl == "fused":
+            ftable_flat, dtable_flat, dtable_pad = _flat_tree_tables(art, vote)
+            out = _ek.ensemble_lookup_fused(
+                x, art.edges, ftable_flat, dtable_flat, dtable_pad,
+                select=tiles.select, tile_n=tiles.tile_n)
+        else:
+            if impl == "loop" and kernel:
+                raise NotImplementedError(
+                    "impl='loop' is the per-feature-loop kernel (B7), not "
+                    "ported to CUDA yet")
+            dtable = art.dtable_class if vote else art.dtable_value.q
+            out = _ref.ensemble_lookup_ref(
+                x, art.edges, art.ftable, art.strides,
+                dtable.to(torch.float32), n_classes=art.n_classes, vote=vote)
+        return _tree_epilogue(art, out)
+
+    if impl == "loop":
+        raise ValueError("impl='loop' is the per-feature-loop tree kernel; "
+                         "classical artifacts have no loop realization")
+    if impl == "fused" and kernel:
+        raise NotImplementedError(
+            "classical_lookup (B3, the SVM/NB/K-Means kernel) is not ported "
+            "to CUDA yet; use device='cpu' or TileConfig(impl='ref')")
+    out = _ref.classical_lookup_ref(x, art.edges,
+                                    art.vtable.q.to(torch.float32))
+    return _classical_epilogue(art, out)

@@ -1,0 +1,131 @@
+"""Parity harness between the JAX reference (``repro``) and the PyTorch port
+(``repro_torch``): converters that carry the reference's artifacts and
+ensembles across as numpy arrays, and the bit-equality and ulp checks the
+other ``test_torch_*`` files use. Its own tests check the helpers."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.artifact import artifact_from_arrays  # noqa: E402
+from repro_torch.ml.trees import ensemble_from_arrays  # noqa: E402
+
+
+def artifact_arrays(art) -> dict:
+    """Every field of a reference ``TableArtifact`` as numpy / Python values."""
+    out = {}
+    for f in dataclasses.fields(art):
+        v = getattr(art, f.name)
+        if v is None:
+            continue
+        if hasattr(v, "q"):                              # FixedPoint
+            out[f.name] = {"q": np.array(v.q), "scale": np.array(v.scale),
+                           "bits": v.bits}
+        elif isinstance(v, (str, int, float)):
+            out[f.name] = v
+        else:
+            out[f.name] = np.array(v)
+    return out
+
+
+def port_artifact(jax_art):
+    """The reference's artifact carried across into the port (CPU)."""
+    return artifact_from_arrays(artifact_arrays(jax_art))
+
+
+def port_ensemble(jax_ens, device="cpu"):
+    return ensemble_from_arrays(
+        np.array(jax_ens.feat), np.array(jax_ens.thresh),
+        np.array(jax_ens.leaf), jax_ens.kind, base_score=jax_ens.base_score,
+        learning_rate=jax_ens.learning_rate, n_classes=jax_ens.n_classes,
+        device=device)
+
+
+def to_np(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def assert_bit_equal(ref, port):
+    """Same shape and the same values bit for bit (NaNs compared as equal)."""
+    a, b = to_np(ref), to_np(port)
+    assert a.shape == b.shape, (a.shape, b.shape)
+    np.testing.assert_array_equal(a, b)
+
+
+def ulp_distance(ref, port) -> np.ndarray:
+    """Elementwise distance in float32 ulps (same-sign finite values)."""
+    a = to_np(ref).astype(np.float32).view(np.int32).astype(np.int64)
+    b = to_np(port).astype(np.float32).view(np.int32).astype(np.int64)
+    return np.abs(a - b)
+
+
+CONF_ULPS = 2
+
+
+def assert_conf_parity(agg: str, ref, port):
+    """The confidence rule: bitwise for votes (integer counts over an integer
+    tree count). Every other aggregation's confidence is a transcendental's
+    output t (sigmoid, softmax, exp) or 1 - t, and XLA's and PyTorch's
+    transcendentals differ by up to CONF_ULPS ulps of t (measured: 2, in
+    the sigmoid of svm_ovo and the exp of kmeans), so the gap is bounded by
+    CONF_ULPS ulps of the larger of conf and 1 - conf."""
+    if agg == "vote":
+        assert_bit_equal(ref, port)
+        return
+    a = to_np(ref).astype(np.float32)
+    b = to_np(port).astype(np.float32)
+    assert a.shape == b.shape
+    unit = np.maximum(np.spacing(np.abs(a)),
+                      np.spacing(np.abs(np.float32(1.0) - a)))
+    gap = np.abs(a.astype(np.float64) - b.astype(np.float64))
+    assert np.all(gap <= CONF_ULPS * unit.astype(np.float64)), gap.max()
+
+
+def test_ulp_distance_counts_neighbours():
+    x = np.float32(0.9)
+    nxt = np.nextafter(x, np.float32(2.0))
+    assert ulp_distance(np.array([x]), np.array([nxt]))[0] == 1
+    assert ulp_distance(np.array([x]), np.array([x]))[0] == 0
+
+
+def test_assert_conf_parity_rule():
+    a = np.array([0.5, 0.9], np.float32)
+    b = np.nextafter(a, np.float32(2.0))
+    assert_conf_parity("wsum_sigmoid", a, b)
+    with pytest.raises(AssertionError):
+        assert_conf_parity("vote", a, b)
+    far = np.nextafter(np.nextafter(b, np.float32(2.0)), np.float32(2.0))
+    with pytest.raises(AssertionError):
+        assert_conf_parity("kmeans", a, far)
+
+
+def test_artifact_arrays_carry_every_field(anomaly_data):
+    from repro.core.mapping import map_tree_ensemble
+    from repro.ml.trees import fit_random_forest
+    xtr, ytr, _, _ = anomaly_data
+    ens = fit_random_forest(xtr, ytr, n_classes=2, n_trees=3, max_depth=3)
+    jart = map_tree_ensemble(ens, 5)
+    tart = port_artifact(jart)
+    for f in dataclasses.fields(jart):
+        v = getattr(jart, f.name)
+        w = getattr(tart, f.name)
+        if v is None:
+            assert w is None, f.name
+        elif hasattr(v, "q"):
+            assert_bit_equal(v.q, w.q)
+            assert_bit_equal(v.scale, w.scale)
+            assert v.bits == w.bits
+        elif isinstance(v, (str, int, float)):
+            assert v == w, f.name
+        else:
+            assert_bit_equal(v, w)
+    tens = port_ensemble(ens)
+    assert_bit_equal(ens.feat, tens.feat)
+    assert_bit_equal(ens.thresh, tens.thresh)
+    assert_bit_equal(ens.leaf, tens.leaf)
+    assert tens.kind == "rf" and tens.depth == 3 and tens.n_trees == 3
