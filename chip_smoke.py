@@ -6,20 +6,45 @@
 Phases (any failure exits non-zero before the result line is printed):
   1. environment: versions, the card, its power limit; TF32 off.
   2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a
-     (one process per source, started together).
-  3. kernel vs plain: the tree-ensemble lookup kernel against its plain
-     PyTorch version on the card, atol=0, at the serving shapes (the
-     anomaly RF switch artifact, the mapped 60-tree XGB backend artifact,
-     a synthetic vote artifact past the select crossover), both selects,
-     tables staged in shared memory and read from global memory.
-  4. serve: the main path, ``repro_torch.launch.serve`` at its full default
-     widths on the card (RF 10x5 switch, XGB 60x6 backend, tau 0.7,
-     capacity 1024, batch 2048), once with select=auto (the matmul-select
-     kernel) and once with select=compare; the kernel's launch counts must
-     show one launch per classify, the predictions must equal those of the
-     same server on the plain path, and one classify must not sync the host.
+     (one process per source, started together): the tree lookup (B1/B2),
+     the classical lookup (B3) and the standalone range match (B4), all
+     sharing ``csrc/range_match.cuh``.
+  3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
+     the tree lookup at the serving shapes (the anomaly RF switch artifact,
+     the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
+     the select crossover), both selects, tables staged in shared memory
+     and read from global memory; the classical lookup (N also 1952, the
+     ragged last batch) on the SVM, NB and K-Means switch artifacts that
+     phase 4 serves (staged and global) and on a synthetic 5-class SVM
+     table (F=8, 128 bins, M=10) whose staged tables need the >48 KB
+     opt-in; the range match at the main path's own shape (all 16000
+     training rows against the fit's 64-bin quantile edges), on the served
+     edges (5, 63) and on a synthetic (8, 255) set with inputs on the
+     edges and at +-inf.
+  4. serve, two paths, each with every launch count set to 0 just before
+     it and read just after:
+     a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
+        switch, XGB 60x6 backend, tau 0.7, capacity 1024, batch 2048),
+        once with select=auto (the matmul-select kernel) and once with
+        select=compare;
+     b. the SVM, naive Bayes, K-Means and isolation-forest switches (64
+        bins, 16 action bits; isolation forest 32 trees of depth 6), each
+        trained and mapped on the card and served by ``HybridServer`` in
+        front of the XGB 60x6 backend over all 4000 test rows in batches
+        of 2048 (the last one ragged, 1952 rows); then the served
+        isolation-forest tables against the plain lookup at N in
+        {1, 300, 1952, 2048}.
+     Each classify must launch its switch kernel once, the predictions must
+     equal those of the same server on the plain path, the switch's answers
+     must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
+     where it is a transcendental's output), and one classify must not
+     sync the host.
   5. times: CUDA events, median over repetitions after warm-up, for each
-     kernel, its plain version and one full classify batch.
+     kernel, its plain version, the library call where one computes the
+     same function (``torch.searchsorted`` for the range match), and one
+     full classify batch per switch family. Each kernel at its main-path
+     shape: the lookups at a 2048-row batch, the range match at the
+     16000-row fit.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -83,6 +108,18 @@ def _graph_ms(torch, fn, inner=50) -> float:
     return _median_ms(torch, graph.replay) / inner
 
 
+def _ulp_ok(ref, got, ulps=2) -> bool:
+    """The port's confidence rule: within ``ulps`` ulps of the larger of
+    conf and 1 - conf (the gap a transcendental may leave)."""
+    import numpy as np
+    a = np.asarray(ref, np.float32)
+    b = np.asarray(got, np.float32)
+    unit = np.maximum(np.spacing(np.abs(a)),
+                      np.spacing(np.abs(np.float32(1.0) - a)))
+    return bool(np.all(np.abs(a.astype(np.float64) - b.astype(np.float64))
+                       <= ulps * unit.astype(np.float64)))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -99,16 +136,22 @@ def main() -> int:
 
     import numpy as np
     from repro_torch.core.artifact import (build_dtable_flat, flatten_ftable,
-                                           pad_dtable)
-    from repro_torch.core.hybrid import combine, dispatch
+                                           flatten_vtable, pad_dtable)
     from repro_torch.core.inference import table_predict
-    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.core.mapping import (map_kmeans, map_naive_bayes,
+                                          map_svm, map_tree_ensemble)
     from repro_torch.kernels import _build
+    from repro_torch.kernels import bucketize as bk
+    from repro_torch.kernels import classical_lookup as ck
     from repro_torch.kernels import ensemble_lookup as ek
     from repro_torch.kernels.ops import fused_classify
     from repro_torch.launch import serve
     from repro_torch.launch.serve import build_usecase
-    from repro_torch.ml.trees import fit_random_forest, fit_xgboost
+    from repro_torch.ml.kmeans import fit_kmeans
+    from repro_torch.ml.naive_bayes import fit_gaussian_nb
+    from repro_torch.ml.svm import fit_linear_svm
+    from repro_torch.ml.trees import (fit_random_forest, fit_xgboost,
+                                      quantile_bin_edges)
     from repro_torch.serving.hybrid_serving import HybridServer
 
     # -- 1. environment ------------------------------------------------------
@@ -131,7 +174,7 @@ def main() -> int:
                 print(f"  ptxas[{name}]: {line.strip()}")
 
     # -- 3. kernel vs plain --------------------------------------------------
-    xtr, ytr, xte, _ = build_usecase("anomaly", n=20000)
+    xtr, ytr, xte, yte = build_usecase("anomaly", n=20000)
     rf = fit_random_forest(xtr, ytr, n_classes=2, n_trees=10, max_depth=5,
                            seed=0, device=dev)
     rf_art = map_tree_ensemble(rf, 5).to(dev)
@@ -160,6 +203,21 @@ def main() -> int:
     def tables(art):
         return (art.edges, art.ftable_flat, art.dtable_flat, art.dtable_pad)
 
+    def check_launch(kernel_key, name, call, plain, detail):
+        """One kernel call against its plain version: exactly one launch,
+        equal output."""
+        before = _counts()[kernel_key]
+        out_k = call()
+        torch.cuda.synchronize()
+        launched = _counts()[kernel_key] - before
+        out_p = plain()
+        err = float((out_k.double() - out_p.double()).abs().max()) \
+            if out_k.numel() else 0.0
+        print(f"case {name} {detail} launches={launched} max_abs_diff={err}")
+        if launched != 1 or out_k.dtype != out_p.dtype \
+                or not torch.equal(out_k, out_p):
+            raise AssertionError(f"kernel != plain for {name} {detail}")
+
     cases = [("rf_switch", tables(rf_art), x_all, "auto", None),
              ("rf_switch", tables(rf_art), x_all, "compare", None),
              ("rf_switch", tables(rf_art), x_all, "matmul", False),
@@ -176,45 +234,118 @@ def main() -> int:
                            128) if staged is None else staged)
         for n in (1, 300, 2048):
             x = x_src[:n].contiguous()
-            before = dict(ek.LAUNCHES)
-            out_k = ek.ensemble_lookup_fused(x, *tabs, select=select,
-                                             staged=staged)
-            torch.cuda.synchronize()
-            launched = ek.LAUNCHES[resolved] - before[resolved]
-            out_p = ek.ensemble_lookup_fused_ref(x, *tabs, select=select)
-            err = float((out_k - out_p).abs().max())
-            print(f"case {name} N={n} F={f} U={u} T={t} Sp={s_pad} Co={cout} "
-                  f"select={select}->{resolved} staged={st} "
-                  f"launches={launched} max_abs_diff={err}")
-            if launched != 1 or not torch.equal(out_k, out_p):
-                raise AssertionError(f"kernel != plain for {name} N={n} "
-                                     f"select={select} staged={staged}")
+            check_launch(
+                resolved, name,
+                lambda: ek.ensemble_lookup_fused(x, *tabs, select=select,
+                                                 staged=staged),
+                lambda: ek.ensemble_lookup_fused_ref(x, *tabs, select=select),
+                f"N={n} F={f} U={u} T={t} Sp={s_pad} Co={cout} "
+                f"select={select}->{resolved} staged={st}")
+
+    # the classical switch artifacts at the served width (64 bins, 16 bits),
+    # built once: phase 3 checks, phase 4 serves and phase 5 times these
+    km = fit_kmeans(xtr, k=2, seed=0, device=dev)
+    classical_arts = {
+        "svm": map_svm(fit_linear_svm(xtr, ytr, n_classes=2, device=dev),
+                       xtr).to(dev),
+        "nb": map_naive_bayes(fit_gaussian_nb(xtr, ytr, n_classes=2,
+                                              device=dev), xtr).to(dev),
+        "kmeans": map_kmeans(km, xtr).to(dev)}
+    # a synthetic 5-class SVM table (all 10 pairs) at 128 bins over 8
+    # features: 8 * 128 * 16 * 4 B = 64 KB staged, past the 48 KB default
+    cls_f, cls_u, cls_m = 8, 127, 10
+    cls_edges = np.sort(rng.normal(size=(cls_f, cls_u)), axis=1)
+    cls_edges[:, -9:] = np.inf
+    cls_q = rng.integers(-32767, 32768, (cls_f, cls_u + 1, cls_m))
+    cls_tabs = (torch.tensor(cls_edges, dtype=torch.float32, device=dev),
+                flatten_vtable(torch.tensor(cls_q, dtype=torch.int32)).to(dev),
+                cls_m)
+
+    def edge_rows(edges, n):
+        """Rows around the edges, a quarter exactly on one, +-inf in two."""
+        e = edges.cpu().numpy()
+        f, u = e.shape
+        finite = np.isfinite(e).sum(axis=1)
+        x = (rng.normal(size=(n, f)) * 1.5).astype(np.float32)
+        on = rng.random((n, f)) < 0.25
+        col = (rng.random((n, f)) * finite[None, :]).astype(np.int64)
+        pick = e[np.arange(f)[None, :], col]
+        x[on] = pick[on]
+        x[0, 0], x[1, 0] = np.inf, -np.inf
+        return torch.tensor(x, device=dev)
+
+    x_cls = edge_rows(cls_tabs[0], 2048)
+    cl_cases = [(k, (a.edges, a.vtable_flat, a.vtable.q.shape[2]), x_all)
+                for k, a in classical_arts.items()]
+    cl_cases.append(("synthetic_svm5", cls_tabs, x_cls))
+    for name, (edges, vflat, m), x_src in cl_cases:
+        f, u = edges.shape
+        b_pad, m_pad = vflat.shape[0] // f, vflat.shape[1]
+        fits = ck.fits_smem(f, u, b_pad, m_pad)
+        for staged in (None, False):
+            for n in (1, 300, 1952, 2048):       # 1952: the ragged last batch
+                x = x_src[:n].contiguous()
+                check_launch(
+                    "classical", f"classical:{name}",
+                    lambda: ck.classical_lookup_fused(x, edges, vflat, m,
+                                                      staged=staged),
+                    lambda: ck.classical_lookup_fused_ref(x, edges, vflat, m),
+                    f"N={n} F={f} U={u} Bp={b_pad} M={m} Mp={m_pad} "
+                    f"staged={fits if staged is None else staged} "
+                    f"smem={ck.smem_bytes(f, u, b_pad, m_pad, True)}B")
+
+    served_edges = classical_arts["svm"].edges
+    syn_b4 = np.sort(rng.normal(size=(8, 255)), axis=1)
+    syn_b4[:, -31:] = np.inf
+    syn_b4 = torch.tensor(syn_b4, dtype=torch.float32, device=dev)
+    # the main path's own B4 call: a tree fit bins all 16000 training rows
+    # with the 64-bin quantile edges it computes (ml/trees.py bin_data)
+    xtr_dev = torch.as_tensor(xtr, dtype=torch.float32, device=dev)
+    fit_edges = quantile_bin_edges(xtr_dev, 64)
+    b4_cases = [("fit", fit_edges, xtr_dev, (xtr_dev.shape[0],))]
+    b4_cases += [(name, edges, edge_rows(edges, 2048), (1, 300, 2048))
+                 for name, edges in (("served", served_edges),
+                                     ("synthetic", syn_b4))]
+    for name, edges, x_src, ns in b4_cases:
+        for n in ns:
+            x = x_src[:n].contiguous()
+            check_launch("bucketize", f"bucketize:{name}",
+                         lambda: bk.bucketize(x, edges),
+                         lambda: bk.bucketize_ref(x, edges),
+                         f"N={n} F={edges.shape[0]} U={edges.shape[1]}")
 
     # small-input agreement with the plain table semantics (CPU)
-    p_dev, c_dev = fused_classify(rf_art, x_all[:64], device="cuda")
-    p_cpu, c_cpu = table_predict(rf_art.to("cpu"), xte[:64])
-    if not (torch.equal(p_dev.cpu(), p_cpu) and torch.equal(c_dev.cpu(), c_cpu)):
-        bad = ((p_dev.cpu() != p_cpu) | (c_dev.cpu() != c_cpu)).nonzero()
-        raise AssertionError(
-            f"fused_classify on the card != table_predict on the CPU at rows "
-            f"{bad[:8, 0].tolist()}: pred {p_dev[bad[:8, 0]].tolist()} vs "
-            f"{p_cpu[bad[:8, 0].cpu()].tolist()}, conf "
-            f"{c_dev[bad[:8, 0]].tolist()} vs {c_cpu[bad[:8, 0].cpu()].tolist()}")
+    def check_vs_cpu(art, name):
+        p_dev, c_dev = fused_classify(art, x_all[:64], device="cuda")
+        p_cpu, c_cpu = table_predict(art.to("cpu"), xte[:64])
+        same_pred = torch.equal(p_dev.cpu().long(), p_cpu.long())
+        conf_ok = (torch.equal(c_dev.cpu(), c_cpu) if art.agg == "vote"
+                   else _ulp_ok(c_cpu.numpy(), c_dev.cpu().numpy()))
+        if not (same_pred and conf_ok):
+            bad = ((p_dev.cpu().long() != p_cpu.long())
+                   | (c_dev.cpu() != c_cpu)).nonzero()[:8, 0]
+            raise AssertionError(
+                f"{name}: fused_classify on the card != table_predict on the "
+                f"CPU at rows {bad.tolist()}: pred {p_dev.cpu()[bad].tolist()}"
+                f" vs {p_cpu[bad].tolist()}, conf {c_dev.cpu()[bad].tolist()}"
+                f" vs {c_cpu[bad].tolist()}")
 
-    # -- 4. serve: the main path ---------------------------------------------
-    ek.reset_launches()
+    check_vs_cpu(rf_art, "rf_switch")
+
+    # -- 4a. serve: the RF switch through the launcher -------------------------
+    _reset_counts()
     runs = {}
     for select in ("auto", "compare"):
         print(f"serve --select {select}:")
         runs[select] = serve.main(["--device", "cuda", "--select", select])
     torch.cuda.synchronize()
-    main_launches = dict(ek.LAUNCHES)
-    print(f"main-path launches: {main_launches}")
+    path_a = _counts()
+    print(f"main-path launches (a: launcher): {path_a}")
     for select, kernel in (("auto", "matmul"), ("compare", "compare")):
         res = runs[select]
         want = res["batches"]
-        if main_launches[kernel] != want:
-            raise AssertionError(f"{kernel}: {main_launches[kernel]} launches "
+        if path_a[kernel] != want:
+            raise AssertionError(f"{kernel}: {path_a[kernel]} launches "
                                  f"for {want} classify calls")
         srv = res["server"]
         plain = HybridServer(res["artifact"], srv.backend_fn,
@@ -238,6 +369,8 @@ def main() -> int:
               f"handled_at_switch={res['stats'].fraction_handled:.4f} "
               f"backend_rows={res['stats'].backend_rows} batches={want} "
               f"preds_equal_plain=True")
+    if path_a["bucketize"] < 1:
+        raise AssertionError("training on the card did not bin through B4")
 
     server = runs["auto"]["server"]
     xb = runs["auto"]["x_test"][:2048]
@@ -246,6 +379,67 @@ def main() -> int:
     server.classify(xb)
     torch.cuda.set_sync_debug_mode(0)
     print("classify: no host sync under torch.cuda.set_sync_debug_mode('error')")
+
+    # -- 4b. serve: the classical switches and the isolation forest -----------
+    big = runs["auto"]["backend_model"]             # XGB 60x6, trained on the card
+    path_b, families = _serve_families(torch, np, dev, xtr, ytr, x_all, yte,
+                                       big, classical_arts, km)
+    print(f"main-path launches (b: classical + isolation forest): {path_b}")
+    n_batches = sum(len(fam["batches"]) for fam in families.values()
+                    if fam["server"].artifact.ftable is None)
+    if path_b["classical"] != n_batches:
+        raise AssertionError(f"classical: {path_b['classical']} launches for "
+                             f"{n_batches} classify calls")
+    ifo = families["iforest"]
+    ifo_art = ifo["server"].artifact
+    ifo_select = ek.resolve_select("auto", ifo_art.n_trees,
+                                   ifo_art.dtable_flat.shape[2], 1)
+    if path_b[ifo_select] != len(ifo["batches"]):
+        raise AssertionError(f"{ifo_select}: {path_b[ifo_select]} launches for "
+                             f"{len(ifo['batches'])} isolation-forest "
+                             f"classify calls")
+    if path_b["bucketize"] < 1:
+        raise AssertionError("the isolation forest did not bin through B4")
+    # the served isolation-forest tables against the plain lookup, at the
+    # batch sizes the path gave them (counted outside the path's run)
+    ifo_tabs = tables(ifo_art)
+    for n in (1, 300, 1952, 2048):
+        x = x_all[:n].contiguous()
+        check_launch(
+            ifo_select, "iforest_switch",
+            lambda: ek.ensemble_lookup_fused(x, *ifo_tabs),
+            lambda: ek.ensemble_lookup_fused_ref(x, *ifo_tabs),
+            f"N={n} T={ifo_art.n_trees} Sp={ifo_art.dtable_flat.shape[2]} "
+            f"Co=1 select=auto->{ifo_select}")
+    for name, fam in families.items():
+        srv = fam["server"]
+        plain = HybridServer(srv.artifact, srv.backend_fn,
+                             threshold=srv.threshold, capacity=srv.capacity,
+                             use_kernel=False, device="cuda")
+        plain_pred = torch.cat([plain.classify(x_all[lo:hi])[0]
+                                for lo, hi in fam["batches"]])
+        if not torch.equal(fam["raw_pred"], plain_pred):
+            raise AssertionError(f"{name}: served preds != plain preds")
+        check_vs_cpu(srv.artifact, name)
+        if not set(fam["pred"].unique().tolist()) <= {0, 1}:
+            raise AssertionError(f"{name}: predictions outside the classes")
+        for key in ("acc", "precision", "recall", "f1", "handled"):
+            if not np.isfinite(fam[key]):
+                raise AssertionError(f"{name}: {key} is not finite")
+        print(f"serve[{name}] acc={fam['acc']:.4f} "
+              f"precision={fam['precision']:.4f} recall={fam['recall']:.4f} "
+              f"f1={fam['f1']:.4f} handled_at_switch={fam['handled']:.4f} "
+              f"backend_rows={fam['backend_rows']} rows={fam['pred'].shape[0]} "
+              f"batches={[hi - lo for lo, hi in fam['batches']]} "
+              f"{fam['note']}preds_equal_plain=True")
+    for name in ("svm", "nb", "kmeans"):
+        srv = families[name]["server"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        srv.classify(xb)
+        torch.cuda.set_sync_debug_mode(0)
+    print("classical classify (svm, nb, kmeans): no host sync under "
+          "torch.cuda.set_sync_debug_mode('error')")
 
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
@@ -258,37 +452,42 @@ def main() -> int:
     for name, art, x, select, replaces in timing_cases:
         tabs = tables(art)
         kernel_rows.append(_time_kernel(torch, ek, name, tabs, x, select,
-                                        replaces, main_launches[select]))
+                                        replaces, path_a[select]))
     # the backend's compare shape, reported beside the main-path rows
-    extra = _time_kernel(torch, ek, "ensemble_lookup:compare[xgb_backend]",
-                         tables(xgb_art), x2048, "compare",
-                         "src/repro/kernels/ensemble_lookup.py:132", 0)
-    classify_ms = _median_ms(torch, lambda: server.classify(xb))
-    classify_graph_ms = _graph_ms(torch, lambda: server.classify(xb), inner=5)
-    print(f"time classify(batch=2048, full hybrid step) median "
-          f"{classify_ms:.4f} ms per eager call, {classify_graph_ms:.4f} ms "
-          f"device time (graph replay) on {smi}")
-    # where one classify's time goes, part by part (eager calls)
-    sw_pred, conf = fused_classify(server.artifact, xb, tiles=server.tiles,
-                                   device="cuda")
-    fwd = conf < server.threshold
-    buf, idx, valid = dispatch(xb, fwd, server.capacity)
-    be_pred = server.backend_fn(buf)
-    parts = {
-        "switch(fused_classify)": lambda: fused_classify(
-            server.artifact, xb, tiles=server.tiles, device="cuda"),
-        "dispatch": lambda: dispatch(xb, fwd, server.capacity),
-        "backend(xgb 60x6)": lambda: server.backend_fn(buf),
-        "combine": lambda: combine(sw_pred, be_pred, idx, valid)}
-    print("time classify parts: " + ", ".join(
-        f"{k} {_median_ms(torch, fn):.4f} ms" for k, fn in parts.items())
-        + f" on {smi}")
-    for row in kernel_rows + [extra]:
+    extra = [_time_kernel(torch, ek, "ensemble_lookup:compare[xgb_backend]",
+                          tables(xgb_art), x2048, "compare",
+                          "src/repro/kernels/ensemble_lookup.py:132", 0),
+             _time_kernel(torch, ek, "ensemble_lookup:compare[iforest]",
+                          tables(ifo_art), x2048, "compare",
+                          "src/repro/kernels/ensemble_lookup.py:132",
+                          path_b["compare"])]
+    cl_rows = {name: _time_classical(torch, ck, f"classical_lookup[{name}]",
+                                     families[name]["server"].artifact, x2048,
+                                     path_b["classical"])
+               for name in ("nb", "svm", "kmeans")}
+    kernel_rows.append(dict(cl_rows["nb"], name="classical_lookup"))
+    kernel_rows.append(_time_bucketize(torch, bk, fit_edges, xtr_dev,
+                                       path_b["bucketize"]))
+    for row in kernel_rows + extra + [cl_rows["svm"], cl_rows["kmeans"]]:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.5f} ms")
         print(f"time {row['name']}: kernel {row['ms']:.5f} ms (graph), "
               f"{row['ms_eager']:.5f} ms (eager call); plain "
               f"{row['plain_ms']:.5f} ms (graph), "
-              f"{row['plain_ms_eager']:.5f} ms (eager); bound "
-              f"{row['bound_ms']:.6f} ms ({row['bound_by']}); on {smi}")
+              f"{row['plain_ms_eager']:.5f} ms (eager); library {lib}; bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
+              f"shape {row['shape']}; on {smi}")
+
+    for name, srv in [("rf", server)] + [(k, families[k]["server"])
+                                         for k in ("svm", "nb", "kmeans",
+                                                   "iforest")]:
+        eager = _median_ms(torch, lambda: srv.classify(xb))
+        graph = _graph_ms(torch, lambda: srv.classify(xb), inner=5)
+        print(f"time classify[{name}](batch=2048, full hybrid step, XGB 60x6 "
+              f"backend) median {eager:.4f} ms per eager call, {graph:.4f} ms "
+              f"device time (graph replay) on {smi}")
+    _time_parts(torch, fused_classify, server, xb, "rf", smi)
+    _time_parts(torch, fused_classify, families["nb"]["server"], xb, "nb", smi)
 
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
@@ -300,6 +499,172 @@ def main() -> int:
     return 0
 
 
+def _reset_counts():
+    from repro_torch.kernels import bucketize, classical_lookup, ensemble_lookup
+    for mod in (bucketize, classical_lookup, ensemble_lookup):
+        mod.reset_launches()
+
+
+def _counts() -> dict:
+    """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B3
+    classical, B4 bucketize)."""
+    from repro_torch.kernels import bucketize, classical_lookup, ensemble_lookup
+    return {**ensemble_lookup.LAUNCHES, **classical_lookup.LAUNCHES,
+            **bucketize.LAUNCHES}
+
+
+def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,
+                    classical_arts, km):
+    """Serve the SVM, NB and K-Means switch artifacts (``classical_arts``,
+    built once by the caller; ``km`` is the K-Means model) and the
+    isolation forest, trained and mapped here, in front of the XGB backend,
+    over every test row in batches of 2048. Launch counts are set to 0
+    first and read last. K-Means serves cluster ids, so its backend answers
+    in cluster ids too and the model zoo's majority flip maps the final
+    answers to classes, outside the server."""
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.ml.kmeans import predict_kmeans
+    from repro_torch.ml.metrics import accuracy, precision_recall_f1
+    from repro_torch.ml.trees import fit_isolation_forest, predict_margin_xgboost
+    from repro_torch.serving.hybrid_serving import HybridServer
+
+    def xgb_fn(rows):
+        return (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
+
+    n = x_all.shape[0]
+    batches = [(lo, min(lo + 2048, n)) for lo in range(0, n, 2048)]
+    _reset_counts()
+    out = {}
+    for name in ("svm", "nb", "kmeans", "iforest"):
+        backend, flip, note = xgb_fn, False, ""
+        art = classical_arts.get(name)
+        if name == "kmeans":
+            assign = predict_kmeans(km, xtr).cpu().numpy()
+            maj = [int(np.round(np.mean(ytr[assign == c])))
+                   if np.any(assign == c) else c for c in range(2)]
+            flip = maj[0] == 1
+            note = f"flip={flip} "
+            if flip:
+                def backend(rows):
+                    return 1 - xgb_fn(rows)
+        elif name == "iforest":
+            art = map_tree_ensemble(fit_isolation_forest(xtr, device=dev),
+                                    xtr.shape[1])
+        srv = HybridServer(art, backend, threshold=0.7, capacity=1024,
+                           device=dev)
+        preds, stats = [], []
+        for lo, hi in batches:
+            p, st = srv.classify(x_all[lo:hi])
+            preds.append(p)
+            stats.append(st)
+        out[name] = dict(server=srv, batches=batches, flip=flip, note=note,
+                         raw_pred=torch.cat(preds), stats=stats)
+    torch.cuda.synchronize()
+    path = _counts()
+    for fam in out.values():
+        raw = fam["raw_pred"]
+        pred = 1 - raw if fam["flip"] else raw
+        p, r, f1 = precision_recall_f1(yte, pred)
+        rows = [hi - lo for lo, hi in fam["batches"]]
+        fam.update(pred=pred, acc=accuracy(yte, pred), precision=p, recall=r,
+                   f1=f1, backend_rows=sum(s.backend_rows for s in fam["stats"]),
+                   handled=sum(s.fraction_handled * k
+                               for s, k in zip(fam["stats"], rows)) / sum(rows))
+    return path, out
+
+
+def _time_parts(torch, fused_classify, server, xb, label, smi):
+    """Where one classify's time goes, part by part (eager calls)."""
+    from repro_torch.core.hybrid import combine, dispatch
+    sw_pred, conf = fused_classify(server.artifact, xb, tiles=server.tiles,
+                                   device="cuda")
+    fwd = conf < server.threshold
+    buf, idx, valid = dispatch(xb, fwd, server.capacity)
+    be_pred = server.backend_fn(buf)
+    parts = {
+        "switch(fused_classify)": lambda: fused_classify(
+            server.artifact, xb, tiles=server.tiles, device="cuda"),
+        "dispatch": lambda: dispatch(xb, fwd, server.capacity),
+        "backend(xgb 60x6)": lambda: server.backend_fn(buf),
+        "combine": lambda: combine(sw_pred, be_pred, idx, valid)}
+    print(f"time classify[{label}] parts: " + ", ".join(
+        f"{k} {_median_ms(torch, fn):.4f} ms" for k, fn in parts.items())
+        + f" on {smi}")
+
+
+def _bound(n_bytes, ops):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _times(torch, kernel, plain, library=None):
+    """(kernel graph ms, kernel eager ms, plain graph ms, plain eager ms,
+    library ms or None): device time per call from a CUDA graph of 50
+    calls, and one eager Python call, each a median of CUDA-event timings."""
+    return (_graph_ms(torch, kernel), _median_ms(torch, kernel, inner=20),
+            _graph_ms(torch, plain), _median_ms(torch, plain, inner=20),
+            None if library is None else _graph_ms(torch, library))
+
+
+def _time_classical(torch, ck, name, art, x, launches):
+    edges, vflat = art.edges, art.vtable_flat
+    m = art.vtable.q.shape[2]
+    n, f = x.shape
+    u = edges.shape[1]
+    out_k = ck.classical_lookup_fused(x, edges, vflat, m)
+    out_p = ck.classical_lookup_fused_ref(x, edges, vflat, m)
+    err = float((out_k - out_p).abs().max())
+    ms, ms_eager, plain_ms, plain_eager, _ = _times(
+        torch, lambda: ck.classical_lookup_fused(x, edges, vflat, m),
+        lambda: ck.classical_lookup_fused_ref(x, edges, vflat, m))
+    # bound: x and edges read once, the M values of each (feature, bin)
+    # these rows touch read once, the (N, M) output written once; N*F*U
+    # compares and N*F*M adds
+    bins = ck.bucketize_ref(x, edges).long()
+    b_pad = vflat.shape[0] // f
+    touched = torch.unique(bins + torch.arange(f, device=x.device) * b_pad)
+    n_bytes = 4 * (x.numel() + edges.numel() + touched.numel() * m + n * m)
+    ops = n * f * u + n * f * m
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/classical_lookup.cu",
+            "replaces": "src/repro/kernels/classical_lookup.py:36",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "ms_eager": ms_eager,
+            "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+            "shape": {"N": n, "F": f, "U": u, "Bp": vflat.shape[0] // f,
+                      "M": m, "Mp": vflat.shape[1], "agg": art.agg}}
+
+
+def _time_bucketize(torch, bk, edges, x, launches):
+    n, f = x.shape
+    u = edges.shape[1]
+    out_k = bk.bucketize(x, edges)
+    out_p = bk.bucketize_ref(x, edges)
+    err = float((out_k - out_p).abs().max())
+    xt = x.t().contiguous()
+    lib = torch.searchsorted(edges, xt)           # (F, N): #{u : e < x}
+    print(f"library torch.searchsorted(edges, x.T) equals the kernel: "
+          f"{torch.equal(lib.t().to(torch.int32), out_k)}")
+    ms, ms_eager, plain_ms, plain_eager, library_ms = _times(
+        torch, lambda: bk.bucketize(x, edges),
+        lambda: bk.bucketize_ref(x, edges),
+        lambda: torch.searchsorted(edges, xt))
+    n_bytes = 4 * (x.numel() + edges.numel() + n * f)
+    ops = n * f * u
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    return {"name": "bucketize", "route": "cuda",
+            "source": "src/repro_torch/csrc/bucketize.cu",
+            "replaces": "src/repro/kernels/bucketize.py:32",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "ms_eager": ms_eager,
+            "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+            "shape": {"N": n, "F": f, "U": u}}
+
+
 def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
     edges, ftable_flat, dtable_flat, dtable_pad = tabs
     n, f = x.shape
@@ -308,15 +673,9 @@ def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
     out_k = ek.ensemble_lookup_fused(x, *tabs, select=select)
     out_p = ek.ensemble_lookup_fused_ref(x, *tabs, select=select)
     err = float((out_k - out_p).abs().max())
-
-    ms = _graph_ms(torch, lambda: ek.ensemble_lookup_fused(x, *tabs,
-                                                           select=select))
-    ms_eager = _median_ms(torch, lambda: ek.ensemble_lookup_fused(
-        x, *tabs, select=select), inner=20)
-    plain_ms = _graph_ms(torch, lambda: ek.ensemble_lookup_fused_ref(
-        x, *tabs, select=select))
-    plain_ms_eager = _median_ms(torch, lambda: ek.ensemble_lookup_fused_ref(
-        x, *tabs, select=select), inner=20)
+    ms, ms_eager, plain_ms, plain_ms_eager, _ = _times(
+        torch, lambda: ek.ensemble_lookup_fused(x, *tabs, select=select),
+        lambda: ek.ensemble_lookup_fused_ref(x, *tabs, select=select))
 
     # bound: bytes this call must move (x, edges, feature table read once;
     # the decision-table entries these rows touch; the output written once)
@@ -327,14 +686,12 @@ def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
     n_bytes = 4 * (x.numel() + edges.numel() + ftable_flat.numel()
                    + n * cout) + d_bytes
     ops = n * f * u + n * t * f + n * t * cout
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound_ms, bound_by = _bound(n_bytes, ops)
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/ensemble_lookup.cu",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "ms_eager": ms_eager,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "ms_eager": ms_eager,
             "plain_ms_eager": plain_ms_eager, "bytes": n_bytes, "ops": ops,
             "shape": {"N": n, "F": f, "U": u, "T": t, "Sp": s_pad,
                       "Co": cout}}

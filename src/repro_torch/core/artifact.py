@@ -237,10 +237,21 @@ def pad_dtable(dtable, lane: int = LANE) -> torch.Tensor:
     return out
 
 
-def finalize_artifact(art: TableArtifact, lane: int = LANE) -> TableArtifact:
+def finalize_artifact(art: TableArtifact, lane: int = LANE,
+                      profile=None) -> TableArtifact:
     """Attach the fused-kernel layout (idempotent). Runs control-plane side,
-    once per table load. (The reference's ``profile=`` deploy guard waits
-    for the port of ``core/resources.py``.)"""
+    once per table load.
+
+    profile: optional ``core.resources.DeviceProfile`` deploy guard — the
+    artifact is checked against the device budget *before* any layout work
+    and a ``FitError`` aborts the load if it cannot deploy (see
+    ``core.resources.check_fit``). None (default) keeps finalization
+    unconditional.
+    """
+    if profile is not None:
+        # local import: resources imports this module for TableArtifact
+        from repro_torch.core.resources import check_fit
+        check_fit(art, profile, strict=True)
     if art.ftable is not None:
         if art.ftable_flat is not None:
             return art

@@ -1,11 +1,12 @@
-"""IIsy's mapping tool: trained tree ensemble -> TableArtifact (§4 of the paper).
+"""IIsy's mapping tool: trained model -> TableArtifact (§4 of the paper).
 
-Port of ``repro/core/mapping.py`` (``map_tree_ensemble``; the classical
-mappings wait for the SVM/NB/K-Means slice). Key ideas, as in the paper:
+Port of ``repro/core/mapping.py``. Key ideas, as in the paper:
   * one feature table per feature, **shared across all trees** of an ensemble
     (§4.2 "Ilsy significantly reduces resources by sharing feature tables");
   * per-tree decision tables keyed on the concatenated per-feature codes, so
     the number of lookup stages is independent of tree depth (§4.1);
+  * classical models (SVM / NB / K-Means) as per-feature value tables whose
+    quantized partial terms are summed at the end of the pipeline (§4.3);
   * payload quantization controlled by ``action_bits`` (§7.7 / Fig 9).
 
 Mapping runs host-side in numpy (the paper's control-plane "python
@@ -20,7 +21,16 @@ import torch
 
 from repro_torch.core.artifact import TableArtifact, finalize_artifact
 from repro_torch.core.quantize import quantize_fixed
+from repro_torch.device import to_numpy
+from repro_torch.ml.kmeans import KMeansModel
+from repro_torch.ml.naive_bayes import GaussianNB
+from repro_torch.ml.svm import LinearSVM
 from repro_torch.ml.trees import TreeEnsemble
+
+
+# ---------------------------------------------------------------------------
+# tree family
+# ---------------------------------------------------------------------------
 
 
 def _tree_thresholds(feat, thresh, n_features):
@@ -45,9 +55,9 @@ def _leaf_walk(feat, thresh, x, depth):
 def map_tree_ensemble(ens: TreeEnsemble, n_features: int, *,
                       action_bits: int = 16,
                       max_decision_entries: int = 2_000_000) -> TableArtifact:
-    feat = ens.feat.cpu().numpy()        # (T, H)
-    thresh = ens.thresh.cpu().numpy()    # (T, H)
-    leaf = ens.leaf.cpu().numpy()        # (T, L, C)
+    feat = to_numpy(ens.feat)           # (T, H)
+    thresh = to_numpy(ens.thresh)       # (T, H)
+    leaf = to_numpy(ens.leaf)           # (T, L, C)
     n_trees, depth = ens.n_trees, ens.depth
 
     per_tree = [_tree_thresholds(feat[t], thresh[t], n_features)
@@ -137,3 +147,121 @@ def map_tree_ensemble(ens: TreeEnsemble, n_features: int, *,
         dtable_class=torch.from_numpy(dtable_class),
         dtable_value=quantize_fixed(dtable_value, action_bits),
         base_score=ens.base_score, learning_rate=ens.learning_rate))
+
+
+# ---------------------------------------------------------------------------
+# classical family — quantile-binned value tables
+# ---------------------------------------------------------------------------
+
+def _quantile_edges(x_train, n_bins):
+    qs = np.linspace(0, 1, n_bins + 1)[1:-1]
+    return np.quantile(to_numpy(x_train, np.float32), qs, axis=0).T  # (F, B-1)
+
+
+def _bin_centers(edges_f):
+    """Representative value per bin given one feature's edges (len B-1)."""
+    e = edges_f
+    if len(e) == 0:
+        return np.zeros(1, np.float32)
+    mid = (e[:-1] + e[1:]) / 2.0
+    span = max(e[-1] - e[0], 1e-6)
+    return np.concatenate([[e[0] - 0.05 * span], mid, [e[-1] + 0.05 * span]])
+
+
+def _data_reps(x_f, edges_f, n_bins):
+    """Per-bin representative = mean of training values landing in the bin.
+
+    Midpoint reps are badly wrong for discrete features (duplicate quantile
+    edges make the midpoint of a {0,1} feature 0.5); the control plane has the
+    training data anyway, so it loads the empirical bin mean and falls back to
+    the geometric midpoint only for bins no training point hits.
+    """
+    mids = _bin_centers(edges_f)
+    reps = np.zeros(n_bins, np.float32)
+    reps[:len(mids)] = mids
+    bins = np.sum(x_f[:, None] > edges_f[None, :], axis=1)  # match feature_bins
+    sums = np.bincount(bins, weights=x_f, minlength=n_bins)[:n_bins]
+    cnts = np.bincount(bins, minlength=n_bins)[:n_bins]
+    hit = cnts > 0
+    reps[hit] = (sums[hit] / cnts[hit]).astype(np.float32)
+    return reps
+
+
+def _padded_edges(edges, n_bins):
+    """(F, B-1) quantile edges padded with +inf to the artifact's edge table."""
+    pad = np.full((edges.shape[0], n_bins - 1), np.inf, np.float32)
+    pad[:, :edges.shape[1]] = edges
+    return torch.from_numpy(pad)
+
+
+def map_svm(model: LinearSVM, x_train, *, n_bins=64,
+            action_bits: int = 16) -> TableArtifact:
+    """Table-per-feature SVM mapping (paper §4.3 / Appendix A.1, option 1).
+
+    vtable[f, b, j] = a_{j,f} * rep(bin b of feature f)  (quantized); the
+    hyperplane value is the sum over features plus the intercept.
+    """
+    edges = _quantile_edges(x_train, n_bins)            # (F, B-1)
+    f_dim, m = edges.shape[0], model.weights.shape[0]
+    w = to_numpy(model.weights)                         # (m, F) on standardized x
+    mean, scale = to_numpy(model.mean), to_numpy(model.scale)
+    x_np = to_numpy(x_train, np.float32)
+    vtable = np.zeros((f_dim, n_bins, m), np.float32)
+    for f in range(f_dim):
+        reps = _data_reps(x_np[:, f], edges[f], n_bins)  # raw domain
+        reps_std = (reps - mean[f]) / scale[f]
+        vtable[f, :, :] = reps_std[:, None] * w[:, f][None, :]
+    return finalize_artifact(TableArtifact(
+        edges=_padded_edges(edges, n_bins), agg="svm_ovo",
+        n_classes=model.n_classes,
+        vtable=quantize_fixed(vtable, action_bits),
+        consts=torch.from_numpy(to_numpy(model.bias)),
+        pairs=torch.from_numpy(to_numpy(model.pairs, np.int32))))
+
+
+def map_naive_bayes(model: GaussianNB, x_train, *, n_bins=64,
+                    action_bits: int = 16) -> TableArtifact:
+    """Log-domain NB mapping: vtable[f, b, c] = log P(bin_rep | c).
+
+    The paper multiplies probabilities through paired tables; storing logs and
+    summing is the resource-optimal variant it alludes to ("coding the
+    results ... rather than normalizing values") and removes the underflow
+    error mode of Fig 9.
+    """
+    edges = _quantile_edges(x_train, n_bins)
+    f_dim, c_dim = model.mu.shape[1], model.mu.shape[0]
+    mu, var = to_numpy(model.mu), to_numpy(model.var)
+    x_np = to_numpy(x_train, np.float32)
+    vtable = np.zeros((f_dim, n_bins, c_dim), np.float32)
+    for f in range(f_dim):
+        reps = _data_reps(x_np[:, f], edges[f], n_bins)
+        d = reps[:, None] - mu[None, :, f]
+        vtable[f, :, :] = -0.5 * (
+            np.log(2 * np.pi * var[None, :, f]) + d * d / var[None, :, f])
+    return finalize_artifact(TableArtifact(
+        edges=_padded_edges(edges, n_bins), agg="nb_log", n_classes=c_dim,
+        vtable=quantize_fixed(vtable, action_bits),
+        consts=torch.from_numpy(to_numpy(model.log_prior))))
+
+
+def map_kmeans(model: KMeansModel, x_train, *, n_bins=64,
+               action_bits: int = 16, n_classes=None) -> TableArtifact:
+    """vtable[f, b, k] = (rep_std(bin) - center[k, f])^2 (quantized).
+
+    The served prediction is the cluster id; mapping clusters to classes
+    (the model zoo's majority flip) is the caller's business."""
+    edges = _quantile_edges(x_train, n_bins)
+    centers = to_numpy(model.centers)                   # (K, F) standardized
+    mean, scale = to_numpy(model.mean), to_numpy(model.scale)
+    f_dim, k_dim = edges.shape[0], centers.shape[0]
+    x_np = to_numpy(x_train, np.float32)
+    vtable = np.zeros((f_dim, n_bins, k_dim), np.float32)
+    for f in range(f_dim):
+        reps = (_data_reps(x_np[:, f], edges[f], n_bins) - mean[f]) / scale[f]
+        d = reps[:, None] - centers[None, :, f]
+        vtable[f, :, :] = d * d
+    return finalize_artifact(TableArtifact(
+        edges=_padded_edges(edges, n_bins), agg="kmeans",
+        n_classes=(n_classes or k_dim),
+        vtable=quantize_fixed(vtable, action_bits),
+        consts=torch.zeros(k_dim, dtype=torch.float32)))

@@ -4,7 +4,7 @@
 //   _fused_kernel          (:112, select='matmul')
 //   _fused_compare_kernel  (:132, select='compare')
 // Both compute, for each row n of x (N, F):
-//   range match   bins[f] = #{u : x[n,f] > edges[f,u]}            (+inf pads never match)
+//   range match   bins[f] = #{u : x[n,f] > edges[f,u]}            (range_match.cuh)
 //   decision key  key[t]  = sum_f ftab[(f*Bp + bins[f]) * Tp + t]  (stride-premultiplied)
 //   matmul select out[n,c] = sum_t dtab[(c*T + t) * Sp + key[t]]    (dtable_flat (Co,T,Sp))
 //   compare select leaf[t] = dtab[t * Sp + key[t]], then
@@ -35,13 +35,9 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
-#define EL_MAX_CO 32   // per-row output columns kept in registers
+#include "range_match.cuh"
 
-template <bool STAGED>
-__device__ __forceinline__ float el_load(const float* p) {
-  if (STAGED) return *p;        // shared memory
-  return __ldg(p);              // global, read-only path
-}
+#define EL_MAX_CO 32   // per-row output columns kept in registers
 
 template <bool COMPARE, bool STAGED>
 __global__ void ensemble_lookup_kernel(
@@ -74,10 +70,8 @@ __global__ void ensemble_lookup_kernel(
 
   const float* xr = x + (size_t)row * f_dim;
   for (int f = 0; f < f_dim; ++f) {
-    const float v = __ldg(xr + f);
-    const float* e = e_tab + (size_t)f * u_dim;
-    int b = 0;
-    for (int u = 0; u < u_dim; ++u) b += (v > el_load<STAGED>(e + u)) ? 1 : 0;
+    const int b = range_match<STAGED>(__ldg(xr + f), e_tab + (size_t)f * u_dim,
+                                      u_dim);
     rowoff[f * blockDim.x + threadIdx.x] = (f * b_pad + b) * t_pad;
   }
 
@@ -88,10 +82,10 @@ __global__ void ensemble_lookup_kernel(
   for (int t = 0; t < t_dim; ++t) {
     float kf = 0.f;
     for (int f = 0; f < f_dim; ++f)
-      kf += el_load<STAGED>(f_tab + rowoff[f * blockDim.x + threadIdx.x] + t);
+      kf += rm_load<STAGED>(f_tab + rowoff[f * blockDim.x + threadIdx.x] + t);
     const int key = (int)kf;                  // exact: integer below 2^24
     if (COMPARE) {
-      const float leaf = el_load<STAGED>(d_tab + (size_t)t * s_pad + key);
+      const float leaf = rm_load<STAGED>(d_tab + (size_t)t * s_pad + key);
       if (co == 1) {
         acc[0] += leaf;
       } else {
@@ -103,7 +97,7 @@ __global__ void ensemble_lookup_kernel(
 #pragma unroll
       for (int c = 0; c < EL_MAX_CO; ++c)
         if (c < co)
-          acc[c] += el_load<STAGED>(d_tab + ((size_t)c * t_dim + t) * s_pad + key);
+          acc[c] += rm_load<STAGED>(d_tab + ((size_t)c * t_dim + t) * s_pad + key);
     }
   }
   float* o = out + (size_t)row * co;

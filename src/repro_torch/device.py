@@ -59,3 +59,11 @@ def on_kernel_path(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise ValueError(f"no kernel route for a tensor on {t.device}")
+
+
+def to_numpy(a, dtype=None) -> np.ndarray:
+    """A tensor (on any device) or array-like as a numpy array: how the
+    host-side control plane (mapping, resource accounting) reads tables."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype)

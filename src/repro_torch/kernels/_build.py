@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, loaded with ``ctypes``. Builds happen at first use, into
 ``src/repro_torch/build/`` (ignored by git); the library's file name carries
-a hash of its source and flags, so an edited source is never served from a
-stale build. ``build_all`` starts one ``nvcc`` per source, all at once.
+a hash of its source, of every shared header (``csrc/*.cuh``) and of the
+flags, so an edited source or header is never served from a stale build.
+``build_all`` starts one ``nvcc`` per source, all at once; ``launch`` calls
+a built kernel through its plain C interface.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine need not have ``nvcc``.
@@ -20,6 +22,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -51,9 +55,13 @@ def sources() -> list:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}.{digest[:12]}.so"
+    """Build target of ``csrc/<name>.cu``; its name carries a digest of the
+    source, every ``csrc/*.cuh`` header and the flags."""
+    h = hashlib.sha1()
+    for path in [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}.{h.hexdigest()[:12]}.so"
 
 
 def _start_build(name: str):
@@ -102,3 +110,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def launch(name: str, device, pointers, ints) -> None:
+    """Call ``<name>_launch`` of ``csrc/<name>.cu`` on the current stream of
+    ``device``: the device pointers, then the ints, then the stream (the
+    plain C interface every kernel source exports). Raises RuntimeError
+    with CUDA's message when the launch is refused."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    msg = getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:        # argtypes last: it marks the binding done
+        p, i = ctypes.c_void_p, ctypes.c_int
+        msg.argtypes, msg.restype = [i], ctypes.c_char_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = [p] * len(pointers) + [i] * len(ints) + [p]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*pointers, *ints, stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: " + msg(err).decode())

@@ -3,7 +3,9 @@
 Replaces the Pallas TPU kernels of ``repro/kernels/ensemble_lookup.py``:
 ``_fused_kernel`` (:112, select='matmul') and ``_fused_compare_kernel``
 (:132, select='compare'), both reached from ``ensemble_lookup_fused``
-(:169). One CUDA source, ``csrc/ensemble_lookup.cu``, holds both selects.
+(:169). One CUDA source, ``csrc/ensemble_lookup.cu``, holds both selects;
+its range match is the device function ``csrc/range_match.cuh`` that the
+classical lookup and the standalone bucketize share.
 
 Per row: range match -> decision key per tree -> decision-table read ->
 vote count or payload sum. The TPU wrote each lookup as a one-hot matmul
@@ -24,8 +26,6 @@ for bit. ``LAUNCHES`` counts kernel launches per select, and nothing else.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -108,18 +108,9 @@ def ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat, dtable_pad,
     return leaf.sum(dim=1, keepdim=True)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load("ensemble_lookup")
-    if lib.ensemble_lookup_launch.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ensemble_lookup_launch.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
-        lib.ensemble_lookup_launch.restype = ctypes.c_int
-        lib.ensemble_lookup_error_string.argtypes = [i]
-        lib.ensemble_lookup_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_operands(x, *tables) -> None:
+def check_operands(x, *tables) -> None:
+    """Raise unless x and every (name, tensor) of ``tables`` are float32,
+    contiguous and on x's device — what the kernels take."""
     for name, a in (("x", x),) + tables:
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
@@ -151,8 +142,8 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
         return ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat,
                                          dtable_pad, select=select)
     tile_n = tile_n or DEFAULT_TILES.tile_n
-    _check_operands(x, ("edges", edges), ("ftable_flat", ftable_flat),
-                    ("dtable_flat", dtable_flat), ("dtable_pad", dtable_pad))
+    check_operands(x, ("edges", edges), ("ftable_flat", ftable_flat),
+                   ("dtable_flat", dtable_flat), ("dtable_pad", dtable_pad))
     if edges.shape[0] != f or fb % f or t_pad < t or dtable_pad.shape != (t, s_pad):
         raise ValueError(
             f"inconsistent shapes: x {tuple(x.shape)}, edges "
@@ -172,18 +163,12 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
     out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    lib = _library()
     table = dtable_pad if select == "compare" else dtable_flat
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ensemble_lookup_launch(
-            x.data_ptr(), edges.data_ptr(), ftable_flat.data_ptr(),
-            table.data_ptr(), out.data_ptr(), n, f, u, b_pad, t_pad, t,
-            s_pad, cout, int(select == "compare"), int(staged), tile_n,
-            stream)
-    if err:
-        raise RuntimeError("ensemble_lookup launch failed: "
-                           + lib.ensemble_lookup_error_string(err).decode())
+    _build.launch("ensemble_lookup", x.device,
+                  (x.data_ptr(), edges.data_ptr(), ftable_flat.data_ptr(),
+                   table.data_ptr(), out.data_ptr()),
+                  (n, f, u, b_pad, t_pad, t, s_pad, cout,
+                   int(select == "compare"), int(staged), tile_n))
     LAUNCHES[select] += 1
     return out
 

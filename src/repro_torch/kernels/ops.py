@@ -12,11 +12,9 @@ becomes a shared-memory fit check: it decides whether the kernel stages the
 tables in shared memory or reads them from global memory, and never routes
 away from the kernel.
 
-Not yet ported: the classical lookup kernel (B3: SVM/NB/K-Means on the
-card raise NotImplementedError; on the CPU they run ``classical_lookup_ref``),
-the per-feature-loop kernel (B7: ``impl='loop'`` on the card raises), and
-the streaming wrappers (``pad_window``, ``evict_fill``, ``stream_update``,
-``bucketize``).
+Not yet ported: the per-feature-loop kernel (B7: ``impl='loop'`` on the
+card raises) and the streaming wrappers (``pad_window``, ``evict_fill``,
+``stream_update``).
 """
 
 from __future__ import annotations
@@ -24,9 +22,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.artifact import (TableArtifact, build_dtable_flat,
-                                       flatten_ftable, pad_dtable)
+                                       flatten_ftable, flatten_vtable,
+                                       pad_dtable)
 from repro_torch.core.inference import classical_aggregate
 from repro_torch.device import on_kernel_path, resolve_device, true_div
+from repro_torch.kernels import bucketize as _bk
+from repro_torch.kernels import classical_lookup as _ck
 from repro_torch.kernels import ensemble_lookup as _ek
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig
@@ -73,12 +74,35 @@ def tree_tables_smem_bytes(art: TableArtifact,
                           True, tiles.tile_n)
 
 
+def _flat_vtable(art: TableArtifact) -> torch.Tensor:
+    return (art.vtable_flat if art.vtable_flat is not None
+            else flatten_vtable(art.vtable.q))
+
+
+def classical_tables_smem_bytes(art: TableArtifact) -> int:
+    """Shared memory a staged classical launch needs: the edges and the
+    flat value table."""
+    f, u = art.edges.shape
+    fb, m_pad = _flat_vtable(art).shape
+    return _ck.smem_bytes(f, u, fb // f, m_pad, True)
+
+
 def fits_smem(art: TableArtifact, tiles: TileConfig = None) -> bool:
     """True when the kernel stages this artifact's tables in shared memory;
     False means it reads them from global memory (same kernel, same result)."""
     if art.ftable is None:
-        raise NotImplementedError("classical_lookup (B3) is not ported yet")
+        return classical_tables_smem_bytes(art) <= _ek.SMEM_BUDGET_BYTES
     return tree_tables_smem_bytes(art, tiles) <= _ek.SMEM_BUDGET_BYTES
+
+
+def bucketize(x, edges, *, device=None) -> torch.Tensor:
+    """Public range match: x (N, F), edges (F, U) (+inf padded) -> (N, F)
+    int32 bins. device=None runs the kernel on CUDA (raising without a
+    card); pass device="cpu" for the plain version."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+    edges = torch.as_tensor(edges, dtype=torch.float32, device=dev).contiguous()
+    return _bk.bucketize(x, edges)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +155,6 @@ def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
     impl = tiles.impl
     if impl not in ("fused", "loop", "ref"):
         raise ValueError(f"impl must be fused|loop|ref, got {impl!r}")
-    kernel = on_kernel_path(x)
 
     if art.ftable is not None:
         vote = art.agg == "vote"
@@ -141,7 +164,7 @@ def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
                 x, art.edges, ftable_flat, dtable_flat, dtable_pad,
                 select=tiles.select, tile_n=tiles.tile_n)
         else:
-            if impl == "loop" and kernel:
+            if impl == "loop" and on_kernel_path(x):
                 raise NotImplementedError(
                     "impl='loop' is the per-feature-loop kernel (B7), not "
                     "ported to CUDA yet")
@@ -154,10 +177,11 @@ def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
     if impl == "loop":
         raise ValueError("impl='loop' is the per-feature-loop tree kernel; "
                          "classical artifacts have no loop realization")
-    if impl == "fused" and kernel:
-        raise NotImplementedError(
-            "classical_lookup (B3, the SVM/NB/K-Means kernel) is not ported "
-            "to CUDA yet; use device='cpu' or TileConfig(impl='ref')")
-    out = _ref.classical_lookup_ref(x, art.edges,
-                                    art.vtable.q.to(torch.float32))
+    if impl == "fused":
+        out = _ck.classical_lookup_fused(x, art.edges, _flat_vtable(art),
+                                         art.vtable.q.shape[2],
+                                         tile_n=tiles.tile_n)
+    else:
+        out = _ref.classical_lookup_ref(x, art.edges,
+                                        art.vtable.q.to(torch.float32))
     return _classical_epilogue(art, out)

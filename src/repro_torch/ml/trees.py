@@ -1,11 +1,11 @@
 """Histogram-based tree learners with fixed-shape, level-wise training.
 
-Port of ``repro/ml/trees.py`` (decision tree, random forest, XGBoost; the
-isolation forest waits for a later slice). All trees are *complete* binary
-trees of a fixed ``max_depth`` stored as flat heap arrays (level-wise
-growth, the XGBoost/LightGBM histogram method). A node that should not
-split gets the sentinel threshold ``+inf`` so every sample routes left and
-the right subtree becomes unreachable.
+Port of ``repro/ml/trees.py`` (decision tree, random forest, XGBoost and
+the isolation forest). All trees are *complete* binary trees of a fixed
+``max_depth`` stored as flat heap arrays (level-wise growth, the
+XGBoost/LightGBM histogram method). A node that should not split gets the
+sentinel threshold ``+inf`` so every sample routes left and the right
+subtree becomes unreachable.
 
 Layout (per tree):
   feat   : (2**D - 1,) int32   feature index per internal heap node
@@ -13,11 +13,13 @@ Layout (per tree):
   leaf   : (2**D, C)   float32 leaf payload (class counts or boosting weight)
 
 Training runs where its inputs are: ``device=None`` means CUDA (raising
-without a card), as every entry point of the port. The random forest's
-bootstrap rows and feature subsets come from a ``torch.Generator`` seeded
-with ``seed``; they differ from the reference's ``jax.random`` draws, so a
-forest matches the reference only when the draws are handed across
-(``fit_random_forest(..., draws=...)``).
+without a card), as every entry point of the port; on the card the data is
+binned by the range-match kernel (``kernels/bucketize.py``). The random
+draws of the random forest (bootstrap rows, feature subsets) and of the
+isolation forest (row subsamples, split features, split positions) come
+from a ``torch.Generator`` seeded with ``seed``; they differ from the
+reference's ``jax.random`` draws, so a forest matches the reference only
+when the draws are handed across (``draws=...``).
 """
 
 from __future__ import annotations
@@ -27,8 +29,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.inference import _c_factor
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ref import bucketize_ref
+from repro_torch.kernels.bucketize import bucketize
 
 NEG_INF = float("-inf")
 
@@ -61,9 +64,10 @@ class TreeEnsemble:
 
 def ensemble_from_arrays(feat, thresh, leaf, kind: str, *,
                          base_score: float = 0.0, learning_rate: float = 1.0,
-                         n_classes: int = 2, device="cpu") -> TreeEnsemble:
+                         n_classes: int = 2, device=None) -> TreeEnsemble:
     """Build an ensemble from plain arrays — how a trained ensemble crosses
-    over from the reference package (or from disk)."""
+    over from the reference package (or from disk). device=None means
+    CUDA; pass device="cpu" for the CPU."""
     dev = resolve_device(device)
     return TreeEnsemble(
         feat=torch.as_tensor(np.asarray(feat), dtype=torch.int32, device=dev),
@@ -92,8 +96,9 @@ def quantile_bin_edges(x: torch.Tensor, n_bins: int) -> torch.Tensor:
 
 
 def bin_data(x: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
-    """Map raw features (N, F) onto bin ids (N, F) in [0, n_bins)."""
-    return bucketize_ref(x, edges)
+    """Map raw features (N, F) onto bin ids (N, F) in [0, n_bins): the
+    range-match kernel on the card, its plain version on the CPU."""
+    return bucketize(x.contiguous(), edges.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -363,6 +368,98 @@ def fit_xgboost(x, y, *, n_trees=10, max_depth=4, n_bins=64,
 
 
 # ---------------------------------------------------------------------------
+# Isolation forest
+# ---------------------------------------------------------------------------
+
+def isolation_forest_draws(n: int, n_feat: int, n_trees: int, depth: int,
+                           subsample: int, generator: torch.Generator):
+    """Per tree: ``subsample`` rows drawn without replacement (T, sub)
+    int64, and per heap node a split feature (T, H) int64 and a split
+    position (T, H) float32 in [0, 1), drawn on the generator's device."""
+    dev = generator.device
+    n_heap = (1 << depth) - 1
+    idx = torch.stack([torch.randperm(n, generator=generator,
+                                      device=dev)[:subsample]
+                       for _ in range(n_trees)])
+    feat = torch.randint(0, n_feat, (n_trees, n_heap), generator=generator,
+                         device=dev)
+    pos = torch.rand((n_trees, n_heap), generator=generator, device=dev)
+    return idx, feat, pos
+
+
+def _fit_one_iso_tree(bins, edges, depth, n_bins, feat_draw, pos_draw):
+    """Grow one isolation tree: each node splits on its drawn feature at a
+    drawn bin between the lowest and highest bin its samples occupy.
+    feat_draw/pos_draw (H,) are heap-ordered. -> (feat, thresh, leaf counts)."""
+    n, n_feat = bins.shape
+    dev = bins.device
+    n_heap = (1 << depth) - 1
+    feat_heap = torch.zeros((n_heap,), dtype=torch.int32, device=dev)
+    thresh_heap = torch.full((n_heap,), float("inf"), dtype=torch.float32,
+                             device=dev)
+    node_id = torch.zeros((n,), dtype=torch.int32, device=dev)
+    ones = torch.ones((n, 1), dtype=torch.float32, device=dev)
+
+    for level in range(depth):
+        n_nodes = 1 << level
+        start = n_nodes - 1
+        hist = _grow_level_hist(bins, node_id, ones, n_nodes, n_feat,
+                                n_bins)[..., 0]               # (nodes, F, B)
+        level_feat = feat_draw[start:start + n_nodes].long()
+        h_f = hist[torch.arange(n_nodes, device=dev), level_feat]  # (nodes, B)
+        present = (h_f > 0).to(torch.int32)
+        lo = torch.argmax(present, dim=1)                      # first occupied
+        hi = n_bins - 1 - torch.argmax(present.flip(1), dim=1)  # last occupied
+        span = torch.clamp(hi - lo, min=0).to(torch.float32)
+        bb = lo + (pos_draw[start:start + n_nodes] * span).to(torch.int64)
+        bb = torch.clamp(bb, 0, n_bins - 2)
+        splittable = hi > lo
+        thr = edges[level_feat, torch.clamp(bb, max=edges.shape[1] - 1)]
+        level_thresh = torch.where(splittable, thr,
+                                   torch.full_like(thr, float("inf")))
+        eff_bin = torch.where(splittable, bb, torch.full_like(bb, n_bins))
+        split_feat = torch.where(splittable, level_feat,
+                                 torch.zeros_like(level_feat)).to(torch.int32)
+        node_id = _route(bins, node_id, split_feat, eff_bin)
+        _fill_level(feat_heap, thresh_heap, level, split_feat, level_thresh)
+
+    count = torch.zeros((1 << depth, 1), dtype=torch.float32, device=dev)
+    count.index_add_(0, node_id.long(), ones)
+    return feat_heap, thresh_heap, count
+
+
+def fit_isolation_forest(x, *, n_trees=32, max_depth=6, n_bins=64,
+                         subsample=256, seed=0, edges=None, draws=None,
+                         device=None):
+    """Isolation forest on binned data; leaves hold sample counts.
+
+    ``draws=(idx (T, sub), feat (T, H), pos (T, H))`` replaces the seeded
+    draws (``isolation_forest_draws``), e.g. with the reference's, so both
+    packages grow the same forest.
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    n, n_feat = x.shape
+    edges = (quantile_bin_edges(x, n_bins) if edges is None
+             else torch.as_tensor(edges, dtype=torch.float32, device=dev))
+    bins_full = bin_data(x, edges)
+    if draws is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        draws = isolation_forest_draws(n, n_feat, n_trees, max_depth,
+                                       min(subsample, n), gen)
+    idx = torch.as_tensor(draws[0], device=dev).long()
+    feat = torch.as_tensor(draws[1], device=dev).long()
+    pos = torch.as_tensor(draws[2], dtype=torch.float32, device=dev)
+    outs = [_fit_one_iso_tree(bins_full[idx[t]], edges, max_depth, n_bins,
+                              feat[t], pos[t])
+            for t in range(idx.shape[0])]
+    f, t, leaf = (torch.stack([o[j] for o in outs]) for j in range(3))
+    return TreeEnsemble(feat=f, thresh=t, leaf=leaf, kind="iforest",
+                        n_classes=2)
+
+
+# ---------------------------------------------------------------------------
 # prediction
 # ---------------------------------------------------------------------------
 
@@ -407,11 +504,24 @@ def predict_margin_xgboost(ens: TreeEnsemble, x) -> torch.Tensor:
     return ens.base_score + ens.learning_rate * _sum_over_trees(w)
 
 
+def predict_iforest_score(ens: TreeEnsemble, x, subsample=256) -> torch.Tensor:
+    """Anomaly score in (0, 1); higher = more anomalous."""
+    leaf_idx = tree_leaf_indices(ens, x)                     # (T, N)
+    size = torch.gather(ens.leaf[..., 0], 1, leaf_idx)
+    path = ens.depth + torch.where(size > 1, _c_factor(size),
+                                   torch.zeros_like(size))
+    e_path = (_sum_over_trees(path)
+              * float(np.float32(1.0) / np.float32(ens.n_trees)))
+    n = torch.full((), subsample, dtype=torch.float32, device=path.device)
+    return torch.pow(2.0, -e_path / _c_factor(n))
+
+
 def predict_tree_ensemble(ens: TreeEnsemble, x) -> torch.Tensor:
-    """Hard class prediction for the dt, rf and xgb kinds."""
+    """Hard class prediction for any tree kind."""
     if ens.kind in ("dt", "rf"):
         return torch.argmax(predict_proba_tree_ensemble(ens, x), dim=1)
     if ens.kind == "xgb":
         return (predict_margin_xgboost(ens, x) > 0.0).to(torch.int32)
-    raise NotImplementedError(
-        f"kind {ens.kind!r}: the isolation forest is not ported yet")
+    if ens.kind == "iforest":
+        return (predict_iforest_score(ens, x) > 0.5).to(torch.int32)
+    raise ValueError(ens.kind)

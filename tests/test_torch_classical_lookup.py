@@ -1,0 +1,171 @@
+"""Port parity for the classical lookup (B3) and the standalone range match
+(B4) on the CPU: the port's plain versions against the reference's Pallas
+kernels in interpret mode, atol=0, at the reference's own test cases
+(tests/test_kernels.py), plus the flat value-table layout, the
+shared-memory fit check and the build's source digest. The CUDA kernels run
+only on the card (test_torch_cuda.py and chip_smoke.py)."""
+
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import artifact as jart  # noqa: E402
+from repro_torch.core import artifact as tart  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import bucketize as tbk  # noqa: E402
+from repro_torch.kernels import classical_lookup as tck  # noqa: E402
+from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from test_torch_parity import assert_bit_equal  # noqa: E402
+
+# the package re-exports a function named bucketize over the module's name
+jbk = importlib.import_module("repro.kernels.bucketize")
+jck = importlib.import_module("repro.kernels.classical_lookup")
+
+# tests/test_kernels.py:29 and :95 — (n, f, u) and (n, f, u, m)
+BUCKETIZE_CASES = [(256, 1, 1), (256, 5, 7), (512, 3, 33), (256, 8, 64),
+                   (512, 16, 128)]
+CLASSICAL_CASES = [(128, 1, 4, 1), (128, 5, 32, 2), (256, 8, 64, 5)]
+
+# values exactly on an edge, between edges, past the last one, +-inf, NaN
+EDGE_ROW = np.array([[1.0, 2.0, 3.0, np.inf]], np.float32)
+EDGE_VALUES = np.array([0.5, 1.0, 1.5, 2.0, 3.0, 99.0, -1e30,
+                        np.nextafter(np.float32(3.0), np.float32(4.0)),
+                        np.inf, -np.inf, np.nan], np.float32)
+
+
+def _edges(rng, f, u, pad_frac=0.3):
+    """The reference test's ragged edge table (+inf pads)."""
+    e = np.sort(rng.normal(0, 10, (f, u)).astype(np.float32), axis=1)
+    for i in range(f):
+        k = rng.integers(0, max(1, int(u * pad_frac)) + 1)
+        if k:
+            e[i, u - k:] = np.inf
+    return e
+
+
+def _jax_bucketize(x, edges):
+    """Reference interpret-mode kernel on a batch padded to its tile."""
+    n = x.shape[0]
+    pad = (-n) % jbk.TILE_N
+    xp = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)]) if pad else x
+    return np.asarray(jbk.bucketize_pallas(jnp.asarray(xp), jnp.asarray(edges),
+                                           interpret=True))[:n]
+
+
+@pytest.mark.parametrize("n,f,u", BUCKETIZE_CASES + [(300, 5, 63)])
+def test_bucketize_matches_reference_kernel(n, f, u):
+    rng = np.random.default_rng(n + f + u)
+    x = rng.normal(0, 12, (n, f)).astype(np.float32)
+    edges = _edges(rng, f, u)
+    before = dict(tbk.LAUNCHES)
+    out = tbk.bucketize(torch.from_numpy(x), torch.from_numpy(edges))
+    assert tbk.LAUNCHES == before               # a CPU tensor never launches
+    assert out.dtype == torch.int32
+    assert_bit_equal(_jax_bucketize(x, edges), out)
+    assert_bit_equal(out, tops.bucketize(x, edges, device="cpu"))
+
+
+def test_bucketize_edge_values_exact():
+    """x > e: a value on an edge stays below it, NaN lands in bin 0, +inf
+    above every finite edge and never above a +inf pad."""
+    x = np.tile(EDGE_VALUES[:, None], (24, 1))
+    out = tbk.bucketize(torch.from_numpy(x), torch.from_numpy(EDGE_ROW))
+    assert_bit_equal(_jax_bucketize(x, EDGE_ROW), out)
+    assert out[:11, 0].tolist() == [0, 0, 1, 1, 2, 3, 0, 3, 3, 0, 0]
+
+
+@pytest.mark.parametrize("n,f,u,m", CLASSICAL_CASES)
+def test_classical_lookup_matches_reference_kernel(n, f, u, m):
+    rng = np.random.default_rng(n + f + u + m)
+    x = rng.normal(0, 5, (n, f)).astype(np.float32)
+    edges = _edges(rng, f, u)
+    vtable = rng.integers(-1000, 1000, (f, u + 1, m)).astype(np.float32)
+    expect = np.asarray(jck.classical_lookup_pallas(
+        jnp.asarray(x), jnp.asarray(edges), jnp.asarray(vtable),
+        interpret=True))
+    xt, et = torch.from_numpy(x), torch.from_numpy(edges)
+    before = dict(tck.LAUNCHES)
+    out = tck.classical_lookup(xt, et, torch.from_numpy(vtable))
+    assert tck.LAUNCHES == before
+    assert out.shape == (n, m)
+    assert_bit_equal(expect, out)
+    assert_bit_equal(expect, tref.classical_lookup_ref(
+        xt, et, torch.from_numpy(vtable)))
+    # the flat-table entry the server uses, on a ragged batch
+    flat = tart.flatten_vtable(torch.from_numpy(vtable))
+    jflat = jart.flatten_vtable(jnp.asarray(vtable), 8)
+    assert_bit_equal(jflat, flat)
+    k = n - 27
+    jout = np.asarray(jck.classical_lookup_fused(
+        jnp.asarray(x[:n // 2]), jnp.asarray(edges), jflat, interpret=True,
+        tile_n=n // 2))
+    assert jout.shape[1] == flat.shape[1]
+    assert_bit_equal(jout[:, :m], tck.classical_lookup_fused(
+        xt[:n // 2], et, flat, m))
+    assert_bit_equal(expect[:k], tck.classical_lookup_fused_ref(
+        xt[:k], et, flat, m))
+
+
+def test_classical_lookup_edge_values_exact():
+    x = np.tile(EDGE_VALUES[:, None], (24, 1))
+    vtable = np.array([[[1.0, -7.0], [10.0, 70.0], [100.0, -700.0],
+                        [1000.0, 7000.0], [9.0, 9.0]]], np.float32)
+    expect = np.asarray(jck.classical_lookup_pallas(
+        jnp.asarray(x[:256]), jnp.asarray(EDGE_ROW), jnp.asarray(vtable),
+        interpret=True))
+    out = tck.classical_lookup(torch.from_numpy(x), torch.from_numpy(EDGE_ROW),
+                               torch.from_numpy(vtable))
+    assert_bit_equal(expect, out[:256])
+    assert out[:11, 0].tolist() == [1, 1, 10, 10, 100, 1000, 1, 1000, 1000,
+                                    1, 1]
+
+
+def test_classical_smem_fit_check():
+    # the served shape (F=5, 64 bins, M=2): ~11 KB staged
+    assert tck.smem_bytes(5, 63, 64, 8, True) == 4 * (5 * 63 + 5 * 64 * 8)
+    assert tck.smem_bytes(5, 63, 64, 8, False) == 0
+    assert tck.fits_smem(5, 63, 64, 8)
+    # a 5-class SVM at 128 bins: past 48 KB, so staged through the opt-in
+    opt_in = tck.smem_bytes(8, 127, 128, 16, True)
+    assert 48 * 1024 < opt_in <= tck.SMEM_BUDGET_BYTES
+    assert not tck.fits_smem(64, 255, 256, 16)
+
+
+def test_wrappers_route_by_device():
+    x = torch.zeros((4, 3))
+    edges = torch.zeros((3, 7))
+    flat = torch.zeros((3 * 8, 8))
+    assert tck.classical_lookup_fused(x, edges, flat, 2).shape == (4, 2)
+    assert tbk.bucketize(x, edges).shape == (4, 3)
+    with pytest.raises(ValueError):
+        tck.classical_lookup_fused(x.to("meta"), edges, flat, 2)
+
+
+def test_library_digest_covers_shared_headers(tmp_path, monkeypatch):
+    """An edited header gives a new library name, so a stale build of a
+    source that includes it is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    first = _build.library_path("k")
+    assert _build.library_path("k") == first
+    (tmp_path / "h.cuh").write_text("// v2\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k.")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edited\n')
+    assert _build.library_path("k") not in (first, second)
+    assert _build.sources() == ["k"]
+
+
+def test_every_kernel_source_includes_the_shared_range_match():
+    for name in _build.sources():
+        text = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert '#include "range_match.cuh"' in text, name
+    assert set(_build.sources()) >= {"bucketize", "classical_lookup",
+                                     "ensemble_lookup"}

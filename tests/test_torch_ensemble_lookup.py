@@ -160,8 +160,11 @@ def test_smem_fit_check(artifacts):
     big = tek.smem_bytes(5, 62, 64, 64, 60, 5712, 1, "compare", True, 128)
     assert big > tek.SMEM_BUDGET_BYTES
     assert not tek.fits_smem(5, 62, 64, 64, 60, 5712, 1, "compare", 128)
-    with pytest.raises(NotImplementedError):
-        tops.fits_smem(port_artifact(arts["SVM"]))
+    svm = port_artifact(arts["SVM"])
+    f, u = svm.edges.shape
+    fb, m_pad = svm.vtable_flat.shape
+    assert tops.classical_tables_smem_bytes(svm) == 4 * (f * u + fb * m_pad)
+    assert tops.fits_smem(svm)
 
 
 def test_pad_batch_replicates_last_row():

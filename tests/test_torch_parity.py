@@ -11,6 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.artifact import artifact_from_arrays  # noqa: E402
+from repro_torch.ml.kmeans import kmeans_from_arrays  # noqa: E402
+from repro_torch.ml.naive_bayes import nb_from_arrays  # noqa: E402
+from repro_torch.ml.svm import svm_from_arrays  # noqa: E402
 from repro_torch.ml.trees import ensemble_from_arrays  # noqa: E402
 
 
@@ -42,6 +45,22 @@ def port_ensemble(jax_ens, device="cpu"):
         np.array(jax_ens.leaf), jax_ens.kind, base_score=jax_ens.base_score,
         learning_rate=jax_ens.learning_rate, n_classes=jax_ens.n_classes,
         device=device)
+
+
+def port_svm(jax_svm, device="cpu"):
+    return svm_from_arrays(jax_svm.weights, jax_svm.bias, jax_svm.pairs,
+                           jax_svm.mean, jax_svm.scale,
+                           n_classes=jax_svm.n_classes, device=device)
+
+
+def port_nb(jax_nb, device="cpu"):
+    return nb_from_arrays(jax_nb.mu, jax_nb.var, jax_nb.log_prior,
+                          n_classes=jax_nb.n_classes, device=device)
+
+
+def port_kmeans(jax_km, device="cpu"):
+    return kmeans_from_arrays(jax_km.centers, jax_km.mean, jax_km.scale,
+                              device=device)
 
 
 def to_np(a) -> np.ndarray:
