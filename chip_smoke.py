@@ -8,7 +8,8 @@ Phases (any failure exits non-zero before the result line is printed):
   2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a
      (one process per source, started together): the tree lookup (B1/B2),
      the classical lookup (B3) and the standalone range match (B4), all
-     sharing ``csrc/range_match.cuh``.
+     sharing ``csrc/range_match.cuh``, the streaming register scatter /
+     readout (B5) and the eviction fill (B6).
   3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
@@ -21,7 +22,7 @@ Phases (any failure exits non-zero before the result line is printed):
      training rows against the fit's 64-bin quantile edges), on the served
      edges (5, 63) and on a synthetic (8, 255) set with inputs on the
      edges and at +-inf.
-  4. serve, two paths, each with every launch count set to 0 just before
+  4. serve, three paths, each with every launch count set to 0 just before
      it and read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
         switch, XGB 60x6 backend, tau 0.7, capacity 1024, batch 2048),
@@ -34,17 +35,28 @@ Phases (any failure exits non-zero before the result line is printed):
         of 2048 (the last one ragged, 1952 rows); then the served
         isolation-forest tables against the plain lookup at N in
         {1, 300, 1952, 2048}.
+     c. the streaming path: ``StreamingHybridServer.serve_trace`` over the
+        repo's streaming configuration (``benchmarks/stream_bench.py``:
+        ``synth_trace(n_flows=4000, seed=0)``, N=8192 buckets, windows of
+        1024 packets, tau 0.9, capacity 64; RF 4x3 switch and RF 16x6
+        backend trained on the trace's batch flow features), twice: without
+        eviction, and with ``evict_age=5.0`` under the timeout policy. Each
+        step launches B5 and B1 once (and B6 once in the second run); the
+        first run's flow table equals the batch ``flow_features`` on the
+        card bit for bit; the second evicts.
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
-     where it is a transcendental's output), and one classify must not
-     sync the host.
+     where it is a transcendental's output), and one classify (one step)
+     must not sync the host.
   5. times: CUDA events, median over repetitions after warm-up, for each
      kernel, its plain version, the library call where one computes the
      same function (``torch.searchsorted`` for the range match), and one
      full classify batch per switch family. Each kernel at its main-path
      shape: the lookups at a 2048-row batch, the range match at the
-     16000-row fit.
+     16000-row fit, B5 and B6 at N=8192, W=1024 (``torch.where`` is B6's
+     library call; B5 has none). One streaming step, eager and under graph
+     replay, its parts, and packets per second of ``serve_trace``.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -144,6 +156,8 @@ def main() -> int:
     from repro_torch.kernels import bucketize as bk
     from repro_torch.kernels import classical_lookup as ck
     from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
     from repro_torch.kernels.ops import fused_classify
     from repro_torch.launch import serve
     from repro_torch.launch.serve import build_usecase
@@ -314,6 +328,8 @@ def main() -> int:
                          lambda: bk.bucketize_ref(x, edges),
                          f"N={n} F={edges.shape[0]} U={edges.shape[1]}")
 
+    _check_stream_kernels(torch, dev, su, ev)
+
     # small-input agreement with the plain table semantics (CPU)
     def check_vs_cpu(art, name):
         p_dev, c_dev = fused_classify(art, x_all[:64], device="cuda")
@@ -441,9 +457,16 @@ def main() -> int:
     print("classical classify (svm, nb, kmeans): no host sync under "
           "torch.cuda.set_sync_debug_mode('error')")
 
+    # -- 4c. serve: the streaming path ----------------------------------------
+    stream = _serve_stream(torch, np, dev)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
+    # B1/B2 launches: the launcher's run plus both streaming runs
+    path_ac = {k: path_a[k] + sum(r["path"][k]
+                                  for r in stream["runs"].values())
+               for k in ("matmul", "compare")}
     kernel_rows = []
     timing_cases = [("ensemble_lookup:matmul", served, x2048, "matmul",
                      "src/repro/kernels/ensemble_lookup.py:112"),
@@ -452,7 +475,7 @@ def main() -> int:
     for name, art, x, select, replaces in timing_cases:
         tabs = tables(art)
         kernel_rows.append(_time_kernel(torch, ek, name, tabs, x, select,
-                                        replaces, path_a[select]))
+                                        replaces, path_ac[select]))
     # the backend's compare shape, reported beside the main-path rows
     extra = [_time_kernel(torch, ek, "ensemble_lookup:compare[xgb_backend]",
                           tables(xgb_art), x2048, "compare",
@@ -489,6 +512,18 @@ def main() -> int:
     _time_parts(torch, fused_classify, server, xb, "rf", smi)
     _time_parts(torch, fused_classify, families["nb"]["server"], xb, "nb", smi)
 
+    stream_rows = _time_stream(torch, np, stream, smi)
+    kernel_rows += stream_rows
+    for row in stream_rows:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.5f} ms")
+        print(f"time {row['name']}: kernel {row['ms']:.5f} ms (graph), "
+              f"{row['ms_eager']:.5f} ms (eager call); plain "
+              f"{row['plain_ms']:.5f} ms (graph), "
+              f"{row['plain_ms_eager']:.5f} ms (eager); library {lib}; bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
+              f"shape {row['shape']}; on {smi}")
+
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
     print(smi)
@@ -499,18 +534,364 @@ def main() -> int:
     return 0
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (bucketize, classical_lookup,
+                                     ensemble_lookup, evict, stream_update)
+    return (ensemble_lookup, classical_lookup, bucketize, stream_update,
+            evict)
+
+
 def _reset_counts():
-    from repro_torch.kernels import bucketize, classical_lookup, ensemble_lookup
-    for mod in (bucketize, classical_lookup, ensemble_lookup):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def _counts() -> dict:
     """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B3
-    classical, B4 bucketize)."""
-    from repro_torch.kernels import bucketize, classical_lookup, ensemble_lookup
-    return {**ensemble_lookup.LAUNCHES, **classical_lookup.LAUNCHES,
-            **bucketize.LAUNCHES}
+    classical, B4 bucketize, B5 stream_update, B6 evict_fill)."""
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _max_abs_err(a, b) -> float:
+    """Largest |a - b|, equal entries (the +-inf identities too) counting 0."""
+    if a.numel() == 0:
+        return 0.0
+    d = (a.double() - b.double()).abs()
+    return float(d.masked_fill(a == b, 0.0).max())
+
+
+def _stream_inputs(torch, dev, n, w, *, base=0.0, hot=False, gen=None):
+    """A register file of N buckets (40% occupied, integer counts from
+    ``base``, first/last timestamps below zero, the +-inf identities on the
+    rest) and a W-lane window: negative timestamps, a fifth of the lanes
+    invalid, and either every lane on bucket 0 (``hot``) or random buckets
+    with four ids outside [0, N)."""
+    u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
+    occ = u(n) < 0.4
+    cnt = torch.floor(u(n) * 59.0) + 1.0
+    regs = torch.empty((8, n), dtype=torch.float32, device=dev)
+    for r in (0, 1, 4, 5, 6, 7):
+        scale = 700.0 if r in (1, 6, 7) else 1.0
+        regs[r] = torch.where(occ, base + cnt * scale, 0.0)
+    t_first = -40.0 * u(n)
+    regs[2] = torch.where(occ, t_first, float("inf"))
+    regs[3] = torch.where(occ, t_first + 5.0 * u(n), float("-inf"))
+    if hot:
+        bucket = torch.zeros(w, dtype=torch.int32, device=dev)
+    else:
+        bucket = torch.randint(0, n, (w,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        if w >= 4:
+            bucket[:4] = torch.tensor([-1, -n - 5, n, n + 9],
+                                      dtype=torch.int32, device=dev)
+    ts = 60.0 * u(w) - 30.0
+    length = torch.floor(u(w) * 1460.0) + 40.0
+    is_fwd = (u(w) < 0.55).to(torch.float32)
+    valid = u(w) < 0.8
+    return regs, (bucket, ts, length, is_fwd, valid)
+
+
+def _check_stream_kernels(torch, dev, su, ev):
+    """Phase 3 for B5 and B6: each kernel call against its plain version on
+    the same inputs, atol=0, one launch per call."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    lim24 = float(1 << 24)
+    cases = [(n, w, limit, False)
+             for n in (600, 8192, 1 << 20) for w in (1, 96, 1024, 4096)
+             for limit in (None, 1000.0, lim24)]
+    cases += [(8192, 4096, limit, True) for limit in (None, 1000.0, lim24)]
+    for n, w, limit, hot in cases:
+        # at the 2^24 clamp the registers start 60000 below it, so the
+        # window's sums cross it; without a clamp everything stays below
+        base = lim24 - 60000.0 if limit == lim24 else 0.0
+        regs, cols = _stream_inputs(torch, dev, n, w, base=base, hot=hot,
+                                    gen=gen)
+        want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=limit)
+        before = su.LAUNCHES["stream_update"]
+        got_regs, got_rows = su.stream_update(regs, *cols, limit=limit)
+        torch.cuda.synchronize()
+        launched = su.LAUNCHES["stream_update"] - before
+        err = max(_max_abs_err(got_regs, want_regs),
+                  _max_abs_err(got_rows, want_rows))
+        crossed = int((got_regs[[1, 6, 7]] == lim24).sum()) if limit == lim24 \
+            else 0
+        print(f"case stream_update N={n} W={w} limit={limit} hot={hot} "
+              f"launches={launched} max_abs_diff={err} at_2^24={crossed}")
+        if launched != 1 or not (torch.equal(got_regs, want_regs)
+                                 and torch.equal(got_rows, want_rows)):
+            raise AssertionError(f"stream_update kernel != plain at N={n} "
+                                 f"W={w} limit={limit} hot={hot}")
+    fills = torch.tensor([0.0, 0.0, float("inf"), float("-inf"), 0.0, 0.0,
+                          0.0, 0.0], device=dev)
+    for n in (600, 8192, 1 << 20):
+        regs, _ = _stream_inputs(torch, dev, n, 1, gen=gen)
+        for kind in ("random", "all", "none"):
+            mask = {"random": torch.rand(n, generator=gen, device=dev) < 0.3,
+                    "all": torch.ones(n, dtype=torch.bool, device=dev),
+                    "none": torch.zeros(n, dtype=torch.bool,
+                                        device=dev)}[kind]
+            want = ev.evict_fill_ref(regs, mask, fills)
+            before = ev.LAUNCHES["evict_fill"]
+            got = ev.evict_fill(regs, mask, fills)
+            torch.cuda.synchronize()
+            launched = ev.LAUNCHES["evict_fill"] - before
+            print(f"case evict_fill N={n} mask={kind} launches={launched} "
+                  f"max_abs_diff={_max_abs_err(got, want)}")
+            if launched != 1 or not torch.equal(got, want):
+                raise AssertionError(f"evict_fill kernel != plain at N={n} "
+                                     f"mask={kind}")
+
+
+STREAM_RUNS = (("no_eviction", {}),
+               ("evict_timeout", {"evict_age": 5.0,
+                                  "evict_policy": "timeout"}))
+
+
+def _serve_stream(torch, np, dev):
+    """Phase 4c: the repo's streaming configuration served on the card by
+    ``StreamingHybridServer.serve_trace``, once per ``STREAM_RUNS`` entry,
+    each with every launch count set to 0 just before it and read just
+    after. Checks launches per step, equality with the same server on the
+    plain path, the flow table against the batch oracle (no eviction), that
+    eviction happened (timeout policy), and that a step does not sync."""
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.ml.metrics import accuracy
+    from repro_torch.ml.trees import fit_random_forest, predict_tree_ensemble
+    from repro_torch.netsim.features import flow_features
+    from repro_torch.netsim.packets import synth_trace
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    n_buckets, window = 8192, 1024
+    trace = synth_trace(n_flows=4000, seed=0)
+    b, table = flow_features(trace, n_buckets=n_buckets)
+    first = np.unique(trace.flow_id, return_index=True)[1]
+    rows = table[b[torch.as_tensor(first, device=dev)].long()]
+    small = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=4,
+                              max_depth=3, seed=0, device=dev)
+    big = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=16,
+                            max_depth=6, seed=1, device=dev)
+    art = map_tree_ensemble(small, rows.shape[1])
+
+    def backend(r):
+        return predict_tree_ensemble(big, r)
+
+    truth = trace.flow_label[trace.flow_id]
+    kw = dict(n_buckets=n_buckets, window=window, threshold=0.9, capacity=64)
+    out = {"trace": trace, "runs": {}}
+    for name, extra in STREAM_RUNS:
+        server = StreamingHybridServer(art, backend, **kw, **extra)
+        select = ek.resolve_select("auto", server.artifact.n_trees,
+                                   server.artifact.dtable_flat.shape[2],
+                                   server.artifact.dtable_flat.shape[0])
+        _reset_counts()
+        preds, stats = server.serve_trace(trace)
+        torch.cuda.synchronize()
+        path = _counts()
+        n_win = stats.n_windows
+        want = {"stream_update": n_win, select: n_win,
+                "evict_fill": n_win if extra else 0}
+        print(f"main-path launches (c: streaming, {name}): {path}")
+        for key, count in path.items():
+            if count != want.get(key, 0):
+                raise AssertionError(f"{name}: {key} launched {count} times "
+                                     f"for {n_win} steps")
+        # launches step by step, outside the counted run
+        server.reset()
+        for w in iter_windows(trace, window, n_buckets):
+            before = _counts()
+            server.step(w)
+            delta = {k: v - before[k] for k, v in _counts().items()}
+            if delta != {k: (1 if want.get(k) else 0) for k in delta}:
+                raise AssertionError(f"{name}: one step launched {delta}")
+        plain = StreamingHybridServer(art, backend, use_kernel=False,
+                                      device="cuda", **kw, **extra)
+        plain_preds, plain_stats = plain.serve_trace(trace)
+        if not torch.equal(preds, plain_preds):
+            raise AssertionError(f"{name}: served preds != plain preds")
+        got, ref = stats.as_dict(), plain_stats.as_dict()
+        for key in got:
+            if key in ("conf_sum", "mean_conf"):
+                ok = abs(got[key] - ref[key]) <= 1e-5 * abs(ref[key])
+            else:
+                ok = got[key] == ref[key]
+            if not ok:
+                raise AssertionError(f"{name}: stats[{key}] {got[key]} != "
+                                     f"plain {ref[key]}")
+        if not torch.equal(server.flow_table(), plain.flow_table()):
+            raise AssertionError(f"{name}: flow table != plain flow table")
+        if not extra and not torch.equal(server.flow_table(), table):
+            raise AssertionError("streamed flow table != batch flow_features")
+        if extra and stats.n_evicted < 1:
+            raise AssertionError(f"{name}: the aging sweep evicted nothing")
+        if preds.shape != (trace.n_packets,) or \
+                not set(preds.unique().tolist()) <= {0, 1}:
+            raise AssertionError(f"{name}: predictions of the wrong shape or "
+                                 f"outside the classes")
+        acc = accuracy(truth, preds)
+        if not np.isfinite(acc) or not np.isfinite(stats.mean_conf):
+            raise AssertionError(f"{name}: accuracy or confidence not finite")
+        w = next(iter(iter_windows(trace, window, n_buckets)))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        server.step(w)
+        torch.cuda.set_sync_debug_mode(0)
+        print(f"serve_trace[{name}] packets={stats.n_packets} "
+              f"windows={n_win} acc={acc:.4f} "
+              f"fraction_handled={stats.fraction_handled:.4f} "
+              f"backend_rows={stats.total_backend_rows} "
+              f"deferred={stats.n_deferred} evicted={stats.n_evicted} "
+              f"overflow={stats.n_overflow} mean_conf={stats.mean_conf:.4f} "
+              f"preds_equal_plain=True per_step_launches_ok=True "
+              f"step_no_host_sync=True"
+              + ("" if extra else " flow_table_equals_batch=True"))
+        server.reset()
+        out["runs"][name] = dict(server=server, path=path, select=select)
+    return out
+
+
+def _time_stream(torch, np, stream, smi):
+    """Phase 5 for the streaming path: B5 and B6 at the main path's shape
+    (N=8192, W=1024; the register file and eviction mask that serving the
+    trace leaves), one step eager and under graph replay, its parts, and
+    packets per second of serve_trace. -> the two kernels' JSON rows."""
+    from repro_torch.core.hybrid import combine, dispatch
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.kernels.ops import fused_classify
+    from repro_torch.netsim.stream import (EVICT_FILLS, OVERFLOW_LIMIT,
+                                           evict_cutoff, iter_windows,
+                                           window_update_readout)
+    from repro_torch.serving.stream_serving import accumulate_stream_stats
+
+    trace = stream["trace"]
+    runs = stream["runs"]
+    server = runs["evict_timeout"]["server"]
+    windows = list(iter_windows(trace, server.window, server.n_buckets))
+    k = len(windows) // 2
+    server.reset()
+    for w in windows[:k]:
+        server.step(w)
+    w = windows[k]
+    regs = server.state.regs.clone()          # what step k's B5 reads
+    cols = (w.bucket, w.ts, w.length, w.is_fwd, w.valid)
+    n, wl = regs.shape[1], w.size
+    path_su = sum(r["path"]["stream_update"] for r in runs.values())
+    path_ev = sum(r["path"]["evict_fill"] for r in runs.values())
+
+    # B5: in place on its own copy (the counts grow, clamped at 2^24)
+    regs_k = regs.clone()
+    out_k = su.stream_update(regs.clone(), *cols, limit=OVERFLOW_LIMIT)
+    out_p = su.stream_update_ref(regs, *cols, limit=OVERFLOW_LIMIT)
+    err = max(_max_abs_err(out_k[0], out_p[0]), _max_abs_err(out_k[1], out_p[1]))
+    ms, ms_eager, plain_ms, plain_eager, _ = _times(
+        torch, lambda: su.stream_update(regs_k, *cols, limit=OVERFLOW_LIMIT),
+        lambda: su.stream_update_ref(regs, *cols, limit=OVERFLOW_LIMIT))
+    # bound: the function in place, on this window. Reads: every column's
+    # six count registers (the clamp must see each), t_min/t_max only at
+    # the columns the lanes name, the window columns (bucket, ts, length,
+    # is_fwd 4 B, valid 1 B). Writes: only the register words whose bits
+    # change, and the rows. Per valid lane 8 register updates and 3
+    # products, per column 6 adds and 6 compares.
+    n_valid = int(w.valid.sum())
+    named = int(torch.unique(w.bucket).numel())
+    changed = int((out_p[0].view(torch.int32) != regs.view(torch.int32)).sum())
+    n_bytes = 6 * n * 4 + 2 * named * 4 + wl * 17 + changed * 4 + 8 * wl * 4
+    ops = n_valid * 11 + 12 * n + 8 * wl
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    rows = [{"name": "stream_update", "route": "cuda",
+             "source": "src/repro_torch/csrc/stream_update.cu",
+             "replaces": "src/repro/kernels/stream_update.py:61",
+             "launches": path_su, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+             "library_ms": None, "ms_eager": ms_eager,
+             "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+             "shape": {"N": n, "W": wl, "valid_lanes": n_valid,
+                       "columns_named": named, "words_changed": changed,
+                       "limit": OVERFLOW_LIMIT}}]
+
+    # B6: the register file and eviction mask step k's timeout sweep sees
+    regs = out_p[0]
+    mask = ((regs[0] > 0) & (regs[3] < evict_cutoff(w.ts, w.valid,
+                                                    server.evict_age)))
+    fills = torch.tensor(EVICT_FILLS, dtype=torch.float32, device=regs.device)
+    out_k = ev.evict_fill(regs, mask, fills)
+    out_p = ev.evict_fill_ref(regs, mask, fills)
+    lib = torch.where(mask[None], fills[:, None], regs)
+    print(f"library torch.where(mask[None], fills[:, None], regs) equals the "
+          f"kernel: {torch.equal(lib, out_k)}")
+    ms, ms_eager, plain_ms, plain_eager, library_ms = _times(
+        torch, lambda: ev.evict_fill(regs, mask, fills),
+        lambda: ev.evict_fill_ref(regs, mask, fills),
+        lambda: torch.where(mask[None], fills[:, None], regs))
+    n_bytes = 2 * 8 * n * 4 + n + 8 * 4
+    bound_ms, bound_by = _bound(n_bytes, 8 * n)
+    rows.append({"name": "evict_fill", "route": "cuda",
+                 "source": "src/repro_torch/csrc/evict.cu",
+                 "replaces": "src/repro/kernels/evict.py:27",
+                 "launches": path_ev, "max_abs_err": _max_abs_err(out_k, out_p),
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 "ms_eager": ms_eager, "plain_ms_eager": plain_eager,
+                 "bytes": n_bytes, "ops": 8 * n,
+                 "shape": {"R": 8, "N": n, "evicted": int(mask.sum())}})
+
+    # one step, eager and under graph replay, then its parts
+    for name, run in runs.items():
+        srv = run["server"]
+        eager = _median_ms(torch, lambda: srv.step(w))
+        graph = _graph_ms(torch, lambda: srv.step(w), inner=5)
+        print(f"time stream_step[{name}](W={wl}, N={n}, RF 4x3 switch, RF "
+              f"16x6 backend) median {eager:.4f} ms per eager call, "
+              f"{graph:.4f} ms device time (graph replay) on {smi}")
+    srv = runs["evict_timeout"]["server"]
+    kw = dict(evict_age=srv.evict_age, saturate=True)
+    state = srv.state.clone()       # B5 updates it in place, call by call
+    _, x, n_ev, n_ov = window_update_readout(state.clone(), w, **kw)
+    sw_pred, conf = fused_classify(srv.artifact, x, tiles=srv.tiles)
+    fwd = (conf < srv.threshold) & w.valid
+    buf, idx, valid = dispatch(x, fwd, srv.capacity)
+    be_pred = srv.backend_fn(buf)
+
+    def dispatch_backend_combine():
+        b_, i_, v_ = dispatch(x, fwd, srv.capacity)
+        return combine(sw_pred, srv.backend_fn(b_), i_, v_)
+
+    parts = {
+        "register half (B5 + sweep with B6 + guard + readout)":
+            lambda: window_update_readout(state, w, **kw),
+        "classify (B1 + epilogue)":
+            lambda: fused_classify(srv.artifact, x, tiles=srv.tiles),
+        "dispatch + backend (RF 16x6) + combine": dispatch_backend_combine,
+        "stats fold": lambda: accumulate_stream_stats(
+            srv.stats, w, sw_pred, be_pred, idx, valid, fwd, conf, n_ev,
+            n_ov)}
+    print("time stream_step[evict_timeout] parts: " + ", ".join(
+        f"{k} {_median_ms(torch, fn):.4f} ms (eager), "
+        f"{_graph_ms(torch, fn, inner=5):.4f} ms (graph)"
+        for k, fn in parts.items()) + f" on {smi}")
+
+    for name, run in runs.items():
+        srv = run["server"]
+        times = []
+        for _ in range(5):
+            srv.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve_trace(trace)          # ends with stats.check(): a sync
+            times.append(time.perf_counter() - t0)
+        best, med = min(times), statistics.median(times)
+        print(f"time serve_trace[{name}] {trace.n_packets} packets in "
+              f"{-(-trace.n_packets // srv.window)} windows: median "
+              f"{med * 1e3:.2f} ms ({trace.n_packets / med:.0f} packets/s), "
+              f"best {best * 1e3:.2f} ms ({trace.n_packets / best:.0f} "
+              f"packets/s) on {smi}")
+    return rows
 
 
 def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,

@@ -1,11 +1,12 @@
 """Public wrappers over the kernels: routing, the shared-memory fit check,
 and the scalar epilogues that turn kernel outputs into (pred, confidence).
 
-Port of ``repro/kernels/ops.py`` (the batch-classify part). Routing follows
-``device.on_kernel_path``: on a CUDA tensor ``fused_classify`` launches the
+Port of ``repro/kernels/ops.py``: batch classify and the streaming wrappers
+(``pad_window``, ``evict_fill``, ``stream_update``). Routing follows
+``device.on_kernel_path``: on a CUDA tensor each wrapper launches the
 hand-written kernel, on a CPU tensor it runs the kernel's plain version.
-``TileConfig.impl='ref'`` runs the plain gather version on either device,
-and only when the caller sets it.
+``TileConfig.impl='ref'`` and ``use_kernel=False`` run the plain version on
+either device, and only when the caller sets them.
 
 The reference's VMEM fit check (``VMEM_BUDGET_BYTES``, a TPU v5e figure)
 becomes a shared-memory fit check: it decides whether the kernel stages the
@@ -13,8 +14,7 @@ tables in shared memory or reads them from global memory, and never routes
 away from the kernel.
 
 Not yet ported: the per-feature-loop kernel (B7: ``impl='loop'`` on the
-card raises) and the streaming wrappers (``pad_window``, ``evict_fill``,
-``stream_update``).
+card raises).
 """
 
 from __future__ import annotations
@@ -29,7 +29,9 @@ from repro_torch.device import on_kernel_path, resolve_device, true_div
 from repro_torch.kernels import bucketize as _bk
 from repro_torch.kernels import classical_lookup as _ck
 from repro_torch.kernels import ensemble_lookup as _ek
+from repro_torch.kernels import evict as _ev
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import stream_update as _su
 from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig
 
 
@@ -39,14 +41,63 @@ def _pad_batch(x: torch.Tensor, tile: int):
     Replication (not zeros) keeps every padded lane on a real sample: a zero
     row is out-of-distribution for the tables and could perturb telemetry
     computed before slicing. The CUDA kernel masks its ragged last block, so
-    batch classify needs no padding; the streaming slice's ``pad_window``
-    pads its windows with this.
+    batch classify needs no padding; ``pad_window`` pads windows with this.
     """
     n = x.shape[0]
     pad = (-n) % tile
     if pad:
         x = torch.cat([x, x[n - 1:n].expand((pad,) + tuple(x.shape[1:]))])
     return x, n
+
+
+def pad_window(cols, tile: int):
+    """Tile-pad per-packet columns to a multiple of ``tile``.
+
+    ``cols`` is a dict, list or tuple of tensors sharing leading length W0;
+    returns (padded_cols of the same kind, valid (Wp,) bool, n). Pad lanes
+    replicate the last packet (in-distribution, as ``_pad_batch``) and
+    carry valid=False, so register updates and telemetry mask them out
+    exactly. A ragged final window then has the window's size, as every
+    other window.
+    """
+    leaves = list(cols.values()) if isinstance(cols, dict) else list(cols)
+    n = leaves[0].shape[0]
+    pad = (-n) % tile
+    if pad:
+        padded = [_pad_batch(a, tile)[0] for a in leaves]
+        cols = (dict(zip(cols, padded)) if isinstance(cols, dict)
+                else type(cols)(padded))
+    valid = torch.arange(n + pad, device=leaves[0].device) < n
+    return cols, valid, n
+
+
+def evict_fill(regs, mask, fills, *, use_kernel=None) -> torch.Tensor:
+    """Masked register reset: the eviction sweep's scatter (B6).
+
+    regs (R, N) f32 stacked register file, mask (N,) bool (True = evict),
+    fills (R,) per-register reset identities -> a new (R, N) tensor.
+    Evicted columns take their fill value, surviving columns pass through
+    bit for bit. The CUDA kernel for a CUDA tensor, the plain ``where`` for
+    a CPU tensor; use_kernel=False takes the plain version on either.
+    """
+    if use_kernel is False:
+        return _ev.evict_fill_ref(regs, mask, fills)
+    return _ev.evict_fill(regs, mask, fills)
+
+
+def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
+    """Streaming register scatter + clamp + touched-row gather (B5).
+
+    regs (8, N) f32 stacked register file (``netsim.stream.
+    REGISTER_FIELDS`` order); bucket/ts/length/is_fwd/valid the (W,)
+    window columns -> (new_regs (8, N), rows (8, W)): the window folded
+    into the registers (count registers clamped at ``limit`` when given,
+    the 2^24 overflow guard) and each lane's updated register row. The
+    CUDA kernel for a CUDA tensor (it updates ``regs`` in place and
+    returns it), the plain version for a CPU tensor (new tensors).
+    """
+    return _su.stream_update(regs, bucket, ts, length, is_fwd, valid,
+                             limit=limit)
 
 
 def _flat_tree_tables(art: TableArtifact, vote: bool):

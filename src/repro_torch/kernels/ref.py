@@ -2,12 +2,14 @@
 is held against, and what a wrapper runs for a CPU tensor.
 
 Port of ``repro/kernels/ref.py`` (bucketize, ensemble and classical
-lookups). These are gathers over the unflattened tables; the flat-table
-counterpart of the fused kernel is ``ensemble_lookup.ensemble_lookup_fused_ref``.
+lookups, the streaming register update). The lookups are gathers over the
+unflattened tables; the flat-table counterpart of the fused kernel is
+``ensemble_lookup.ensemble_lookup_fused_ref``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,3 +44,61 @@ def classical_lookup_ref(x, edges, vtable) -> torch.Tensor:
     f_idx = torch.arange(x.shape[1], device=x.device)[None, :]
     vals = vtable[f_idx, bins]                               # (N, F, M)
     return vals.to(torch.float32).sum(dim=1)
+
+
+def stream_update_ref(regs, bucket, ts, length, is_fwd, valid, *,
+                      limit=None):
+    """Plain version of the streaming scatter/readout kernel (B5).
+
+    regs (8, N) f32, the stacked register file in ``netsim.stream.
+    REGISTER_FIELDS`` order (pkt_count, byte_count, t_min, t_max,
+    fwd_pkts, rev_pkts, fwd_bytes, rev_bytes); window columns (W,):
+    bucket int, ts/length/is_fwd f32, valid bool. Returns new tensors
+    (new_regs (8, N), rows (8, W)): the window folded into the registers
+    (count registers clamped at ``limit`` when given, the 2^24 overflow
+    guard) and the updated register rows gathered at each lane's bucket.
+
+    Op for op the reference's ``stream_update_ref``: masked per-bucket sums
+    added to the registers, per-bucket min/max with invalid lanes pinned to
+    the identities (+-inf), the clamp on the count registers only, then the
+    gather. Lanes whose bucket lies outside [0, N) fold nothing (the
+    reference's segment ops drop them); their rows are read the way the
+    reference's gather reads them (a negative id counts from the end once,
+    then ids are clamped into range).
+    """
+    n = regs.shape[1]
+    b = bucket.long()
+    inside = (b >= 0) & (b < n)
+    b_in = torch.where(inside, b, 0)
+    v = valid.to(torch.float32)
+    ln, fwd = length, is_fwd
+    inf = float("inf")
+
+    def seg(x):
+        x = torch.where(inside, x, 0.0)
+        return torch.zeros(n, dtype=torch.float32,
+                           device=regs.device).index_add_(0, b_in, x)
+
+    def seg_ext(x, ident, reduce):
+        x = torch.where(inside, x, ident)
+        return torch.full((n,), ident, dtype=torch.float32,
+                          device=regs.device).scatter_reduce_(
+            0, b_in, x, reduce, include_self=True)
+
+    w_min = seg_ext(torch.where(valid, ts, inf), inf, "amin")
+    w_max = seg_ext(torch.where(valid, ts, -inf), -inf, "amax")
+    new = [regs[0] + seg(v),
+           regs[1] + seg(ln * v),
+           torch.minimum(regs[2], w_min),
+           torch.maximum(regs[3], w_max),
+           regs[4] + seg(fwd * v),
+           regs[5] + seg((1.0 - fwd) * v),
+           regs[6] + seg(ln * fwd * v),
+           regs[7] + seg(ln * (1.0 - fwd) * v)]
+    if limit is not None:
+        lim = float(np.float32(limit))
+        for i in (0, 1, 4, 5, 6, 7):              # count registers only
+            new[i] = torch.clamp(new[i], max=lim)
+    new_regs = torch.stack(new)
+    g = torch.where(b < 0, b + n, b).clamp(0, n - 1)
+    return new_regs, new_regs[:, g]

@@ -1,0 +1,107 @@
+"""Streaming register scatter + clamp + touched-row gather: CUDA kernel + wrapper.
+
+Replaces the Pallas TPU kernel of ``repro/kernels/stream_update.py``:
+``_stream_update_kernel`` (:61), reached from ``stream_update_pallas``
+(:110) and ``ops.stream_update``. The CUDA source is
+``csrc/stream_update.cu``.
+
+The serving step's register half folds one packet window into the stacked
+(8, N) register file (six count registers by scatter-add, first/last
+timestamp by scatter-min/max), clamps the count registers at the 2^24 f32
+exactness envelope, and gathers each lane's updated register row (8, W)
+for the classify stage. The TPU realized the scatter as a one-hot MXU
+contraction over bucket tiles, with a rows block carried across a grid that
+runs in order. On the card that would race, so the kernel is two launches
+on one stream: per-lane atomics (float atomicAdd; the sign-aware integer
+min/max for the timestamps), then one pass that clamps every column and
+gathers every lane's row. One call of ``stream_update`` launches both
+kernels and counts once in ``LAUNCHES``.
+
+Bound: memory. In place, the function reads the six count rows whole (the
+clamp sees every column), t_min/t_max at the columns the window names and
+the window, and writes the register words that change and the rows.
+``chip_smoke.py`` counts these bytes from its own inputs; PERF.md holds the
+bound and the measured time.
+
+Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+``stream_update_ref``, the plain version. The kernel updates ``regs`` IN
+PLACE and returns it: the streaming server owns its register file and
+reads the state only through the returned tensor. The plain version
+returns new tensors. Every count is an integer-valued f32 below 2^24 (or
+clamped there), so the two agree bit for bit in any atomic order.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import torch
+
+from repro_torch.device import on_kernel_path
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import stream_update_ref
+
+BLOCK = 256             # threads per CUDA block
+
+N_REGISTERS = 8
+
+LAUNCHES = {"stream_update": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["stream_update"] = 0
+
+
+def _float_bits(x: float) -> int:
+    """The float32 bits of ``x`` as a signed int (how the limit crosses the
+    plain C interface, which passes ints)."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
+
+
+def check_window(regs, bucket, ts, length, is_fwd, valid) -> None:
+    """Raise unless the operands are what the kernel takes: regs (8, N)
+    f32; bucket (W,) int32; ts, length, is_fwd (W,) f32; valid (W,) bool;
+    all contiguous and on regs' device."""
+    if regs.dim() != 2 or regs.shape[0] != N_REGISTERS or regs.shape[1] == 0:
+        raise ValueError(f"regs must be ({N_REGISTERS}, N>0), got "
+                         f"{tuple(regs.shape)}")
+    w = bucket.shape[0] if bucket.dim() == 1 else -1
+    for name, a, dtype in (("regs", regs, torch.float32),
+                           ("bucket", bucket, torch.int32),
+                           ("ts", ts, torch.float32),
+                           ("length", length, torch.float32),
+                           ("is_fwd", is_fwd, torch.float32),
+                           ("valid", valid, torch.bool)):
+        if a.device != regs.device:
+            raise ValueError(f"{name} is on {a.device}, regs on {regs.device}")
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if name != "regs" and (a.dim() != 1 or a.shape[0] != w):
+            raise ValueError(f"window columns must all be (W,); {name} is "
+                             f"{tuple(a.shape)}")
+
+
+def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
+    """regs (8, N) f32, window columns (W,) -> (new_regs (8, N), rows (8, W)).
+
+    ``limit`` clamps the count registers (None skips the clamp). A CPU
+    tensor takes the plain version (new tensors); a CUDA tensor launches
+    the kernel, which updates ``regs`` in place and returns it as
+    new_regs, and raises on operands it does not take."""
+    if not on_kernel_path(regs):
+        return stream_update_ref(regs, bucket, ts, length, is_fwd, valid,
+                                 limit=limit)
+    check_window(regs, bucket, ts, length, is_fwd, valid)
+    n, w = regs.shape[1], bucket.shape[0]
+    rows = torch.empty((N_REGISTERS, w), dtype=torch.float32,
+                       device=regs.device)
+    _build.launch("stream_update", regs.device,
+                  (regs.data_ptr(), bucket.data_ptr(), ts.data_ptr(),
+                   length.data_ptr(), is_fwd.data_ptr(), valid.data_ptr(),
+                   rows.data_ptr()),
+                  (n, w, int(limit is not None),
+                   _float_bits(0.0 if limit is None else limit), BLOCK))
+    LAUNCHES["stream_update"] += 1
+    return regs, rows

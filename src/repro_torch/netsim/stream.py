@@ -1,0 +1,505 @@
+"""Streaming flow-table tier: per-flow registers updated window by window.
+
+Port of ``repro/netsim/stream.py`` (the per-window path). The paper's
+challenge (ii) is extracting features *on the data plane*, where packets
+arrive continuously and per-flow registers are updated incrementally:
+
+  register file   -> ``FlowTableState``: the stacked (8, N) register file
+                     (pkt/byte counts, first/last ts, fwd/rev splits), one
+                     row per register in ``REGISTER_FIELDS`` order, with a
+                     named view per register
+  per-packet ALU  -> ``window_update_readout``: the window folded into the
+                     registers, clamped and read out in one kernel call
+                     (``kernels.ops.stream_update``, B5) on the card;
+                     ``update_flow_table`` is the plain composition
+  aging sweep     -> ``age_out`` / ``approx_lru_sweep`` through the masked
+                     reset ``kernels.ops.evict_fill`` (B6)
+  register readout-> ``flow_table_readout``: the same 8 feature columns as
+                     the one-shot ``features.flow_features``
+  recirculation   -> ``iter_windows``: fixed-size packet windows, the final
+                     one padded with invalid lanes
+
+Bit-consistency contract (the reference's, held by the tests): streaming
+over W windows reproduces the batch ``flow_features`` table bit for bit,
+because count/byte registers are integer-valued f32 sums (exact in any
+order below 2^24), first/last timestamps are min/max, and duration and
+mean IAT are derived at readout by the shared
+``features.table_from_registers``. Timestamps are rebased to the stream
+epoch ``t0`` in float64 on the host before the f32 cast; ``t0`` defaults
+to the trace's minimum timestamp.
+
+The register file lives in one (8, N) tensor so the kernel can update it
+in place: on the card ``window_update_readout`` consumes the state it is
+given, and callers keep only the state it returns (the reference's
+donation contract). The chunked megastep (``PacketChunk``,
+``chunk_update_readout``, ``iter_chunks``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import evict_fill, stream_update
+from repro_torch.netsim.features import (fnv1a_hash, rebase_ts_np,
+                                         table_from_registers)
+
+FLOW_FEATURES = 8      # columns of the readout table == features.flow_features
+
+# f32 integer-exactness envelope: count/byte registers are integer-valued
+# f32 sums, exact only below 2^24. saturate_counts clamps here.
+OVERFLOW_LIMIT = float(1 << 24)
+
+# per-register init/evict identities, in FlowTableState row order
+REGISTER_FIELDS = ("pkt_count", "byte_count", "t_min", "t_max",
+                   "fwd_pkts", "rev_pkts", "fwd_bytes", "rev_bytes")
+EVICT_FILLS = (0.0, 0.0, float("inf"), float("-inf"), 0.0, 0.0, 0.0, 0.0)
+# registers under the 2^24 envelope (monotone f32 integer accumulators)
+COUNT_FIELDS = ("pkt_count", "byte_count", "fwd_pkts", "rev_pkts",
+                "fwd_bytes", "rev_bytes")
+# the count registers as two row slices of the stacked file (rows 0-1, 4-7):
+# slices, not an index list, so no index tensor crosses to the device
+_COUNT_SLICES = (slice(0, 2), slice(4, 8))
+
+# approx-LRU defaults: 2-bit age counters (pForest's choice) ranked by a
+# 2-bit activity class — 16 score levels total
+LRU_AGE_BITS = 2
+LRU_ACT_BITS = 2
+
+EVICT_POLICIES = ("timeout", "approx_lru")
+
+
+def _row(i: int, name: str):
+    return property(lambda self: self.regs[i],
+                    doc=f"The {name} register row, a view of ``regs``.")
+
+
+@dataclasses.dataclass
+class FlowTableState:
+    """The register file: ``regs`` (8, N) f32, one row per switch register
+    in ``REGISTER_FIELDS`` order, each also readable by name (a view).
+
+    t_min/t_max start at the min/max identities (+-inf) so an untouched
+    bucket reads out exactly like one the batch path never saw.
+    """
+    regs: torch.Tensor
+
+    pkt_count = _row(0, "pkt_count")
+    byte_count = _row(1, "byte_count")
+    t_min = _row(2, "t_min")
+    t_max = _row(3, "t_max")
+    fwd_pkts = _row(4, "fwd_pkts")
+    rev_pkts = _row(5, "rev_pkts")
+    fwd_bytes = _row(6, "fwd_bytes")
+    rev_bytes = _row(7, "rev_bytes")
+
+    @property
+    def n_buckets(self) -> int:
+        return self.regs.shape[1]
+
+    def clone(self) -> "FlowTableState":
+        return FlowTableState(self.regs.clone())
+
+
+@dataclasses.dataclass
+class PacketWindow:
+    """One fixed-size chunk of the packet stream.
+
+    ts is rebased f32 (see module docstring); is_fwd is 1.0 for forward
+    direction; valid masks tile-pad lanes out of every register update.
+    """
+    bucket: torch.Tensor    # (W,) int32 flow-hash bucket ids
+    ts: torch.Tensor        # (W,) f32 rebased seconds
+    length: torch.Tensor    # (W,) f32 packet bytes
+    is_fwd: torch.Tensor    # (W,) f32 1.0 = forward
+    valid: torch.Tensor     # (W,) bool
+
+    @property
+    def size(self) -> int:
+        return self.bucket.shape[0]
+
+
+def init_flow_table(n_buckets: int, *, device=None) -> FlowTableState:
+    """A fresh register file on ``device`` (None: CUDA)."""
+    dev = resolve_device(device)
+    regs = torch.zeros((len(REGISTER_FIELDS), n_buckets), dtype=torch.float32,
+                       device=dev)
+    regs[2].fill_(float("inf"))
+    regs[3].fill_(float("-inf"))
+    return FlowTableState(regs)
+
+
+def flow_table_from_arrays(arrays, *, device=None) -> FlowTableState:
+    """A register file from host arrays: a mapping with one (N,) array per
+    name of ``REGISTER_FIELDS`` (how the reference's ``FlowTableState``
+    crosses over). device=None: CUDA."""
+    regs = np.stack([np.asarray(arrays[f], np.float32)
+                     for f in REGISTER_FIELDS])
+    return FlowTableState(torch.as_tensor(regs, device=resolve_device(device)))
+
+
+def packet_window_from_arrays(bucket, ts, length, is_fwd, valid, *,
+                              device=None) -> PacketWindow:
+    """A window from host arrays (how the reference's ``PacketWindow``
+    crosses over). device=None: CUDA."""
+    dev = resolve_device(device)
+    col = lambda a, dt: torch.as_tensor(np.asarray(a, dt), device=dev)
+    return PacketWindow(bucket=col(bucket, np.int32), ts=col(ts, np.float32),
+                        length=col(length, np.float32),
+                        is_fwd=col(is_fwd, np.float32),
+                        valid=col(valid, np.bool_))
+
+
+def update_flow_table(state: FlowTableState,
+                      window: PacketWindow) -> FlowTableState:
+    """Fold one window into the register file (plain composition; returns a
+    new state and leaves ``state`` as it was).
+
+    Sums are masked scatter-adds into the carry (an invalid lane adds
+    exactly 0.0, a bitwise no-op on the non-negative count registers);
+    first/last ts ride scatter-min/max with invalid lanes pinned to the
+    identities. Bit-identical to the batch reductions in any order while
+    the counts stay below 2^24. Bucket ids must lie in [0, N).
+    """
+    b = window.bucket.long()
+    w = window.valid.to(torch.float32)
+    inf = float("inf")
+    ln, fwd = window.length, window.is_fwd
+    regs = state.regs.clone()
+
+    def add(i, v):
+        regs[i].index_add_(0, b, v)
+
+    add(0, w)
+    add(1, ln * w)
+    regs[2].scatter_reduce_(0, b, torch.where(window.valid, window.ts, inf),
+                            "amin", include_self=True)
+    regs[3].scatter_reduce_(0, b, torch.where(window.valid, window.ts, -inf),
+                            "amax", include_self=True)
+    add(4, fwd * w)
+    add(5, (1.0 - fwd) * w)
+    add(6, ln * fwd * w)
+    add(7, ln * (1.0 - fwd) * w)
+    return FlowTableState(regs)
+
+
+def evict_fills(device) -> torch.Tensor:
+    """``EVICT_FILLS`` as an (8,) f32 tensor, written on the device itself:
+    no host-to-device copy, so a serving step stays free of host syncs and
+    can be captured in a CUDA graph."""
+    fills = torch.zeros(len(EVICT_FILLS), dtype=torch.float32, device=device)
+    fills[2:3].fill_(float("inf"))
+    fills[3:4].fill_(float("-inf"))
+    return fills
+
+
+def _reset(state: FlowTableState, evict: torch.Tensor, use_kernel) -> tuple:
+    out = evict_fill(state.regs, evict, evict_fills(state.regs.device),
+                     use_kernel=use_kernel)
+    return FlowTableState(out), evict.sum(dtype=torch.int32)
+
+
+def age_out(state: FlowTableState, evict_before, *,
+            use_kernel: Optional[bool] = None) -> tuple:
+    """LRU/timeout eviction sweep: recycle buckets idle too long.
+
+    A bucket whose last-seen timestamp (t_max) predates ``evict_before``
+    is reset to the init identities, bit-identical to a bucket the stream
+    never touched; surviving buckets pass through bit for bit. The reset
+    rides ``kernels.ops.evict_fill`` (B6). Returns (state, n_evicted i32).
+    """
+    evict = (state.pkt_count > 0) & (state.t_max < evict_before)
+    return _reset(state, evict, use_kernel)
+
+
+def saturate_counts(state: FlowTableState, *, limit: float = OVERFLOW_LIMIT,
+                    prev: Optional[FlowTableState] = None) -> tuple:
+    """Overflow guard for the f32 integer-exactness envelope.
+
+    Clamps the count registers at ``limit`` (a bitwise no-op for every
+    in-envelope register) and counts the register slots *newly* saturated:
+    with ``prev`` (the register file at the start of the window) a slot
+    counts iff it reached the limit now and was below it then; without
+    ``prev``, slots strictly above the limit count. Returns (state,
+    n_newly_saturated i32).
+    """
+    lim = float(np.float32(limit))
+    regs = state.regs.clone()
+    n_over = torch.zeros((), dtype=torch.int32, device=regs.device)
+    for sl in _COUNT_SLICES:
+        r = state.regs[sl]
+        newly = ((r >= lim) & (prev.regs[sl] < lim) if prev is not None
+                 else r > lim)
+        n_over = n_over + newly.sum(dtype=torch.int32)
+        regs[sl] = torch.clamp(r, max=lim)
+    return FlowTableState(regs), n_over
+
+
+def _age_classes(idle: torch.Tensor, evict_age: float, top_age: int):
+    """floor(idle / period) as the reference computes it under ``jax.jit``:
+    ``period`` is a constant there, and XLA turns the division into a
+    product with its float32 reciprocal, which can round to another class
+    than a true division."""
+    period = np.float32(evict_age) / np.float32(top_age)
+    return torch.floor(idle * float(np.float32(1.0) / period))
+
+
+def approx_lru_sweep(state: FlowTableState, w: PacketWindow,
+                     evict_age: float, *, occupancy: float = 0.75,
+                     age_bits: int = LRU_AGE_BITS,
+                     act_bits: int = LRU_ACT_BITS,
+                     use_kernel: Optional[bool] = None) -> tuple:
+    """pForest-style approx-LRU eviction: multi-bit age counters ranked by
+    activity, swept only under occupancy pressure.
+
+    age class = idle time quantized into ``2**age_bits`` levels (a flow
+    idle >= ``evict_age`` sits in the top class); activity =
+    ``log2(pkt_count + 1)`` clipped to ``2**act_bits`` classes; score =
+    oldest-then-smallest first. Nothing is evicted while occupancy is at or
+    below ``occupancy``; above it, every bucket at or above the smallest
+    score threshold whose classes cover the excess is recycled. Flows seen
+    in this window are never evicted, and an all-invalid window sweeps
+    nothing. The reset rides ``kernels.ops.evict_fill`` (B6). Returns
+    (state, n_evicted i32).
+    """
+    n = state.n_buckets
+    dev = state.regs.device
+    n_scores = 1 << (age_bits + act_bits)
+    top_age = (1 << age_bits) - 1
+    top_act = float((1 << act_bits) - 1)
+    inf = float("inf")
+    now = torch.where(w.valid, w.ts, -inf).max()
+    w_min = torch.where(w.valid, w.ts, inf).min()
+    occupied = state.pkt_count > 0
+    n_occ = occupied.sum(dtype=torch.int32)
+    high = int(occupancy * n)
+    pressure = w.valid.any() & (n_occ > high)
+    # age/activity classes in float (inf-safe), cast after the clip
+    idle = torch.clamp(now - state.t_max, min=0.0)
+    age_cls = torch.clamp(_age_classes(idle, evict_age, top_age),
+                          0.0, float(top_age))
+    act_cls = torch.clamp(torch.floor(torch.log2(state.pkt_count + 1.0)),
+                          0.0, top_act)
+    score = (age_cls * (top_act + 1.0) + (top_act - act_cls)).to(torch.int32)
+    protected = state.t_max >= w_min          # seen this window: survives
+    eligible = occupied & ~protected
+    score = torch.where(eligible, score, -1)
+    # smallest threshold whose classes cover the occupancy excess
+    n_target = n_occ - high
+    s = torch.arange(n_scores, dtype=torch.int32, device=dev)
+    counts = (score[None, :] == s[:, None]).sum(dim=1, dtype=torch.int32)
+    cum = torch.flip(torch.cumsum(torch.flip(counts, (0,)), 0), (0,))
+    ok = cum >= n_target                      # cum[k] = #(score >= k)
+    thr = torch.where(ok.any(), torch.where(ok, s, -1).max(), 0)
+    evict = eligible & (score >= thr) & pressure
+    return _reset(state, evict, use_kernel)
+
+
+def evict_cutoff(ts, valid, evict_age: float):
+    """Aging cutoff for one window: ``min(now - evict_age, window_min)``,
+    no later than every timestamp in the window, so a flow seen in this
+    window always survives it."""
+    now = torch.where(valid, ts, -float("inf")).max()
+    w_min = torch.where(valid, ts, float("inf")).min()
+    return torch.minimum(now - float(np.float32(evict_age)), w_min)
+
+
+def lifecycle_sweep(state: FlowTableState, w: PacketWindow,
+                    evict_age: Optional[float], saturate: bool,
+                    prev: Optional[FlowTableState] = None, *,
+                    evict_policy: str = "timeout",
+                    lru_occupancy: float = 0.75,
+                    use_kernel: Optional[bool] = None) -> tuple:
+    """Aging sweep + overflow guard for one served window.
+
+    ``evict_policy="timeout"`` evicts buckets idle since before
+    ``evict_cutoff``; ``"approx_lru"`` runs the pressure-triggered sweep
+    (``lru_occupancy`` is its high-water fraction). ``prev`` (the register
+    file before this window's update) lets the overflow guard count only
+    newly saturated slots. Returns (state, n_evicted, n_overflow), both
+    counters zero when the feature is off.
+    """
+    dev = state.regs.device
+    n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+    n_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    if evict_policy not in EVICT_POLICIES:
+        raise ValueError(f"evict_policy must be one of {EVICT_POLICIES}, "
+                         f"got {evict_policy!r}")
+    if evict_age is not None:
+        if evict_policy == "approx_lru":
+            state, n_ev = approx_lru_sweep(state, w, evict_age,
+                                           occupancy=lru_occupancy,
+                                           use_kernel=use_kernel)
+        else:
+            state, n_ev = age_out(state,
+                                  evict_cutoff(w.ts, w.valid, evict_age),
+                                  use_kernel=use_kernel)
+    if saturate:
+        state, n_ov = saturate_counts(state, prev=prev)
+    return state, n_ev, n_ov
+
+
+def flow_table_readout(state: FlowTableState,
+                       bucket: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Feature table from the registers — same columns as flow_features.
+
+    bucket=None reads out every bucket -> (n_buckets, 8). Passing bucket
+    ids gathers the register rows first and derives features on the
+    gathered rows -> (len(bucket), 8), bit-identical (the derivation is
+    elementwise).
+    """
+    regs = state.regs if bucket is None else state.regs[:, bucket.long()]
+    return table_from_registers(*regs)
+
+
+def _newly_saturated(before: torch.Tensor, after: torch.Tensor,
+                     bucket: torch.Tensor, n_buckets: int) -> torch.Tensor:
+    """``saturate_counts``' count of newly saturated slots, taken from this
+    window's columns only: ``before``/``after`` are the (8, W) register
+    rows at the window's lanes before and after the clamped update, and
+    ``bucket`` the lanes' (W,) int64 columns. Lanes that share a column
+    carry the same rows, so each column is counted once, through an (N,)
+    scratch that every such lane writes alike."""
+    lim = float(np.float32(OVERFLOW_LIMIT))
+    newly = (after >= lim) & (before < lim)
+    # every row but t_min/t_max (rows 2-3), which are not counts
+    per_lane = (newly.sum(dim=0, dtype=torch.int32)
+                - newly[2:4].sum(dim=0, dtype=torch.int32))
+    per_col = torch.zeros(n_buckets, dtype=torch.int32, device=after.device)
+    per_col.scatter_(0, bucket, per_lane)
+    return per_col.sum(dtype=torch.int32)
+
+
+def window_update_readout(state: FlowTableState, w: PacketWindow, *,
+                          evict_age: Optional[float] = None,
+                          saturate: bool = True,
+                          evict_policy: str = "timeout",
+                          lru_occupancy: float = 0.75,
+                          use_kernel: Optional[bool] = None) -> tuple:
+    """Fold one window and read out its touched-flow feature rows.
+
+    The serving step's register half: update -> aging sweep -> overflow
+    guard -> touched-row readout, returning ``(state, x (W, 8), n_evicted,
+    n_overflow)``. By default the scatter-update, the 2^24 clamp and the
+    touched-row gather are one ``kernels.ops.stream_update`` call (the B5
+    kernel on the card, which updates ``state.regs`` in place: keep only the
+    returned state), and the sweep resets through B6. use_kernel=False runs
+    the plain composition (``update_flow_table``, the sweep, the gather) on
+    either device. The two are bit-identical because
+
+      * eviction cannot touch this window's rows (the cutoff is clamped to
+        the window minimum, the approx-LRU sweep protects flows seen this
+        window), so sweeping after the gather reads the same bits;
+      * the clamp already landed in the kernel and commutes with eviction
+        (the fills are in the envelope), and only this window's columns can
+        newly saturate: the others keep their bits or are reset below the
+        limit. So the guard counts new saturations on those columns alone,
+        from their rows before the update and the kernel's rows after it,
+        with no copy of the register file.
+    """
+    kw = dict(evict_policy=evict_policy, lru_occupancy=lru_occupancy,
+              use_kernel=use_kernel)
+    if use_kernel is False:
+        prev = state
+        state = update_flow_table(state, w)
+        state, n_ev, n_ov = lifecycle_sweep(state, w, evict_age, saturate,
+                                            prev=prev, **kw)
+        return state, flow_table_readout(state, w.bucket), n_ev, n_ov
+    if saturate:
+        # gathered before the kernel writes the register file in place
+        bucket = w.bucket.long()
+        before = state.regs[:, bucket]
+    regs, rows = stream_update(state.regs, w.bucket, w.ts, w.length,
+                               w.is_fwd, w.valid,
+                               limit=OVERFLOW_LIMIT if saturate else None)
+    state, n_ev, n_ov = lifecycle_sweep(FlowTableState(regs), w, evict_age,
+                                        False, **kw)
+    if saturate:
+        n_ov = _newly_saturated(before, rows, bucket, state.n_buckets)
+    return state, table_from_registers(*rows), n_ev, n_ov
+
+
+def trace_columns(trace, n_buckets: int, *, t0: Optional[float] = None,
+                  bucket=None) -> tuple:
+    """Host-side per-packet columns every window iterator shares.
+    -> (cols dict of numpy arrays, t0_used).
+
+    Rebasing stays in float64 on the host and the bucket hash is
+    elementwise (order-free), so every consumer presents bit-identical
+    lanes. t0=None latches the trace's minimum timestamp.
+    """
+    ts64 = np.asarray(trace.ts, np.float64)
+    if t0 is None:
+        t0 = float(ts64.min()) if ts64.size else 0.0
+    if bucket is None:
+        bucket = fnv1a_hash(
+            trace.src_ip, trace.dst_ip, trace.sport, trace.dport,
+            trace.proto, n_buckets=n_buckets, device="cpu")
+    if isinstance(bucket, torch.Tensor):
+        bucket = bucket.cpu().numpy()
+    return dict(bucket=np.asarray(bucket, np.int32),
+                ts=rebase_ts_np(ts64, t0),
+                length=np.asarray(trace.length, np.float32),
+                is_fwd=(np.asarray(trace.direction) == 0)
+                .astype(np.float32)), t0
+
+
+def _pad_columns(cols: dict, n: int, total: int) -> dict:
+    """Pad each (n,) column to ``total`` lanes replicating the last packet
+    — the same in-distribution discipline as ``kernels.ops.pad_window``,
+    applied once to the whole trace instead of per window."""
+    if total == n:
+        return cols
+    return {k: np.concatenate([v, np.repeat(v[n - 1:n], total - n, axis=0)])
+            for k, v in cols.items()}
+
+
+def iter_windows(trace, window: int, n_buckets: int, *,
+                 t0: Optional[float] = None, bucket=None, pad: bool = True,
+                 device=None) -> Iterator[PacketWindow]:
+    """Chunk a PacketTrace into fixed-size PacketWindows on ``device``
+    (None: CUDA).
+
+    Each column crosses to the device once; windows are row slices of it.
+    t0 is the stream epoch every window rebases against (default: the
+    trace's minimum timestamp, the batch path's epoch); pass ``bucket`` to
+    reuse an already-computed full-trace hash. pad=True pads the final
+    ragged window to ``window`` lanes (valid=False); pad=False leaves it
+    short, every lane valid.
+    """
+    dev = resolve_device(device)
+    cols, _ = trace_columns(trace, n_buckets, t0=t0, bucket=bucket)
+    n = len(cols["ts"])
+    if not n:
+        return
+    total = -(-n // window) * window if pad else n
+    cols = _pad_columns(cols, n, total)
+    on_dev = {k: torch.as_tensor(v, device=dev) for k, v in cols.items()}
+    valid = torch.arange(total, device=dev) < n
+    for s in range(0, total, window):
+        sl = slice(s, s + window)
+        yield PacketWindow(valid=valid[sl],
+                           **{k: v[sl] for k, v in on_dev.items()})
+
+
+def stream_flow_features(trace, n_buckets=4096, window=1024, *,
+                         t0: Optional[float] = None, device=None):
+    """One-shot convenience: stream the whole trace window by window.
+
+    Returns (bucket_ids (P,), flow_table (n_buckets, 8)), bit-consistent
+    with ``features.flow_features`` on the same trace (the equivalence
+    oracle). t0 overrides the stream epoch (default: the trace minimum).
+    """
+    dev = resolve_device(device)
+    b = fnv1a_hash(trace.src_ip, trace.dst_ip, trace.sport, trace.dport,
+                   trace.proto, n_buckets=n_buckets, device=dev)
+    state = init_flow_table(n_buckets, device=dev)
+    for w in iter_windows(trace, window, n_buckets, bucket=b, t0=t0,
+                          device=dev):
+        state = update_flow_table(state, w)
+    return b, flow_table_readout(state)
+

@@ -225,3 +225,164 @@ def test_classical_classify_on_card_equals_cpu(cuda, agg):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(pred, plain.classify(xd)[0])
+
+
+# -- B5: the streaming register scatter / readout ---------------------------------
+
+def _stream_case(rng, n, w, dev, *, hot=False, base=0.0, outside=False):
+    """A register file with the +-inf identities on untouched columns and
+    integer counts from ``base``, and a window with negative timestamps,
+    invalid lanes and (optionally) every lane on bucket 0 or a few bucket
+    ids outside [0, N)."""
+    regs = np.zeros((8, n), np.float32)
+    regs[2], regs[3] = np.inf, -np.inf
+    occ = rng.random(n) < 0.4
+    k = int(occ.sum())
+    cnt = rng.integers(1, 60, k).astype(np.float32)
+    for r in (0, 1, 4, 5, 6, 7):
+        regs[r, occ] = base + cnt * (700 if r in (1, 6, 7) else 1)
+    regs[2, occ] = rng.uniform(-40, 0, k)
+    regs[3, occ] = regs[2, occ] + rng.uniform(0, 5, k)
+    bucket = (np.zeros(w, np.int32) if hot
+              else rng.integers(0, n, w).astype(np.int32))
+    if outside and w >= 4:
+        bucket[:4] = [-1, -n - 5, n, n + 9]
+    cols = (bucket, rng.uniform(-30, 30, w).astype(np.float32),
+            rng.integers(40, 1500, w).astype(np.float32),
+            rng.integers(0, 2, w).astype(np.float32), rng.random(w) > 0.2)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(regs), tuple(t(c) for c in cols)
+
+
+@pytest.mark.parametrize("limit", [None, 1000.0, float(1 << 24)])
+@pytest.mark.parametrize("n,w,hot", [(600, 96, False), (8192, 1024, False),
+                                     (8192, 1, False), (257, 4096, True)])
+def test_stream_update_kernel_equals_plain(cuda, n, w, hot, limit):
+    from repro_torch.kernels import stream_update as su
+    rng = np.random.default_rng(n + w)
+    base = float(1 << 24) - 60000.0 if limit == float(1 << 24) else 0.0
+    regs, cols = _stream_case(rng, n, w, cuda, hot=hot, base=base,
+                              outside=not hot)
+    want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=limit)
+    before = su.LAUNCHES["stream_update"]
+    got_regs, got_rows = su.stream_update(regs, *cols, limit=limit)
+    torch.cuda.synchronize()
+    assert su.LAUNCHES["stream_update"] == before + 1
+    assert got_regs.data_ptr() == regs.data_ptr()       # updated in place
+    assert torch.equal(got_regs, want_regs)
+    assert torch.equal(got_rows, want_rows)
+
+
+def test_stream_update_kernel_rejects_bad_operands(cuda):
+    from repro_torch.kernels import stream_update as su
+    rng = np.random.default_rng(0)
+    regs, cols = _stream_case(rng, 64, 16, cuda)
+    with pytest.raises(TypeError):
+        su.stream_update(regs.double(), *cols)
+    with pytest.raises(TypeError):
+        su.stream_update(regs, cols[0].long(), *cols[1:])
+    with pytest.raises(TypeError):
+        su.stream_update(regs, *cols[:4], cols[4].to(torch.int32))
+    with pytest.raises(ValueError):
+        su.stream_update(regs[:7], *cols)
+    with pytest.raises(ValueError):
+        su.stream_update(regs, cols[0][:8], *cols[1:])
+    with pytest.raises(ValueError):
+        su.stream_update(torch.zeros((8, 128), device=cuda)[:, ::2], *cols)
+    with pytest.raises(ValueError):
+        su.stream_update(regs, cols[0].cpu(), *cols[1:])
+
+
+# -- B6: the eviction fill ---------------------------------------------------------
+
+@pytest.mark.parametrize("mask_kind", ["random", "all", "none"])
+@pytest.mark.parametrize("n", [1, 600, 8192, 1 << 20])
+def test_evict_fill_kernel_equals_plain(cuda, n, mask_kind):
+    from repro_torch.kernels import evict as ev
+    g = torch.Generator(device=cuda)
+    g.manual_seed(n)
+    regs = torch.randn((8, n), generator=g, device=cuda)
+    mask = {"random": torch.rand(n, generator=g, device=cuda) < 0.3,
+            "all": torch.ones(n, dtype=torch.bool, device=cuda),
+            "none": torch.zeros(n, dtype=torch.bool, device=cuda)}[mask_kind]
+    fills = torch.tensor([0.0, 0.0, float("inf"), float("-inf"), 0, 0, 0, 0],
+                         device=cuda)
+    before = ev.LAUNCHES["evict_fill"]
+    out = ev.evict_fill(regs, mask, fills)
+    torch.cuda.synchronize()
+    assert ev.LAUNCHES["evict_fill"] == before + 1
+    assert torch.equal(out, ev.evict_fill_ref(regs, mask, fills))
+
+
+def test_evict_fill_kernel_rejects_bad_operands(cuda):
+    from repro_torch.kernels import evict as ev
+    regs = torch.zeros((8, 32), device=cuda)
+    mask = torch.zeros(32, dtype=torch.bool, device=cuda)
+    fills = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        ev.evict_fill(regs, mask.to(torch.int32), fills)
+    with pytest.raises(TypeError):
+        ev.evict_fill(regs, mask, fills.double())
+    with pytest.raises(ValueError):
+        ev.evict_fill(regs, mask[:16], fills)
+    with pytest.raises(ValueError):
+        ev.evict_fill(regs, mask, fills.cpu())
+    with pytest.raises(ValueError):
+        ev.evict_fill(torch.zeros((8, 64), device=cuda)[:, ::2], mask, fills)
+
+
+# -- the streaming server on the card ---------------------------------------------
+
+@pytest.mark.parametrize("evict_policy", [None, "timeout", "approx_lru"])
+def test_streaming_server_on_card_equals_cpu(cuda, evict_policy):
+    """A small trace served by the streaming server on the card (B5, B6, B1)
+    and on the CPU (their plain versions): the same predictions, counters
+    and flow table; one step does not sync the host."""
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.ml.trees import fit_random_forest, predict_tree_ensemble
+    from repro_torch.netsim.features import flow_features
+    from repro_torch.netsim.packets import synth_trace
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace = synth_trace(n_flows=400, seed=3)
+    n_buckets = 256 if evict_policy == "approx_lru" else 4096
+    b, table = flow_features(trace, n_buckets=n_buckets, device="cpu")
+    first = np.unique(trace.flow_id, return_index=True)[1]
+    rows = table[b[first].long()]
+    small = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=4,
+                              max_depth=3, seed=0, device="cpu")
+    big = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=12,
+                            max_depth=5, seed=1, device="cpu")
+    art = map_tree_ensemble(small, 8)
+    kw = dict(n_buckets=n_buckets, window=256, threshold=0.9, capacity=32)
+    if evict_policy is not None:
+        kw.update(evict_age=2.0, evict_policy=evict_policy)
+    big_dev = big.to(cuda)
+    card = StreamingHybridServer(
+        art, lambda r: predict_tree_ensemble(big_dev, r), **kw)
+    host = StreamingHybridServer(
+        art, lambda r: predict_tree_ensemble(big, r), device="cpu", **kw)
+    su_before, ev_before = su.LAUNCHES["stream_update"], ev.LAUNCHES["evict_fill"]
+    p_card, s_card = card.serve_trace(trace)
+    p_host, s_host = host.serve_trace(trace)
+    n_win = s_card.n_windows
+    assert su.LAUNCHES["stream_update"] - su_before == n_win
+    assert ev.LAUNCHES["evict_fill"] - ev_before == (
+        0 if evict_policy is None else n_win)
+    assert torch.equal(p_card.cpu(), p_host)
+    assert torch.equal(card.flow_table().cpu(), host.flow_table())
+    d_card, d_host = s_card.as_dict(), s_host.as_dict()
+    for k in d_card:
+        if k not in ("conf_sum", "mean_conf"):
+            assert d_card[k] == d_host[k], k
+    np.testing.assert_allclose(d_card["conf_sum"], d_host["conf_sum"],
+                               rtol=1e-5)
+    w = next(iter(iter_windows(trace, 256, n_buckets)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        card.step(w)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -1,7 +1,8 @@
 """Parity harness between the JAX reference (``repro``) and the PyTorch port
-(``repro_torch``): converters that carry the reference's artifacts and
-ensembles across as numpy arrays, and the bit-equality and ulp checks the
-other ``test_torch_*`` files use. Its own tests check the helpers."""
+(``repro_torch``): converters that carry the reference's artifacts,
+ensembles, flow-table states and packet windows across as numpy arrays,
+and the bit-equality and ulp checks the other ``test_torch_*`` files use.
+Its own tests check the helpers."""
 
 import dataclasses
 
@@ -15,6 +16,9 @@ from repro_torch.ml.kmeans import kmeans_from_arrays  # noqa: E402
 from repro_torch.ml.naive_bayes import nb_from_arrays  # noqa: E402
 from repro_torch.ml.svm import svm_from_arrays  # noqa: E402
 from repro_torch.ml.trees import ensemble_from_arrays  # noqa: E402
+from repro_torch.netsim.stream import (REGISTER_FIELDS,  # noqa: E402
+                                       flow_table_from_arrays,
+                                       packet_window_from_arrays)
 
 
 def artifact_arrays(art) -> dict:
@@ -61,6 +65,21 @@ def port_nb(jax_nb, device="cpu"):
 def port_kmeans(jax_km, device="cpu"):
     return kmeans_from_arrays(jax_km.centers, jax_km.mean, jax_km.scale,
                               device=device)
+
+
+def port_flow_table(jax_state, device="cpu"):
+    """The reference's ``FlowTableState`` (one array per register) as the
+    port's stacked (8, N) register file."""
+    return flow_table_from_arrays(
+        {f: np.array(getattr(jax_state, f)) for f in REGISTER_FIELDS},
+        device=device)
+
+
+def port_window(jax_w, device="cpu"):
+    """The reference's ``PacketWindow`` carried across."""
+    return packet_window_from_arrays(
+        np.array(jax_w.bucket), np.array(jax_w.ts), np.array(jax_w.length),
+        np.array(jax_w.is_fwd), np.array(jax_w.valid), device=device)
 
 
 def to_np(a) -> np.ndarray:
@@ -148,3 +167,20 @@ def test_artifact_arrays_carry_every_field(anomaly_data):
     assert_bit_equal(ens.thresh, tens.thresh)
     assert_bit_equal(ens.leaf, tens.leaf)
     assert tens.kind == "rf" and tens.depth == 3 and tens.n_trees == 3
+
+
+def test_flow_table_and_window_converters():
+    from repro.netsim.packets import synth_trace
+    from repro.netsim.stream import (init_flow_table, iter_windows,
+                                     update_flow_table)
+    tr = synth_trace(n_flows=40, seed=2)
+    w = next(iter(iter_windows(tr, 64, 256)))
+    state = update_flow_table(init_flow_table(256), w)
+    ts = port_flow_table(state)
+    assert ts.regs.shape == (8, 256) and ts.regs.dtype == torch.float32
+    for f in REGISTER_FIELDS:
+        assert_bit_equal(getattr(state, f), getattr(ts, f))
+    tw = port_window(w)
+    for f in ("bucket", "ts", "length", "is_fwd", "valid"):
+        assert_bit_equal(getattr(w, f), getattr(tw, f))
+    assert tw.bucket.dtype == torch.int32 and tw.valid.dtype == torch.bool
