@@ -8,8 +8,9 @@ Phases (any failure exits non-zero before the result line is printed):
   2. build: ``nvcc`` compiles every ``src/repro_torch/csrc/*.cu`` for sm_90a
      (one process per source, started together): the tree lookup (B1/B2),
      the classical lookup (B3) and the standalone range match (B4), all
-     sharing ``csrc/range_match.cuh``, the streaming register scatter /
-     readout (B5) and the eviction fill (B6).
+     sharing ``csrc/range_match.cuh`` with the per-feature-loop tree lookup
+     (B7), the streaming register scatter / readout (B5) and the eviction
+     fill (B6).
   3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
@@ -21,7 +22,9 @@ Phases (any failure exits non-zero before the result line is printed):
      opt-in; the range match at the main path's own shape (all 16000
      training rows against the fit's 64-bin quantile edges), on the served
      edges (5, 63) and on a synthetic (8, 255) set with inputs on the
-     edges and at +-inf.
+     edges and at +-inf; the per-feature-loop lookup (B7) at N in {1, 127,
+     2048, 2049} on the RF switch (staged and global tables), the XGB
+     backend, and a hand-built artifact whose keys run past S (vote, sum).
   4. serve, three paths, each with every launch count set to 0 just before
      it and read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
@@ -44,6 +47,14 @@ Phases (any failure exits non-zero before the result line is printed):
         step launches B5 and B1 once (and B6 once in the second run); the
         first run's flow table equals the batch ``flow_features`` on the
         card bit for bit; the second evicts.
+     d. ``HybridServer`` at the serve default's width (phase a's artifact
+        and backend) over all 4000 test rows: with
+        ``tiles=TileConfig(impl='loop')`` (one B7 launch, no B1/B2, per
+        classify), with ``autotune=True`` (every candidate's time and the
+        winner; every candidate must be timed), and with ``fuse=None`` (the
+        probe, a CUDA graph per shape, bit-equal to the eager server, an
+        ``update_tables`` swap under the graphs, and a host-syncing backend
+        that must fall back to the eager path).
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -56,7 +67,9 @@ Phases (any failure exits non-zero before the result line is printed):
      shape: the lookups at a 2048-row batch, the range match at the
      16000-row fit, B5 and B6 at N=8192, W=1024 (``torch.where`` is B6's
      library call; B5 has none). One streaming step, eager and under graph
-     replay, its parts, and packets per second of ``serve_trace``.
+     replay, its parts, and packets per second of ``serve_trace``. One
+     classify of each phase-d server: eager, fused (per call and its
+     graph's replay), loop tiles and autotuned tiles.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -329,6 +342,8 @@ def main() -> int:
                          f"N={n} F={edges.shape[0]} U={edges.shape[1]}")
 
     _check_stream_kernels(torch, dev, su, ev)
+    _check_loop_kernel(torch, np, dev, ek, check_launch, rf_art, xgb_art,
+                       x_all, rng)
 
     # small-input agreement with the plain table semantics (CPU)
     def check_vs_cpu(art, name):
@@ -366,7 +381,7 @@ def main() -> int:
         srv = res["server"]
         plain = HybridServer(res["artifact"], srv.backend_fn,
                              threshold=srv.threshold, capacity=srv.capacity,
-                             use_kernel=False, device="cuda")
+                             use_kernel=False, fuse=False, device="cuda")
         batch = res["pred"].shape[0] // want
         plain_pred = torch.cat([
             plain.classify(res["x_test"][i * batch:(i + 1) * batch])[0]
@@ -431,7 +446,7 @@ def main() -> int:
         srv = fam["server"]
         plain = HybridServer(srv.artifact, srv.backend_fn,
                              threshold=srv.threshold, capacity=srv.capacity,
-                             use_kernel=False, device="cuda")
+                             use_kernel=False, fuse=False, device="cuda")
         plain_pred = torch.cat([plain.classify(x_all[lo:hi])[0]
                                 for lo, hi in fam["batches"]])
         if not torch.equal(fam["raw_pred"], plain_pred):
@@ -460,12 +475,16 @@ def main() -> int:
     # -- 4c. serve: the streaming path ----------------------------------------
     stream = _serve_stream(torch, np, dev)
 
+    # -- 4d. serve: loop tiles, autotune, the fused step ------------------------
+    tuned = _serve_tuned(torch, runs["auto"], x_all)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
-    # B1/B2 launches: the launcher's run plus both streaming runs
+    # B1/B2 launches: the launcher's run, both streaming runs and path d
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
+               + sum(p[k] for p in tuned["paths"].values())
                for k in ("matmul", "compare")}
     kernel_rows = []
     timing_cases = [("ensemble_lookup:matmul", served, x2048, "matmul",
@@ -491,6 +510,9 @@ def main() -> int:
     kernel_rows.append(dict(cl_rows["nb"], name="classical_lookup"))
     kernel_rows.append(_time_bucketize(torch, bk, fit_edges, xtr_dev,
                                        path_b["bucketize"]))
+    kernel_rows.append(_time_loop(torch, ek, served, x2048,
+                                  sum(p["loop"]
+                                      for p in tuned["paths"].values())))
     for row in kernel_rows + extra + [cl_rows["svm"], cl_rows["kmeans"]]:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.5f} ms")
@@ -511,6 +533,7 @@ def main() -> int:
               f"device time (graph replay) on {smi}")
     _time_parts(torch, fused_classify, server, xb, "rf", smi)
     _time_parts(torch, fused_classify, families["nb"]["server"], xb, "nb", smi)
+    _time_tuned(torch, tuned, xb, smi)
 
     stream_rows = _time_stream(torch, np, stream, smi)
     kernel_rows += stream_rows
@@ -547,8 +570,8 @@ def _reset_counts():
 
 
 def _counts() -> dict:
-    """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B3
-    classical, B4 bucketize, B5 stream_update, B6 evict_fill)."""
+    """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B7
+    loop, B3 classical, B4 bucketize, B5 stream_update, B6 evict_fill)."""
     out = {}
     for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
@@ -644,6 +667,203 @@ def _check_stream_kernels(torch, dev, su, ev):
             if launched != 1 or not torch.equal(got, want):
                 raise AssertionError(f"evict_fill kernel != plain at N={n} "
                                      f"mask={kind}")
+
+
+def _serve_tuned(torch, res, x_all):
+    """Phase 4d: ``HybridServer``'s tiles, autotune and fuse at the serve
+    default's full width (the launcher's RF 10x5 artifact and XGB 60x6
+    backend, tau 0.7, capacity 1024) over all 4000 test rows in batches of
+    2048 (the last 1952), each held bit for bit (preds, frac, rows) to the
+    plain path and the default eager server. Three sub-paths, each with
+    every launch count set to 0 just before it and read just after:
+    i. ``tiles=TileConfig(impl='loop')``: one B7 launch and no B1/B2 per
+       classify; ii. ``autotune=True``: the sweep (each candidate's graph
+       capture counts its launches once; replays launch what was captured)
+       must time every candidate; iii. ``fuse=None``: the probe, a CUDA
+       graph per shape, an ``update_tables`` swap under the captured graphs,
+       then a backend that syncs the host, which must fall back."""
+    import dataclasses
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig
+    from repro_torch.serving.hybrid_serving import HybridServer
+
+    art, backend = res["artifact"], res["server"].backend_fn
+    n = x_all.shape[0]
+    batches = [(lo, min(lo + 2048, n)) for lo in range(0, n, 2048)]
+    kw = dict(threshold=0.7, capacity=1024)
+
+    def serve(srv):
+        out = []
+        for lo, hi in batches:
+            pred, st = srv.classify(x_all[lo:hi])
+            out.append((pred, *st.as_tensors()))
+        return out
+
+    def same(a, b):
+        return all(torch.equal(u, v) for ra, rb in zip(a, b)
+                   for u, v in zip(ra, rb))
+
+    plain = serve(HybridServer(art, backend, use_kernel=False, fuse=False,
+                               **kw))
+    eager = HybridServer(art, backend, fuse=False, **kw)
+    default = serve(eager)
+    if not same(default, plain):
+        raise AssertionError("default server != plain path")
+    sizes = [hi - lo for lo, hi in batches]
+    paths = {}
+
+    # i. the per-feature-loop realization
+    loop_srv = HybridServer(art, backend, tiles=TileConfig(impl="loop"),
+                            fuse=False, **kw)
+    _reset_counts()
+    got = []
+    for lo, hi in batches:
+        before = _counts()
+        pred, st = loop_srv.classify(x_all[lo:hi])
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        if delta["loop"] != 1 or delta["matmul"] or delta["compare"]:
+            raise AssertionError(f"tiles=loop: one classify launched {delta}")
+        got.append((pred, *st.as_tensors()))
+    torch.cuda.synchronize()
+    paths["loop_tiles"] = _counts()
+    print(f"main-path launches (d.i: tiles=loop): {paths['loop_tiles']}")
+    if not (same(got, plain) and same(got, default)):
+        raise AssertionError("tiles=loop: served != plain / default server")
+    print(f"serve[tiles=loop] batches={sizes} one B7 launch per classify, no "
+          f"B1/B2; preds, frac, rows equal_plain=True equal_default=True")
+
+    # ii. the tile autotune
+    tuning.clear_tile_cache()
+    _reset_counts()
+    t0 = time.perf_counter()
+    tuned = HybridServer(art, backend, autotune=True, fuse=False, **kw)
+    sweep_s = time.perf_counter() - t0
+    got = serve(tuned)
+    torch.cuda.synchronize()
+    paths["autotune"] = _counts()
+    print(f"main-path launches (d.ii: autotune=True, the sweep's captures "
+          f"included): {paths['autotune']}")
+    timings = tuning.sweep_timings(tuned.artifact)
+    want = tuning.candidate_tiles(2048) + [DEFAULT_TILES]
+    for c in want:
+        ms = "MISSING" if c not in timings else f"{timings[c] * 1e3:.5f} ms"
+        print(f"autotune candidate tile_n={c.tile_n} select={c.select} "
+              f"impl={c.impl}: {ms} per fused_classify call (graph replay, "
+              f"min of 2)")
+    missing = [c for c in want if c not in timings]
+    if missing or set(timings) != set(want):
+        raise AssertionError(f"the sweep did not time {missing}")
+    if paths["autotune"]["loop"] < 1:
+        raise AssertionError("the sweep never launched B7")
+    if not same(got, plain):
+        raise AssertionError("autotune: served != plain path")
+    print(f"autotune winner tile_n={tuned.tiles.tile_n} "
+          f"select={tuned.tiles.select} impl={tuned.tiles.impl} "
+          f"(sweep {sweep_s:.2f} s); preds, frac, rows equal_plain=True")
+
+    # iii. the fused step
+    _reset_counts()
+    fused = HybridServer(art, backend, **kw)          # fuse=None
+    got1 = serve(fused)     # probes on the first call, captures the second
+    got2 = serve(fused)     # captures 2048, replays 1952
+    torch.cuda.synchronize()
+    paths["fuse"] = _counts()
+    print(f"main-path launches (d.iii: fuse=None; the probe, warm-ups and "
+          f"captures; replays launch what was captured): {paths['fuse']}")
+    if fused._fused_ok is not True:
+        raise AssertionError("fuse=None did not fuse a torch backend")
+    if not (same(got1, default) and same(got2, default)):
+        raise AssertionError("fused server != eager server")
+    graphs = dict(fused._graphs)
+    ptrs = [t.data_ptr() for t in (fused.artifact.ftable_flat,
+                                   fused.artifact.dtable_flat,
+                                   fused.artifact.dtable_class)]
+    flipped = dataclasses.replace(art, dtable_class=1 - art.dtable_class,
+                                  ftable_flat=None, dtable_flat=None,
+                                  dtable_pad=None)
+    fused.update_tables(flipped)
+    got3 = serve(fused)
+    want3 = serve(HybridServer(flipped, backend, fuse=False, **kw))
+    kept = [t.data_ptr() for t in (fused.artifact.ftable_flat,
+                                   fused.artifact.dtable_flat,
+                                   fused.artifact.dtable_class)] == ptrs
+    if fused._graphs != graphs or not kept or not same(got3, want3) \
+            or same(got3, default):
+        raise AssertionError("update_tables under a captured graph did not "
+                             "serve the new tables")
+    fused.update_tables(art)
+    if not same(serve(fused), default):
+        raise AssertionError("update_tables back to the served tables")
+
+    def np_backend(rows):                         # a host round trip
+        return backend(rows).cpu().numpy()
+
+    np_srv = HybridServer(art, np_backend, **kw)
+    got4 = serve(np_srv)
+    if np_srv._fused_ok is not False or np_srv._graphs \
+            or not same(got4, default):
+        raise AssertionError("a syncing backend did not fall back eagerly")
+    print(f"serve[fuse=None] _fused_ok={fused._fused_ok} graphs="
+          f"{sorted(fused._graphs)} preds, frac, rows equal_eager=True; "
+          f"update_tables swap served the new tables, no re-capture, same "
+          f"data_ptr=True; numpy backend _fused_ok={np_srv._fused_ok} "
+          f"equal_eager=True")
+    return dict(paths=paths, eager=eager, fused=fused, loop=loop_srv,
+                tuned=tuned, timings=timings)
+
+
+def _loop_args(torch, art):
+    """B7's operands from an artifact: the unflattened tables, the decision
+    table as f32 (what ``fused_classify(impl='loop')`` hands the kernel)."""
+    vote = art.agg == "vote"
+    dtable = (art.dtable_class if vote else art.dtable_value.q)
+    return ((art.edges, art.ftable, art.strides, dtable.to(torch.float32)),
+            dict(n_classes=art.n_classes, vote=vote))
+
+
+def _check_loop_kernel(torch, np, dev, ek, check_launch, rf_art, xgb_art,
+                       x_all, rng):
+    """Phase 3 for B7: the kernel against its plain version, atol=0, one
+    launch per call, at N in {1, 127, 2048, 2049}: the served RF switch
+    (vote; tables staged and global), the mapped XGB 60x6 backend (sum;
+    global: its 1.4 MB decision table does not fit a block), and a
+    hand-built artifact whose keys run past S (codes in [0, 3), strides
+    3^f: keys up to 242 against S = 200), vote and sum."""
+    f, u, t, s = 5, 39, 10, 200
+    hb_edges = np.sort(rng.normal(size=(f, u)), axis=1).astype(np.float32)
+    hb = (torch.tensor(hb_edges, device=dev),
+          torch.tensor(rng.integers(0, 3, (f, u + 1, t)), dtype=torch.int32,
+                       device=dev),
+          torch.tensor([[3 ** j for j in range(f)]] * t, dtype=torch.int32,
+                       device=dev))
+    hb_vote = torch.tensor(rng.integers(0, 3, (t, s)), dtype=torch.float32,
+                           device=dev)
+    hb_sum = torch.tensor(rng.integers(-30000, 30000, (t, s)),
+                          dtype=torch.float32, device=dev)
+    x_hb = torch.tensor(rng.normal(size=(2049, f)) * 1.2, dtype=torch.float32,
+                        device=dev)
+    cases = [("rf_switch", *_loop_args(torch, rf_art), x_all, None),
+             ("rf_switch", *_loop_args(torch, rf_art), x_all, False),
+             ("xgb_backend", *_loop_args(torch, xgb_art), x_all, None),
+             ("key_past_S:vote", hb + (hb_vote,),
+              dict(n_classes=3, vote=True), x_hb, None),
+             ("key_past_S:vote", hb + (hb_vote,),
+              dict(n_classes=3, vote=True), x_hb, False),
+             ("key_past_S:sum", hb + (hb_sum,), dict(n_classes=2, vote=False),
+              x_hb, None)]
+    for name, tabs, kw, x_src, staged in cases:
+        f, u = tabs[0].shape
+        t, s = tabs[3].shape
+        st = (ek.loop_fits_smem(f, u, t, s, 128) if staged is None
+              else staged)
+        for n in (1, 127, 2048, 2049):
+            x = x_src[:n].contiguous()
+            check_launch(
+                "loop", f"ensemble_lookup_loop:{name}",
+                lambda: ek.ensemble_lookup_loop(x, *tabs, staged=staged, **kw),
+                lambda: ek.ensemble_lookup_loop_ref(x, *tabs, **kw),
+                f"N={n} F={f} U={u} T={t} S={s} vote={kw['vote']} "
+                f"staged={st} smem={ek.loop_smem_bytes(f, u, t, s, st, 128)}B")
 
 
 STREAM_RUNS = (("no_eviction", {}),
@@ -931,8 +1151,9 @@ def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,
         elif name == "iforest":
             art = map_tree_ensemble(fit_isolation_forest(xtr, device=dev),
                                     xtr.shape[1])
+        # eager two-phase serving, as slices 1-3 served and timed it
         srv = HybridServer(art, backend, threshold=0.7, capacity=1024,
-                           device=dev)
+                           fuse=False, device=dev)
         preds, stats = [], []
         for lo, hi in batches:
             p, st = srv.classify(x_all[lo:hi])
@@ -1044,6 +1265,60 @@ def _time_bucketize(torch, bk, edges, x, launches):
             "library_ms": library_ms, "ms_eager": ms_eager,
             "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
             "shape": {"N": n, "F": f, "U": u}}
+
+
+def _time_tuned(torch, tuned, xb, smi):
+    """One 2048-row classify per server of phase 4d: the eager default, the
+    fused step (per call, and its graph's replay alone), the loop tiles and
+    the autotuned tiles (eager calls, and their device time in a graph)."""
+    graph = tuned["fused"]._graphs[tuple(xb.shape)][0]
+    replay = _median_ms(torch, graph.replay)
+    for name in ("eager", "fused", "loop", "tuned"):
+        srv = tuned[name]
+        call = _median_ms(torch, lambda: srv.classify(xb))
+        dev_ms = (replay if name == "fused" else
+                  _graph_ms(torch, lambda: srv.classify(xb), inner=5))
+        print(f"time classify[rf, {name}: tiles={srv.tiles.tile_n}/"
+              f"{srv.tiles.select}/{srv.tiles.impl} fused_ok={srv._fused_ok}]"
+              f"(batch=2048, XGB 60x6 backend) median {call:.4f} ms per call,"
+              f" {dev_ms:.4f} ms device time (graph replay) on {smi}")
+
+
+def _time_loop(torch, ek, art, x, launches):
+    """B7 at the serve shape: the RF switch's unflattened tables, 2048 rows."""
+    tabs, kw = _loop_args(torch, art)
+    edges, ftable, strides, dtable = tabs
+    n, f = x.shape
+    u = edges.shape[1]
+    t, s = dtable.shape
+    cout = kw["n_classes"] if kw["vote"] else 1
+    out_k = ek.ensemble_lookup_loop(x, *tabs, **kw)
+    out_p = ek.ensemble_lookup_loop_ref(x, *tabs, **kw)
+    err = _max_abs_err(out_k, out_p)
+    ms, ms_eager, plain_ms, plain_eager, _ = _times(
+        torch, lambda: ek.ensemble_lookup_loop(x, *tabs, **kw),
+        lambda: ek.ensemble_lookup_loop_ref(x, *tabs, **kw))
+    # bound: x, edges, codes and strides read once, the decision entries
+    # these rows touch (keys in [0, S)) read once, the output written once;
+    # N*F*U compares, N*T*F products and sums, N*T*Co compares
+    bins = ek.bucketize_ref(x, edges).long()
+    codes = ftable[torch.arange(f, device=x.device)[None, :], bins].long()
+    keys = (codes * strides.t().long()[None]).sum(dim=1)         # (N, T)
+    inside = (keys >= 0) & (keys < s)
+    pairs = torch.unique((keys + torch.arange(t, device=x.device) * s)[inside])
+    n_bytes = 4 * (x.numel() + edges.numel() + ftable.numel()
+                   + strides.numel() + pairs.numel() + n * cout)
+    ops = n * f * u + 2 * n * t * f + n * t * cout
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    return {"name": "ensemble_lookup_loop", "route": "cuda",
+            "source": "src/repro_torch/csrc/ensemble_loop.cu",
+            "replaces": "src/repro/kernels/ensemble_lookup.py:249",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "ms_eager": ms_eager,
+            "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+            "shape": {"N": n, "F": f, "U": u, "T": t, "S": s, "Co": cout,
+                      "staged": ek.loop_fits_smem(f, u, t, s, 128)}}
 
 
 def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):

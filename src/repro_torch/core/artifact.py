@@ -122,13 +122,30 @@ class TableArtifact:
                         m_pad=self.vtable_flat.shape[1])
         return meta
 
-    def to(self, device) -> "TableArtifact":
-        """Every table on ``device`` (a no-op copy-free view when already
-        there)."""
-        moved = {k: getattr(self, k).to(device)
+    def to(self, device, copy: bool = False) -> "TableArtifact":
+        """Every table on ``device`` (the same tensors when already there,
+        unless ``copy``: then every table is a new tensor)."""
+        moved = {k: getattr(self, k).to(device, copy=copy)
                  for k in _TENSOR_FIELDS + _FIXED_FIELDS
                  if getattr(self, k) is not None}
         return dataclasses.replace(self, **moved)
+
+    def copy_(self, other: "TableArtifact") -> "TableArtifact":
+        """Copy ``other``'s table contents into this artifact's tensors in
+        place (from any device): every tensor keeps its storage, so a CUDA
+        graph captured over them serves the new contents. The shape
+        signatures (static fields included) must be equal."""
+        if other.shape_signature() != self.shape_signature():
+            raise ValueError("table shapes changed: constraints violated "
+                             "(paper §4.4 requires fixed model constraints)")
+        for k in _TENSOR_FIELDS:
+            if getattr(self, k) is not None:
+                getattr(self, k).copy_(getattr(other, k))
+        for k in _FIXED_FIELDS:
+            if getattr(self, k) is not None:
+                getattr(self, k).q.copy_(getattr(other, k).q)
+                getattr(self, k).scale.copy_(getattr(other, k).scale)
+        return self
 
     def shape_signature(self) -> tuple:
         """Static fields plus every table's shape (None where absent): two

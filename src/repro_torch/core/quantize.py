@@ -21,8 +21,9 @@ class FixedPoint:
     scale: torch.Tensor    # scalar float32
     bits: int = 16
 
-    def to(self, device) -> "FixedPoint":
-        return FixedPoint(q=self.q.to(device), scale=self.scale.to(device),
+    def to(self, device, copy: bool = False) -> "FixedPoint":
+        return FixedPoint(q=self.q.to(device, copy=copy),
+                          scale=self.scale.to(device, copy=copy),
                           bits=self.bits)
 
 

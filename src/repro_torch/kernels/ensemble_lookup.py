@@ -19,10 +19,19 @@ about 75 KB — about 22 ns at 3.35 TB/s, far below a launch — so the design
 keeps to one launch per classify. PERF.md holds the measured time (~16 us of
 device time per launch: the per-thread latency chain, not bytes).
 
+The per-feature-loop kernel (B7, ``ensemble_lookup_loop``) replaces the
+reference's ``_loop_kernel`` (:249, reached from
+``ensemble_lookup_pallas_loop`` :289), the tile autotune's
+``impl='loop'`` candidate. Its source is ``csrc/ensemble_loop.cu`` (the same
+range match); it reads the unflattened tables and sums each tree's key in
+f32 feature by feature, as the reference does.
+
 Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
-``ensemble_lookup_fused_ref``, the plain version on the same flat tables.
-Every value is an integer carried in f32 below 2^24, so the two agree bit
-for bit. ``LAUNCHES`` counts kernel launches per select, and nothing else.
+the plain version (``ensemble_lookup_fused_ref`` on the same flat tables,
+``ensemble_lookup_loop_ref`` for B7). Every value is an integer carried in
+f32 below 2^24, so the two agree bit for bit. ``LAUNCHES`` counts kernel
+launches per select ('matmul', 'compare') and of B7 ('loop'), and nothing
+else.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import torch
 from repro_torch.core.artifact import build_dtable_flat, flatten_ftable, pad_dtable
 from repro_torch.device import on_kernel_path
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import bucketize_ref
+from repro_torch.kernels.ref import bucketize_ref, ensemble_lookup_loop_ref
 from repro_torch.kernels.tuning import DEFAULT_TILES
 
 # select='auto' crossover, kept from the reference (ensemble_lookup.py:63)
@@ -45,7 +54,7 @@ SMEM_BUDGET_BYTES = 232448
 
 MAX_CLASSES = 32        # EL_MAX_CO in the CUDA source: outputs kept in registers
 
-LAUNCHES = {"matmul": 0, "compare": 0}
+LAUNCHES = {"matmul": 0, "compare": 0, "loop": 0}
 
 
 def reset_launches() -> None:
@@ -108,14 +117,15 @@ def ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat, dtable_pad,
     return leaf.sum(dim=1, keepdim=True)
 
 
-def check_operands(x, *tables) -> None:
-    """Raise unless x and every (name, tensor) of ``tables`` are float32,
-    contiguous and on x's device — what the kernels take."""
+def check_operands(x, *tables, dtype=torch.float32) -> None:
+    """Raise unless x is float32 and every (name, tensor) of ``tables`` is
+    of ``dtype``, contiguous and on x's device — what the kernels take."""
     for name, a in (("x", x),) + tables:
+        want = torch.float32 if name == "x" else dtype
         if a.device != x.device:
             raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.dtype != want:
+            raise TypeError(f"{name} must be {want}, got {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -188,3 +198,74 @@ def ensemble_lookup(x, edges, ftable, strides, dtable, *, n_classes: int,
         x, edges, flatten_ftable(ftable, strides),
         build_dtable_flat(dtable, n_classes, vote), pad_dtable(dtable),
         select=select, tile_n=tile_n)
+
+
+# ---------------------------------------------------------------------------
+# the per-feature-loop kernel (B7)
+# ---------------------------------------------------------------------------
+
+def loop_smem_bytes(f: int, u: int, t: int, s: int, staged: bool,
+                    tile_n: int) -> int:
+    """Dynamic shared memory of one loop-kernel launch (mirrors
+    ``lp_smem_bytes`` in ``csrc/ensemble_loop.cu``): per-thread table
+    offsets, plus the staged edges, codes, strides and decision table."""
+    n_bytes = 4 * f * tile_n
+    if staged:
+        n_bytes += 4 * (f * u + f * (u + 1) * t + t * f + t * s)
+    return n_bytes
+
+
+def loop_fits_smem(f: int, u: int, t: int, s: int, tile_n: int) -> bool:
+    """Stage the loop kernel's tables in shared memory when they fit one
+    block's budget, else read them from global memory (same result)."""
+    return loop_smem_bytes(f, u, t, s, True, tile_n) <= SMEM_BUDGET_BYTES
+
+
+def ensemble_lookup_loop(x, edges, ftable, strides, dtable, *, n_classes: int,
+                         vote: bool, tile_n: int = None,
+                         staged: bool = None) -> torch.Tensor:
+    """Per-feature-loop pipeline (B7) on the unflattened tables -> (N, Co).
+
+    The counterpart of the reference's ``ensemble_lookup_pallas_loop``:
+    x (N, F) f32 (any N: the kernel masks its ragged last block); edges
+    (F, U) f32; ftable (F, U+1, T) int32 codes; strides (T, F) int32;
+    dtable (T, S) f32 class ids or quantized payloads. Returns
+    (N, n_classes) votes or (N, 1) sums, as ``ensemble_lookup_loop_ref``
+    computes them (f32 keys summed feature by feature; a key outside
+    [0, S) reads leaf 0). tile_n is the CUDA block size; staged=None
+    stages the tables in shared memory when ``loop_fits_smem`` says so.
+    """
+    if not on_kernel_path(x):
+        return ensemble_lookup_loop_ref(x, edges, ftable, strides, dtable,
+                                        n_classes=n_classes, vote=vote)
+    n, f = x.shape
+    u = edges.shape[1]
+    t, s = dtable.shape
+    tile_n = tile_n or DEFAULT_TILES.tile_n
+    check_operands(x, ("edges", edges), ("dtable", dtable))
+    check_operands(x, ("ftable", ftable), ("strides", strides),
+                   dtype=torch.int32)
+    if edges.shape[0] != f or ftable.shape != (f, u + 1, t) \
+            or strides.shape != (t, f):
+        raise ValueError(
+            f"inconsistent shapes: x {tuple(x.shape)}, edges "
+            f"{tuple(edges.shape)}, ftable {tuple(ftable.shape)}, strides "
+            f"{tuple(strides.shape)}, dtable {tuple(dtable.shape)}")
+    cout = n_classes if vote else 1
+    if cout > MAX_CLASSES:
+        raise ValueError(f"the kernel supports up to {MAX_CLASSES} output "
+                         f"columns, got {cout}")
+    if staged is None:
+        staged = loop_fits_smem(f, u, t, s, tile_n)
+    if loop_smem_bytes(f, u, t, s, staged, tile_n) > SMEM_BUDGET_BYTES:
+        raise ValueError("launch needs more shared memory than a block has; "
+                         "lower tile_n or pass staged=False")
+    out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
+    if n == 0:
+        return out
+    _build.launch("ensemble_loop", x.device,
+                  (x.data_ptr(), edges.data_ptr(), ftable.data_ptr(),
+                   strides.data_ptr(), dtable.data_ptr(), out.data_ptr()),
+                  (n, f, u, t, s, cout, int(vote), int(staged), tile_n))
+    LAUNCHES["loop"] += 1
+    return out

@@ -5,16 +5,15 @@ Port of ``repro/kernels/ops.py``: batch classify and the streaming wrappers
 (``pad_window``, ``evict_fill``, ``stream_update``). Routing follows
 ``device.on_kernel_path``: on a CUDA tensor each wrapper launches the
 hand-written kernel, on a CPU tensor it runs the kernel's plain version.
-``TileConfig.impl='ref'`` and ``use_kernel=False`` run the plain version on
-either device, and only when the caller sets them.
+``TileConfig.impl='loop'`` runs the per-feature-loop kernel (B7) on a CUDA
+tensor and its plain version on a CPU tensor. ``TileConfig.impl='ref'`` and
+``use_kernel=False`` run the plain gather version on either device, and
+only when the caller sets them.
 
 The reference's VMEM fit check (``VMEM_BUDGET_BYTES``, a TPU v5e figure)
 becomes a shared-memory fit check: it decides whether the kernel stages the
 tables in shared memory or reads them from global memory, and never routes
 away from the kernel.
-
-Not yet ported: the per-feature-loop kernel (B7: ``impl='loop'`` on the
-card raises).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ from repro_torch.core.artifact import (TableArtifact, build_dtable_flat,
                                        flatten_ftable, flatten_vtable,
                                        pad_dtable)
 from repro_torch.core.inference import classical_aggregate
-from repro_torch.device import on_kernel_path, resolve_device, true_div
+from repro_torch.device import resolve_device, true_div
 from repro_torch.kernels import bucketize as _bk
 from repro_torch.kernels import classical_lookup as _ck
 from repro_torch.kernels import ensemble_lookup as _ek
@@ -139,10 +138,16 @@ def classical_tables_smem_bytes(art: TableArtifact) -> int:
 
 
 def fits_smem(art: TableArtifact, tiles: TileConfig = None) -> bool:
-    """True when the kernel stages this artifact's tables in shared memory;
-    False means it reads them from global memory (same kernel, same result)."""
+    """True when the kernel that ``tiles`` picks stages this artifact's
+    tables in shared memory; False means it reads them from global memory
+    (same kernel, same result)."""
+    tiles = tiles or DEFAULT_TILES
     if art.ftable is None:
         return classical_tables_smem_bytes(art) <= _ek.SMEM_BUDGET_BYTES
+    if tiles.impl == "loop":
+        f, u = art.edges.shape
+        t, s = art.dtable_class.shape
+        return _ek.loop_fits_smem(f, u, t, s, tiles.tile_n)
     return tree_tables_smem_bytes(art, tiles) <= _ek.SMEM_BUDGET_BYTES
 
 
@@ -185,8 +190,8 @@ def _classical_epilogue(art: TableArtifact, out: torch.Tensor):
 def classify_batch_rows(art: TableArtifact, n: int, *,
                         tiles: TileConfig = None) -> int:
     """Rows ``fused_classify`` processes for an n-row batch: exactly n on
-    every route, since the CUDA kernel masks its ragged last block instead
-    of padding the batch as the reference's TPU grid had to."""
+    every route ('loop' too), since the CUDA kernels mask their ragged last
+    block instead of padding the batch as the reference's TPU grid had to."""
     return n
 
 
@@ -195,9 +200,10 @@ def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
     """(pred, confidence) through the fused kernel path.
 
     device=None runs on CUDA (and raises without a card); pass
-    device="cpu" for the plain path. ``tiles.impl``: 'fused' (the CUDA
-    kernel on the card, its plain version on the CPU), 'ref' (the plain
-    gather version on either), 'loop' (not ported: raises on the card).
+    device="cpu" for the plain path. ``tiles.impl``: 'fused' (the fused
+    CUDA kernel B1/B2 on the card), 'loop' (the per-feature-loop CUDA kernel
+    B7 on the card; tree artifacts only), each its plain version on the CPU;
+    'ref' (the plain gather version on either). All are bit-identical.
     """
     tiles = tiles or DEFAULT_TILES
     dev = resolve_device(device)
@@ -215,14 +221,15 @@ def fused_classify(art: TableArtifact, x, *, tiles: TileConfig = None,
                 x, art.edges, ftable_flat, dtable_flat, dtable_pad,
                 select=tiles.select, tile_n=tiles.tile_n)
         else:
-            if impl == "loop" and on_kernel_path(x):
-                raise NotImplementedError(
-                    "impl='loop' is the per-feature-loop kernel (B7), not "
-                    "ported to CUDA yet")
-            dtable = art.dtable_class if vote else art.dtable_value.q
-            out = _ref.ensemble_lookup_ref(
-                x, art.edges, art.ftable, art.strides,
-                dtable.to(torch.float32), n_classes=art.n_classes, vote=vote)
+            dtable = (art.dtable_class if vote else art.dtable_value.q)
+            args = (x, art.edges, art.ftable, art.strides,
+                    dtable.to(torch.float32))
+            if impl == "loop":
+                out = _ek.ensemble_lookup_loop(*args, n_classes=art.n_classes,
+                                               vote=vote, tile_n=tiles.tile_n)
+            else:
+                out = _ref.ensemble_lookup_ref(*args, n_classes=art.n_classes,
+                                               vote=vote)
         return _tree_epilogue(art, out)
 
     if impl == "loop":

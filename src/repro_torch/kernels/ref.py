@@ -2,9 +2,11 @@
 is held against, and what a wrapper runs for a CPU tensor.
 
 Port of ``repro/kernels/ref.py`` (bucketize, ensemble and classical
-lookups, the streaming register update). The lookups are gathers over the
-unflattened tables; the flat-table counterpart of the fused kernel is
-``ensemble_lookup.ensemble_lookup_fused_ref``.
+lookups, the streaming register update), plus the plain version of the
+per-feature-loop kernel (``ensemble_lookup_loop_ref``: the reference has
+none, and its tests run that kernel in interpret mode). The lookups are
+gathers over the unflattened tables; the flat-table counterpart of the
+fused kernel is ``ensemble_lookup.ensemble_lookup_fused_ref``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,37 @@ def ensemble_lookup_ref(x, edges, ftable, strides, dtable, *,
         return torch.nn.functional.one_hot(
             leaf.long(), n_classes).to(torch.float32).sum(dim=1)
     return leaf.to(torch.float32).sum(dim=1, keepdim=True)
+
+
+def ensemble_lookup_loop_ref(x, edges, ftable, strides, dtable, *,
+                             n_classes: int, vote: bool) -> torch.Tensor:
+    """Plain version of the per-feature-loop kernel (B7) -> (N, Co) f32.
+
+    What the reference's ``_loop_kernel`` computes, op for op: the keys are
+    summed in f32 feature by feature (f = 0..F-1, ``keys + code * stride``)
+    and cast to int32; the leaf is a compare-select over s in [0, S), so a
+    key outside that range reads leaf 0.0 (``ensemble_lookup_ref`` would
+    index out of range there); vote mode counts ``leaf == c`` for c in
+    [0, n_classes), sum mode totals the leaves. ftable (F, U+1, T) int32,
+    strides (T, F) int32, dtable (T, S) f32.
+    """
+    n, f = x.shape
+    t, s = dtable.shape
+    bins = bucketize_ref(x, edges).long()                    # (N, F)
+    keys = torch.zeros((n, t), dtype=torch.float32, device=x.device)
+    for fi in range(f):
+        code = ftable[fi][bins[:, fi]].to(torch.float32)     # (N, T)
+        keys = keys + code * strides[:, fi].to(torch.float32)[None, :]
+    keys = keys.to(torch.int32)
+    inside = (keys >= 0) & (keys < s)
+    t_idx = torch.arange(t, device=x.device)[None, :]
+    leaf = torch.where(inside,
+                       dtable[t_idx, torch.where(inside, keys, 0).long()],
+                       0.0).to(torch.float32)                # (N, T)
+    if vote:
+        c_iota = torch.arange(n_classes, dtype=torch.float32, device=x.device)
+        return (leaf[:, :, None] == c_iota).to(torch.float32).sum(dim=1)
+    return leaf.sum(dim=1, keepdim=True)
 
 
 def classical_lookup_ref(x, edges, vtable) -> torch.Tensor:

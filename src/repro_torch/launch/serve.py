@@ -78,9 +78,12 @@ def main(argv=None) -> dict:
     def backend_fn(rows):
         return (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
 
+    # eager two-phase serving, as the reference's launcher serves its
+    # ensemble backend (fuse=False), so the launcher's numbers compare
     server = HybridServer(art, backend_fn, threshold=args.threshold,
                           capacity=args.capacity,
-                          tiles=TileConfig(select=args.select), device=dev)
+                          tiles=TileConfig(select=args.select), fuse=False,
+                          device=dev)
 
     x_test = torch.as_tensor(xte, device=dev)
     n = x_test.shape[0]

@@ -14,12 +14,24 @@ on the device: telemetry comes back in a lazy ``HybridStats`` holding
 device tensors, and only reading a statistic (or the predictions)
 synchronizes.
 
-The reference's ``fuse``, ``donate`` and ``autotune`` arguments steer
-``jax.jit`` (single-dispatch tracing, buffer donation, a tile sweep over
-jitted candidates) and have no meaning in eager PyTorch, so they are left
-out; the backend is simply called between the switch half and the combine.
-The reference defaults to ``use_pallas=False`` (its XLA gather path); this
-server defaults to the kernel for CUDA tensors — bit-identical by contract.
+Single-dispatch path (``fuse``): the reference jits switch + dispatch +
+backend + combine into one function. Its counterpart here is a CUDA graph
+of the whole step, captured once per input shape and replayed per call, so
+a classify costs a handful of launches instead of a few hundred. The
+threshold lives in a device scalar filled per call (sweeping tau never
+re-captures), x is copied into the graph's input buffer, and the outputs
+are cloned, so an earlier call's preds and stats stay valid. A backend that
+syncs the host (numpy, ``.item()``, ``.cpu()``) cannot be captured: the
+first classify probes for that and serves such a backend by the eager
+two-phase path from then on. ``update_tables`` copies new contents into
+the served tensors in place, so a captured graph reads them.
+
+``autotune`` sweeps the kernels' launch configurations once per artifact
+shape and card (``kernels.tuning.autotune_tiles``). The reference's
+``donate`` has no counterpart: its step's outputs cannot alias the input
+batch, and a graph's buffers are its own. The reference defaults to
+``use_pallas=False`` (its XLA gather path); this server defaults to the
+kernel for CUDA tensors — bit-identical by contract.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ from repro_torch.core.artifact import TableArtifact, finalize_artifact
 from repro_torch.core.hybrid import combine, dispatch
 from repro_torch.device import mean, resolve_device
 from repro_torch.kernels.ops import fused_classify
-from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig
+from repro_torch.kernels.tuning import DEFAULT_TILES, TileConfig, autotune_tiles
 
 
 class HybridStats:
@@ -72,8 +84,9 @@ class HybridStats:
 class HybridServer:
     def __init__(self, artifact: TableArtifact, backend_fn: Callable, *,
                  threshold: float = 0.7, capacity: int = 256,
-                 use_kernel: Optional[bool] = None,
-                 tiles: Optional[TileConfig] = None, device=None):
+                 use_kernel: Optional[bool] = None, autotune: bool = False,
+                 tiles: Optional[TileConfig] = None,
+                 fuse: Optional[bool] = None, device=None):
         """backend_fn: (rows (capacity, F) tensor) -> class predictions
         (capacity,), on the server's device.
 
@@ -82,49 +95,123 @@ class HybridServer:
         for CUDA tensors"; False runs the plain gather version on the
         server's device (``TileConfig(impl='ref')``); True on the CPU is an
         error, since the kernel exists only on the card.
+
+        tiles picks the kernel's launch configuration and realization
+        (fused B1/B2, or the per-feature-loop B7); autotune=True sweeps
+        them once for this artifact shape (cached per shape and card) when
+        tiles is not given and the server runs the kernel (CUDA, use_kernel
+        not False), and does nothing otherwise.
+
+        fuse (CUDA only; a CPU server ignores it): None probes on the first
+        classify whether backend_fn syncs the host, and captures the step in
+        a CUDA graph if it does not; True captures without probing; False
+        forces the eager two-phase path. Backends that read mutable
+        side-channels (per-batch state on the function object) MUST pass
+        fuse=False — a graph would replay the first batch's state.
         """
         self.device = resolve_device(device)
         if use_kernel and self.device.type != "cuda":
             raise ValueError("use_kernel=True needs a CUDA device")
-        self.artifact = finalize_artifact(artifact).to(self.device)
+        # the server owns its tables: update_tables writes into them in place
+        self.artifact = finalize_artifact(artifact).to(self.device, copy=True)
+        # capacity and backend_fn are baked into a captured step: frozen.
+        # threshold is read per call, so it stays tunable.
         self._backend_fn = backend_fn
         self._capacity = capacity
         self.threshold = threshold
         self.use_kernel = use_kernel
-        tiles = tiles or DEFAULT_TILES
+        runs_kernel = self.device.type == "cuda" and use_kernel is not False
+        if tiles is None:
+            tiles = (autotune_tiles(self.artifact) if autotune and runs_kernel
+                     else DEFAULT_TILES)
         if use_kernel is False:
             tiles = dataclasses.replace(tiles, impl="ref")
         self.tiles = tiles
+        # None = not yet probed; a CPU server always serves eagerly
+        self._fused_ok = fuse if self.device.type == "cuda" else False
+        self._graphs = {}                 # x shape -> (graph, x, outputs)
+        self._tau = torch.zeros((), dtype=torch.float32, device=self.device)
 
     @property
     def capacity(self) -> int:
-        """Backend buffer size: the backend always sees this many rows."""
+        """Backend buffer size: the backend always sees this many rows.
+        Frozen: it fixes a captured step's shapes."""
         return self._capacity
 
     @property
     def backend_fn(self):
+        """Frozen: captured into the fused step."""
         return self._backend_fn
 
-    def classify(self, x):
-        """x (N, F) -> (pred (N,), HybridStats). Nothing here waits on the
-        device when x is already a tensor on it; read the stats (or the
-        preds) to sync."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+    def _step(self, x, tau):
+        """Switch, dispatch, backend, combine -> (pred, frac, rows)."""
         sw_pred, conf = fused_classify(self.artifact, x, tiles=self.tiles,
                                        device=self.device)
-        fwd = conf < self.threshold
+        fwd = conf < tau
         buf, idx, valid = dispatch(x, fwd, self._capacity)
         be_pred = torch.as_tensor(self._backend_fn(buf), device=self.device)
         pred = combine(sw_pred, be_pred, idx, valid)
         frac = 1.0 - mean(fwd.to(torch.float32))
         rows = valid.to(torch.int32).sum()
+        return pred, frac, rows
+
+    def _probe(self, x):
+        """One eager step with host syncs turned into errors: a backend
+        that syncs cannot be captured, so it is served eagerly from now on.
+        The step also builds the kernels before any capture."""
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = self._step(x, self.threshold)
+        except RuntimeError:
+            self._fused_ok = False
+            return None
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        self._fused_ok = True
+        return out
+
+    def _replay(self, x):
+        """The step for x's shape as a CUDA graph (captured at its first
+        call), replayed on x; outputs cloned out of the graph's buffers."""
+        entry = self._graphs.get(tuple(x.shape))
+        self._tau.fill_(self.threshold)
+        if entry is None:
+            static_x = x.clone()
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):           # warm-up, outside capture
+                self._step(static_x, self._tau)
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                outs = self._step(static_x, self._tau)
+            entry = self._graphs[tuple(x.shape)] = (graph, static_x, outs)
+        graph, static_x, outs = entry
+        static_x.copy_(x)
+        graph.replay()
+        return tuple(o.clone() for o in outs)
+
+    def classify(self, x):
+        """x (N, F) -> (pred (N,), HybridStats). Nothing here waits on the
+        device when x is already a tensor on it (the first call may, to
+        probe the backend and capture); read the stats (or the preds) to
+        sync."""
+        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        out = None
+        if self._fused_ok is None:
+            out = self._probe(x)
+        elif self._fused_ok:
+            out = self._replay(x)
+        if out is None:
+            out = self._step(x, self.threshold)
+        pred, frac, rows = out
         return pred, HybridStats(frac, rows, self._capacity)
 
     def update_tables(self, artifact: TableArtifact):
         """§4.4: retraining swaps table *contents*; the shapes (the model
-        constraints) must stay as they are."""
-        artifact = finalize_artifact(artifact)
-        if artifact.shape_signature() != self.artifact.shape_signature():
-            raise ValueError("table shapes changed: constraints violated "
-                             "(paper §4.4 requires fixed model constraints)")
-        self.artifact = artifact.to(self.device)
+        constraints) must stay as they are. The new contents are copied
+        into the served tensors in place, so a captured step serves them
+        without re-capture."""
+        self.artifact.copy_(finalize_artifact(artifact))

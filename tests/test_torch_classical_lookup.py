@@ -170,6 +170,7 @@ def test_every_kernel_source_includes_the_shared_range_match():
     texts = {name: (_build.CSRC_DIR / f"{name}.cu").read_text()
              for name in _build.sources()}
     users = {name for name, text in texts.items() if "range_match<" in text}
-    assert users == {"bucketize", "classical_lookup", "ensemble_lookup"}
+    assert users == {"bucketize", "classical_lookup", "ensemble_lookup",
+                     "ensemble_loop"}
     for name, text in texts.items():
         assert ('#include "range_match.cuh"' in text) == (name in users), name

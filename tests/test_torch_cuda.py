@@ -217,7 +217,9 @@ def test_classical_classify_on_card_equals_cpu(cuda, agg):
     plain = HybridServer(art, server.backend_fn, capacity=64,
                          use_kernel=False, device="cuda")
     xd = torch.from_numpy(x).to(cuda)
-    server.classify(xd)
+    server.classify(xd)                 # probes the step under sync errors
+    assert server._fused_ok is True     # so the eager step did not sync
+    server.classify(xd)                 # captures the step for this shape
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -386,3 +388,209 @@ def test_streaming_server_on_card_equals_cpu(cuda, evict_policy):
         card.step(w)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# -- B7: the per-feature-loop lookup ------------------------------------------------
+
+def _loop_tables(rng, f, u, t, s, c, vote, dev):
+    """Unflattened tables: codes in [0, 3) with strides 3^j, so wherever
+    3^f > s some keys fall past S (leaf 0 in the loop kernel)."""
+    edges = _ragged_edges(rng, f, u)
+    ftable = rng.integers(0, 3, (f, u + 1, t)).astype(np.int32)
+    strides = np.array([[3 ** j for j in range(f)]] * t, np.int32)
+    dtable = (rng.integers(0, c, (t, s)) if vote
+              else rng.integers(-2000, 2000, (t, s))).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (edges, ftable, strides, dtable))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("f,u,t,s,c,vote", [
+    (5, 39, 10, 136, 2, True), (5, 34, 10, 200, 3, True),
+    (3, 9, 33, 20, 32, True), (5, 39, 10, 136, 1, False),
+    (5, 62, 60, 5712, 1, False)])
+@pytest.mark.parametrize("n", [1, 127, 2048, 2049])
+def test_loop_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, staged):
+    rng = np.random.default_rng(n + f + t + s)
+    edges, ftable, strides, dtable = _loop_tables(rng, f, u, t, s, c, vote,
+                                                  cuda)
+    if staged and not ek.loop_fits_smem(f, u, t, s, 128):
+        pytest.skip("tables do not fit one block's shared memory")
+    x = torch.from_numpy(_hard_rows(rng, edges.cpu().numpy(), n)).to(cuda)
+    kw = dict(n_classes=c, vote=vote)
+    before = ek.LAUNCHES["loop"]
+    out = ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable,
+                                  staged=staged, **kw)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["loop"] == before + 1
+    assert out.shape == (n, c if vote else 1)
+    assert torch.equal(out, ek.ensemble_lookup_loop_ref(
+        x, edges, ftable, strides, dtable, **kw))
+
+
+def test_loop_kernel_rejects_bad_operands(cuda):
+    rng = np.random.default_rng(0)
+    edges, ftable, strides, dtable = _loop_tables(rng, 5, 20, 10, 100, 2,
+                                                  True, cuda)
+    x = torch.zeros((4, 5), device=cuda)
+    kw = dict(n_classes=2, vote=True)
+    with pytest.raises(TypeError):
+        ek.ensemble_lookup_loop(x, edges, ftable.float(), strides, dtable, **kw)
+    with pytest.raises(TypeError):
+        ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable.int(), **kw)
+    with pytest.raises(ValueError):
+        ek.ensemble_lookup_loop(x, edges, ftable, strides[:, :4].contiguous(),
+                                dtable, **kw)
+    with pytest.raises(ValueError):
+        ek.ensemble_lookup_loop(x, edges, ftable.cpu(), strides, dtable, **kw)
+    with pytest.raises(ValueError):
+        ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable,
+                                n_classes=33, vote=True)
+    assert ek.ensemble_lookup_loop(x[:0], edges, ftable, strides, dtable,
+                                   **kw).shape == (0, 2)
+
+
+# -- HybridServer on the card: loop tiles, the fused step, autotune ------------------
+
+@pytest.fixture(scope="module")
+def served():
+    """A small RF switch artifact and an XGB backend trained on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.data.unsw_like import make_unsw_like, train_test_split
+    from repro_torch.ml.trees import fit_random_forest, fit_xgboost
+    x, y = make_unsw_like(4000, seed=0, n_features=5)
+    xtr, ytr, xte, _ = train_test_split(x, y)
+    small = fit_random_forest(xtr, ytr, n_classes=2, n_trees=6, max_depth=4,
+                              seed=0, device="cpu")
+    big = fit_xgboost(xtr, ytr, n_trees=8, max_depth=4, device="cpu")
+    return (map_tree_ensemble(small, 5), big.to("cuda"),
+            torch.from_numpy(xte).to("cuda"))
+
+
+def _xgb_backend(big):
+    from repro_torch.ml.trees import predict_margin_xgboost
+    return lambda rows: (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
+
+
+CALLS = ((0, 300), (300, 257), (500, 300))        # (first row, rows): 800
+
+
+def _serve(server, x, calls=CALLS):
+    out = []
+    for lo, n in calls:
+        pred, stats = server.classify(x[lo:lo + n])
+        out.append((pred, stats.as_tensors()))
+    return out
+
+
+def _same(a, b):
+    return all(torch.equal(pa, pb) and torch.equal(fa, fb)
+               and torch.equal(ra, rb)
+               for (pa, (fa, ra)), (pb, (fb, rb)) in zip(a, b))
+
+
+def test_loop_tiles_server_equals_plain(served):
+    from repro_torch.kernels.tuning import TileConfig
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    backend = _xgb_backend(big)
+    loop = HybridServer(art, backend, capacity=64, fuse=False,
+                        tiles=TileConfig(impl="loop"))
+    plain = HybridServer(art, backend, capacity=64, fuse=False,
+                         use_kernel=False)
+    counts = dict(ek.LAUNCHES)
+    got = _serve(loop, x)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["loop"] == counts["loop"] + 3
+    assert ek.LAUNCHES["matmul"] == counts["matmul"]
+    assert ek.LAUNCHES["compare"] == counts["compare"]
+    assert _same(got, _serve(plain, x))
+
+
+@pytest.mark.parametrize("impl", ["fused", "loop"])
+def test_fused_server_equals_eager(served, impl):
+    """The captured step against the eager one, bit for bit in preds, frac
+    and rows, over two shapes and a tau change (tau is not baked in); the
+    outputs of earlier calls stay valid after later replays."""
+    from repro_torch.kernels.tuning import TileConfig
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    backend = _xgb_backend(big)
+    tiles = TileConfig(impl=impl)
+    fused = HybridServer(art, backend, capacity=64, tiles=tiles)
+    eager = HybridServer(art, backend, capacity=64, tiles=tiles, fuse=False)
+    first = _serve(fused, x)
+    assert fused._fused_ok is True
+    assert set(fused._graphs) == {(257, 5), (300, 5)}
+    kept = [(p.clone(), (f.clone(), r.clone())) for p, (f, r) in first]
+    more = CALLS + ((100, 300), (543, 257))
+    assert _same(_serve(fused, x, more), _serve(eager, x, more))
+    assert _same(first, kept)
+    assert _same(first, _serve(eager, x))
+    for tau in (0.55, 0.95):
+        fused.threshold = eager.threshold = tau
+        assert _same(_serve(fused, x), _serve(eager, x))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fused.classify(x[:300])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_syncing_backend_falls_back_to_eager(served):
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    backend = _xgb_backend(big)
+
+    def np_backend(rows):                  # a host round trip: syncs
+        return backend(rows).cpu().numpy()
+
+    srv = HybridServer(art, np_backend, capacity=64)
+    eager = HybridServer(art, backend, capacity=64, fuse=False)
+    got = _serve(srv, x)
+    assert srv._fused_ok is False and not srv._graphs
+    assert torch.cuda.get_sync_debug_mode() == 0      # the probe restored it
+    assert _same(got, _serve(eager, x))
+
+
+def test_update_tables_under_a_captured_graph(served):
+    import dataclasses
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    backend = _xgb_backend(big)
+    fused = HybridServer(art, backend, capacity=64)
+    _serve(fused, x)                        # probe, then capture two shapes
+    graphs = dict(fused._graphs)
+    flipped = dataclasses.replace(art, dtable_class=1 - art.dtable_class,
+                                  ftable_flat=None, dtable_flat=None,
+                                  dtable_pad=None)
+    fused.update_tables(flipped)
+    assert fused._graphs == graphs          # no re-capture
+    want = _serve(HybridServer(flipped, backend, capacity=64, fuse=False), x)
+    got = _serve(fused, x)
+    assert _same(got, want)
+    assert not torch.equal(got[0][0], _serve(
+        HybridServer(art, backend, capacity=64, fuse=False), x)[0][0])
+
+
+def test_autotune_times_every_tree_candidate(served):
+    from repro_torch.kernels import tuning
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    tuning.clear_tile_cache()
+    before = ek.LAUNCHES["loop"]
+    srv = HybridServer(art, _xgb_backend(big), capacity=64, autotune=True)
+    assert ek.LAUNCHES["loop"] > before
+    timings = tuning.sweep_timings(srv.artifact)
+    assert set(timings) == set(tuning.candidate_tiles(2048)) | {
+        tuning.DEFAULT_TILES}
+    assert all(0.0 < t < 1.0 for t in timings.values())
+    assert srv.tiles == min(timings, key=timings.get)
+    plain = HybridServer(art, srv.backend_fn, capacity=64, use_kernel=False,
+                         fuse=False)
+    assert _same(_serve(srv, x), _serve(plain, x))
+    assert HybridServer(art, srv.backend_fn, autotune=True,
+                        use_kernel=False).tiles.impl == "ref"

@@ -147,3 +147,97 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert res["batches"] == 600 // 256
     assert res["pred"].shape == (512,)
     assert 0.5 < res["acc"] <= 1.0
+
+
+@pytest.mark.parametrize("n", [200, 256])
+def test_loop_tiles_server_matches_reference(n, setup):
+    """The server on the per-feature-loop realization (B7's plain version
+    here) against the reference's server on its interpret-mode loop kernel:
+    a ragged and an aligned batch."""
+    from repro.kernels.tuning import TileConfig as JTileConfig
+    from repro.ml.trees import predict_margin_xgboost as jax_margin
+    from repro_torch.kernels.tuning import TileConfig
+    from repro_torch.ml.trees import predict_margin_xgboost
+    art, big, xte, _ = setup
+    jserver = JaxServer(art, lambda rows: (jax_margin(big, rows) > 0)
+                        .astype(jnp.int32), threshold=0.7, capacity=64,
+                        use_pallas=True, tiles=JTileConfig(impl="loop"))
+    tbig = port_ensemble(big)
+    tserver = HybridServer(port_artifact(art),
+                           lambda rows: (predict_margin_xgboost(tbig, rows) > 0)
+                           .to(torch.int32),
+                           threshold=0.7, capacity=64, device="cpu",
+                           tiles=TileConfig(impl="loop"))
+    assert tserver.tiles.impl == "loop"
+    pj, sj = jserver.classify(xte[:n])
+    pt, st = tserver.classify(xte[:n])
+    assert_bit_equal(pj, pt)
+    assert sj.fraction_handled == st.fraction_handled
+    assert sj.backend_rows == st.backend_rows
+
+
+def _flipped(jart):
+    """The same tables with every leaf class flipped (0 <-> 1): equal shape
+    signature, other contents."""
+    import dataclasses
+    ta = port_artifact(jart)
+    return dataclasses.replace(ta, dtable_class=1 - ta.dtable_class,
+                               ftable_flat=None, dtable_flat=None,
+                               dtable_pad=None)
+
+
+def _tensors(art):
+    out = [getattr(art, k) for k in ("edges", "ftable", "strides",
+                                      "dtable_class", "ftable_flat",
+                                      "dtable_flat", "dtable_pad")]
+    return out + [art.dtable_value.q, art.dtable_value.scale]
+
+
+def test_update_tables_copies_in_place(setup):
+    """update_tables writes the new contents into the served tensors (a
+    captured graph reads those addresses) and serves the new artifact; the
+    server owns its tables, so the caller's artifact is left as it was."""
+    art, _, xte, _ = setup
+    mine = port_artifact(art)
+    kept = [t.clone() for t in _tensors(mine)]
+
+    def backend(rows):
+        return torch.zeros(rows.shape[0], dtype=torch.int32)
+
+    server = HybridServer(mine, backend, threshold=0.7, capacity=32,
+                          device="cpu")
+    ptrs = [t.data_ptr() for t in _tensors(server.artifact)]
+    assert all(t.data_ptr() != m.data_ptr()
+               for t, m in zip(_tensors(server.artifact), _tensors(mine)))
+    x = np.asarray(xte[:300], np.float32)
+    before, _ = server.classify(x)
+    new = _flipped(art)
+    server.update_tables(new)
+    assert [t.data_ptr() for t in _tensors(server.artifact)] == ptrs
+    fresh = HybridServer(new, backend, threshold=0.7, capacity=32,
+                         device="cpu")
+    after, stats = server.classify(x)
+    want, want_stats = fresh.classify(x)
+    assert_bit_equal(want, after)
+    assert stats.fraction_handled == want_stats.fraction_handled
+    assert not torch.equal(before, after)
+    for k, t in zip(kept, _tensors(mine)):
+        assert torch.equal(k, t)
+
+
+def test_fuse_does_nothing_on_a_cpu_server(setup):
+    art, _, xte, _ = setup
+
+    def backend(rows):
+        return (rows[:, 0] > 0).to(torch.int32)
+
+    x = np.asarray(xte[:128], np.float32)
+    preds = []
+    for fuse in (None, True, False):
+        server = HybridServer(port_artifact(art), backend, capacity=32,
+                              fuse=fuse, device="cpu")
+        assert server._fused_ok is False
+        preds.append(server.classify(x)[0])
+        assert server._fused_ok is False and not server._graphs
+    assert_bit_equal(preds[0], preds[1])
+    assert_bit_equal(preds[0], preds[2])
