@@ -9,8 +9,8 @@ Phases (any failure exits non-zero before the result line is printed):
      (one process per source, started together): the tree lookup (B1/B2),
      the classical lookup (B3) and the standalone range match (B4), all
      sharing ``csrc/range_match.cuh`` with the per-feature-loop tree lookup
-     (B7), the streaming register scatter / readout (B5) and the eviction
-     fill (B6).
+     (B7), the streaming register scatter / readout (B5), the eviction
+     fill (B6) and the int8-KV decode attention (B8).
   3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
@@ -24,9 +24,18 @@ Phases (any failure exits non-zero before the result line is printed):
      edges (5, 63) and on a synthetic (8, 255) set with inputs on the
      edges and at +-inf; the per-feature-loop lookup (B7) at N in {1, 127,
      2048, 2049} on the RF switch (staged and global tables), the XGB
-     backend, and a hand-built artifact whose keys run past S (vote, sum).
-  4. serve, three paths, each with every launch count set to 0 just before
-     it and read just after:
+     backend, and a hand-built artifact whose keys run past S (vote, sum);
+     the int8-KV decode attention (B8) at rtol 2e-4 / atol 2e-5 (the
+     reference's own Pallas-against-oracle tolerance; an online softmax
+     sums in another order) at the slice's shape (B=8, S=32768, G=8, M=4,
+     hd=128; a synthetic cache made as the reference's kernel test makes
+     it) with every slot live, a ring with holes, every slot dead and the
+     served path's broadcast mask, then ragged S in {1, 700, 1000},
+     h2o-danube-1.8b's 4096-slot ring at its head dim of 80 (M=4), and M in
+     {1, 4, 8} x hd in {16, 64, 80, 128}; after phase 4f, layers 0 and 35
+     of the served int8 cache with a seeded q.
+  4. serve, each path with every launch count set to 0 just before it and
+     read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
         switch, XGB 60x6 backend, tau 0.7, capacity 1024, batch 2048),
         once with select=auto (the matmul-select kernel) and once with
@@ -55,6 +64,19 @@ Phases (any failure exits non-zero before the result line is printed):
         probe, a CUDA graph per shape, bit-equal to the eager server, an
         ``update_tables`` swap under the graphs, and a host-syncing backend
         that must fall back to the eager path).
+     e. ``repro_torch.launch.serve --backend lm`` at its default width (the
+        RF switch in front of a smoke-size qwen3-4b scorer, ``fuse=None``):
+        one switch launch per classify, classes equal to the plain path's,
+        and the route the server took.
+     f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
+        params from ``init_model`` on the card, 17.65 GB) through
+        ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
+        quantized by ``_q8`` into an int8 decode cache of 32,768 slots
+        (19.9 GB; ``decode_32k`` cut from batch 128 to 8), then 16 greedy
+        decode steps. B8 must launch 36 x 16 times and nothing else; the
+        logits must be finite and the tokens in the vocabulary; the first
+        step's logits against a prefill of prompt + token (relative gap
+        under 0.05, argmax agreement reported).
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -69,7 +91,13 @@ Phases (any failure exits non-zero before the result line is printed):
      library call; B5 has none). One streaming step, eager and under graph
      replay, its parts, and packets per second of ``serve_trace``. One
      classify of each phase-d server: eager, fused (per call and its
-     graph's replay), loop tiles and autotuned tiles.
+     graph's replay), loop tiles and autotuned tiles. B8 on the served
+     cache: 50 launches in a CUDA graph and one eager call, its plain
+     version, ``scaled_dot_product_attention(enable_gqa=True)`` on an
+     already-dequantized cache (the library yardstick, dequant left out),
+     the bound; the prefill, the decode step (eager, median), tokens/s and
+     B8's share of a step; then two more decode steps under
+     ``torch.profiler``, kernels summed by name.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -168,6 +196,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import bucketize as bk
     from repro_torch.kernels import classical_lookup as ck
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ensemble_lookup as ek
     from repro_torch.kernels import evict as ev
     from repro_torch.kernels import stream_update as su
@@ -344,6 +373,7 @@ def main() -> int:
     _check_stream_kernels(torch, dev, su, ev)
     _check_loop_kernel(torch, np, dev, ek, check_launch, rf_art, xgb_art,
                        x_all, rng)
+    b8_errs = [_check_decode_attention(torch, np, dev, da)]
 
     # small-input agreement with the plain table semantics (CPU)
     def check_vs_cpu(art, name):
@@ -478,6 +508,13 @@ def main() -> int:
     # -- 4d. serve: loop tiles, autotune, the fused step ------------------------
     tuned = _serve_tuned(torch, runs["auto"], x_all)
 
+    # -- 4e. serve: the LM backend through the launcher ------------------------
+    _serve_lm_launcher(torch, ek, serve, HybridServer)
+
+    # -- 4f. serve: Qwen3-4B at full width, prefill then int8-KV decode --------
+    lm = _serve_lm(torch, np, dev)
+    b8_errs.append(_check_served_cache(torch, dev, da, lm))
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
@@ -547,6 +584,10 @@ def main() -> int:
               f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
               f"shape {row['shape']}; on {smi}")
 
+    lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
+    kernel_rows.append(lm_row)
+    _profile_decode(torch, lm, smi)
+
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
     print(smi)
@@ -559,9 +600,10 @@ def main() -> int:
 
 def _kernel_modules():
     from repro_torch.kernels import (bucketize, classical_lookup,
-                                     ensemble_lookup, evict, stream_update)
+                                     decode_attention, ensemble_lookup, evict,
+                                     stream_update)
     return (ensemble_lookup, classical_lookup, bucketize, stream_update,
-            evict)
+            evict, decode_attention)
 
 
 def _reset_counts():
@@ -571,7 +613,8 @@ def _reset_counts():
 
 def _counts() -> dict:
     """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B7
-    loop, B3 classical, B4 bucketize, B5 stream_update, B6 evict_fill)."""
+    loop, B3 classical, B4 bucketize, B5 stream_update, B6 evict_fill, B8
+    decode_attention)."""
     out = {}
     for mod in _kernel_modules():
         out.update(mod.LAUNCHES)
@@ -1351,6 +1394,406 @@ def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
             "plain_ms_eager": plain_ms_eager, "bytes": n_bytes, "ops": ops,
             "shape": {"N": n, "F": f, "U": u, "T": t, "Sp": s_pad,
                       "Co": cout}}
+
+
+# -- the LM side: B8 and Qwen3-4B serving ------------------------------------
+
+LM_ARCH = "qwen3-4b"
+LM_BATCH, LM_PROMPT, LM_MAX_LEN, LM_STEPS = 8, 256, 32768, 16
+B8_SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+B8_REPLACES = "src/repro/kernels/decode_attention.py:32"
+
+
+def _check_b8(torch, da, name, args, detail) -> float:
+    """One B8 call against its plain version on the same inputs: exactly one
+    launch, finite, and |kernel - plain| <= ATOL + RTOL * |plain| everywhere
+    (rtol 2e-4, atol 2e-5: the reference's own Pallas-against-oracle
+    tolerance). -> max |kernel - plain|."""
+    from repro_torch.models.attention import _inv_sqrt
+    scale = _inv_sqrt(args[0].shape[-1])        # gqa_decode's scale
+    before = da.LAUNCHES["decode_attention"]
+    out = da.decode_attention_int8(*args, scale=scale)
+    torch.cuda.synchronize()
+    launched = da.LAUNCHES["decode_attention"] - before
+    ref = da.decode_attention_int8_ref(*args, scale=scale)
+    gap = (out - ref).abs()
+    err = float(gap.max())
+    ok = (launched == 1 and bool(torch.isfinite(out).all())
+          and bool((gap <= da.ATOL + da.RTOL * ref.abs()).all()))
+    print(f"case decode_attention:{name} {detail} launches={launched} "
+          f"max_abs_diff={err} within rtol={da.RTOL} atol={da.ATOL}: {ok}")
+    if not ok:
+        raise AssertionError(f"decode_attention kernel != plain: {name} "
+                             f"{detail}")
+    return err
+
+
+def _b8_inputs(torch, np, dev, b, s, g, m, hd, seed):
+    """A synthetic int8 cache made as the reference's kernel test makes it
+    (tests/test_decode_attention_kernel.py:14-31: K/V normal with std 2,
+    per-slot scales absmax/127 + 1e-8, codes rounded), drawn in float32 from
+    a seeded numpy generator; every slot live."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, g, m, hd),
+                                             dtype=np.float32)).to(dev)
+
+    def quantized():
+        f = rng.standard_normal((b, s, g, hd), dtype=np.float32)
+        f *= np.float32(2.0)
+        sc = (np.max(np.abs(f), axis=-1, keepdims=True) / np.float32(127.0)
+              + np.float32(1e-8)).astype(np.float32)
+        np.divide(f, sc, out=f)
+        np.rint(f, out=f)
+        return (torch.from_numpy(f.astype(np.int8)).to(dev),
+                torch.from_numpy(sc).to(dev))
+
+    kq, ks = quantized()
+    vq, vs = quantized()
+    valid = torch.ones((b, s), dtype=torch.float32, device=dev)
+    return [q, kq, ks, vq, vs, valid]
+
+
+def _check_decode_attention(torch, np, dev, da) -> float:
+    """Phase 3 for B8: the kernel against its plain version, one launch per
+    call. At the slice's shape (B=8, S=32768, G=8, M=4, hd=128): every slot
+    live, a ring with holes (each row live up to its own length, a fifth of
+    those slots dead), every slot dead (the uniform mean of V), and the
+    served path's (S,) mask broadcast over B (stride 0). Then ragged S (1,
+    700, 1000), h2o-danube-1.8b's shape (its 4096-slot ring, G=8, M=4,
+    hd=80) with ring holes, and M in {1, 4, 8} x hd in {16, 64, 80, 128} at
+    B=2, G=2. -> the largest |kernel - plain|."""
+    errs = []
+    b, s, g, m, hd = 8, 32768, 8, 4, 128
+    args = _b8_inputs(torch, np, dev, b, s, g, m, hd, seed=0)
+    b, s, g, hd = args[1].shape
+    gen = torch.Generator(device=dev).manual_seed(1)
+    lengths = torch.randint(1, s + 1, (b, 1), generator=gen, device=dev)
+    ring = ((torch.arange(s, device=dev)[None] < lengths)
+            & (torch.rand((b, s), generator=gen, device=dev) >= 0.2))
+    shared = torch.arange(s, device=dev) < s // 100
+    masks = {"all_live": args[5],
+             "ring_holes": ring.to(torch.float32),
+             "all_dead": torch.zeros((b, s), device=dev),
+             "broadcast_mask": shared.to(torch.float32)[None].expand(b, s)}
+    for name, valid in masks.items():
+        errs.append(_check_b8(torch, da, name, args[:5] + [valid],
+                              f"B={b} S={s} G={g} M={m} hd={hd} live="
+                              f"{int((valid > 0.5).sum())}"))
+    del args, masks
+    for s_r in (1, 700, 1000):
+        args = _b8_inputs(torch, np, dev, 2, s_r, 2, 4, 128, seed=s_r)
+        args[5][:, s_r // 3:s_r // 2] = 0.0
+        errs.append(_check_b8(torch, da, "ragged_s", args,
+                              f"B=2 S={s_r} G=2 M=4 hd=128"))
+    args = _b8_inputs(torch, np, dev, 8, 4096, 8, 4, 80, seed=80)
+    args[5][:, ::5] = 0.0
+    args[5][:, 3000:] = 0.0
+    errs.append(_check_b8(torch, da, "danube_ring", args,
+                          "B=8 S=4096 G=8 M=4 hd=80 live="
+                          f"{int((args[5] > 0.5).sum())}"))
+    for m_r in (1, 4, 8):
+        for hd_r in (16, 64, 80, 128):
+            args = _b8_inputs(torch, np, dev, 2, 1000, 2, m_r, hd_r,
+                              seed=10 * m_r + hd_r)
+            args[5][1, 500:] = 0.0
+            errs.append(_check_b8(torch, da, "m_hd_grid", args,
+                                  f"B=2 S=1000 G=2 M={m_r} hd={hd_r}"))
+    return max(errs)
+
+
+def _serve_lm_launcher(torch, ek, serve, HybridServer):
+    """Phase 4e: ``repro_torch.launch.serve --backend lm`` at its default
+    width (the RF 10x5 switch in front of the smoke-size qwen3-4b scorer,
+    tau 0.7, capacity 1024, batch 2048; ``fuse=None``, as the reference's
+    launcher passes it), with the launch counts set to 0 just before it and
+    read just after: one switch-kernel launch per classify and no B8 (the
+    backend only prefills). The served classes must equal those of the same
+    server on the plain path; a second classify of the batch replays the
+    fused step when the probe took it, and must give the same classes."""
+    _reset_counts()
+    res = serve.main(["--device", "cuda", "--backend", "lm"])
+    torch.cuda.synchronize()
+    path = _counts()
+    srv = res["server"]
+    art = srv.artifact
+    select = ek.resolve_select("auto", art.n_trees, art.dtable_flat.shape[2],
+                               art.dtable_flat.shape[0])
+    print(f"main-path launches (e: launcher --backend lm): {path}")
+    want = {select: res["batches"]}
+    for key, count in path.items():
+        if key == "bucketize":          # the switch's fit bins on the card
+            if count < 1:
+                raise AssertionError("--backend lm: the fit did not bin "
+                                     "through B4")
+        elif count != want.get(key, 0):
+            raise AssertionError(f"--backend lm: {key} launched {count} "
+                                 f"times for {res['batches']} classify calls")
+    batch = res["pred"].shape[0] // res["batches"]
+    plain = HybridServer(res["artifact"], srv.backend_fn,
+                         threshold=srv.threshold, capacity=srv.capacity,
+                         use_kernel=False, fuse=False, device="cuda")
+    plain_pred = torch.cat([
+        plain.classify(res["x_test"][i * batch:(i + 1) * batch])[0]
+        for i in range(res["batches"])])
+    if not torch.equal(res["pred"], plain_pred):
+        raise AssertionError("--backend lm: served preds != plain preds")
+    again = srv.classify(res["x_test"][:batch])[0]
+    if not torch.equal(again, res["pred"][:batch]):
+        raise AssertionError("--backend lm: a second classify differs")
+    route = "fused (CUDA graph)" if srv._fused_ok else "two-phase (eager)"
+    print(f"serve[backend=lm] acc={res['acc']:.4f} f1={res['f1']:.4f} "
+          f"handled_at_switch={res['stats'].fraction_handled:.4f} "
+          f"backend_rows={res['stats'].backend_rows} "
+          f"batches={res['batches']} route={route} "
+          f"_fused_ok={srv._fused_ok} graphs={sorted(srv._graphs)} "
+          f"preds_equal_plain=True")
+
+
+def _fill_quantized(q8, dst, src):
+    """Quantize the prefill K/V through the port's ``_q8`` into the leading
+    slots of an int8 decode cache, in place (the reference's
+    ``tests/test_int8_kv.py:20-35`` helper)."""
+    if isinstance(dst, dict):
+        for key in ("k", "v"):
+            q, sc = q8(src[key])
+            dst[key][tuple(slice(0, x) for x in q.shape)] = q
+            dst[key + "_scale"][tuple(slice(0, x) for x in sc.shape)] = sc
+        dst["pos"][..., :src["pos"].shape[-1]] = src["pos"]
+        return dst
+    return [_fill_quantized(q8, d, s) for d, s in zip(dst, src)]
+
+
+def _serve_lm(torch, np, dev):
+    """Phase 4f: Qwen3-4B at full width (``get_config('qwen3-4b')``: 36
+    layers, d_model 2560, vocab 151,936; f32 params from ``init_model`` on
+    the card, seeded), served by ``ServeEngine``: prefill of 8 x 256 seeded
+    tokens, the prefill K/V quantized into an int8 decode cache of 32,768
+    slots (the cut from ``decode_32k``: batch 128 -> 8), then 16 greedy
+    decode steps. The counts are set to 0 just before the prefill and read
+    after the last step: B8 must launch 36 x 16 times and nothing else."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _q8
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    n_params = M.count_params(params)
+    print(f"lm: {cfg.name} layers={cfg.n_layers} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} head_dim={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={n_params} "
+          f"({4 * n_params / 1e9:.2f} GB f32), init "
+          f"{time.perf_counter() - t0:.2f} s")
+    eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
+    caches = M.init_decode_cache(cfg, LM_BATCH, LM_MAX_LEN, quantize_kv=True,
+                                 device=dev)
+    cache_bytes = sum(v.numel() * v.element_size()
+                      for seg in caches for layer in seg
+                      for v in layer.values())
+    print(f"lm: int8 decode cache batch={LM_BATCH} slots={LM_MAX_LEN}: "
+          f"{cache_bytes / 1e9:.2f} GB; memory allocated "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, pcache = eng.prefill({"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _fill_quantized(_q8, caches, pcache)
+    del pcache
+    torch.cuda.synchronize()
+    steps_ms, out_toks = [], []
+    t_dec = time.perf_counter()
+    for i in range(LM_STEPS):
+        t1 = time.perf_counter()
+        nxt = logits.argmax(-1).to(torch.int32)
+        out_toks.append(nxt)
+        logits, caches = eng.decode(nxt, LM_PROMPT + i, caches)
+        torch.cuda.synchronize()
+        steps_ms.append(1e3 * (time.perf_counter() - t1))
+        if i == 0:
+            first = logits.clone()
+    decode_s = time.perf_counter() - t_dec
+    path = _counts()
+    print(f"main-path launches (f: LM serve, prefill + {LM_STEPS} decode "
+          f"steps): {path}")
+    want = {"decode_attention": cfg.n_layers * LM_STEPS}
+    for key, count in path.items():
+        if count != want.get(key, 0):
+            raise AssertionError(f"LM serve: {key} launched {count} times, "
+                                 f"want {want.get(key, 0)}")
+    gen_toks = torch.stack(out_toks, dim=1)
+    if not (bool(torch.isfinite(logits).all())
+            and bool(torch.isfinite(first).all())):
+        raise AssertionError("LM serve: logits are not finite")
+    if logits.shape != (LM_BATCH, cfg.vocab_size):
+        raise AssertionError(f"LM serve: logits shape {tuple(logits.shape)}")
+    if int(gen_toks.min()) < 0 or int(gen_toks.max()) >= cfg.vocab_size:
+        raise AssertionError("LM serve: a token outside the vocabulary")
+    # the first step against a prefill of prompt + its token, as the
+    # reference's test_int8_kv.py:44-46 measures it
+    ref, _ = eng.prefill({"tokens": torch.cat([toks, gen_toks[:, :1]], 1)})
+    rel = float((ref - first).abs().max() / ref.abs().max())
+    agree = int((ref.argmax(-1) == first.argmax(-1)).sum())
+    print(f"lm: first decode step (int8 cache) vs prefill of prompt+token: "
+          f"max|diff|/max|ref| = {rel:.6f}, argmax equal in {agree}/"
+          f"{LM_BATCH} rows")
+    if rel >= 0.05:
+        raise AssertionError(f"int8 decode strays from the prefill: {rel}")
+    print(f"lm: generated tokens (first row) {gen_toks[0].tolist()}")
+    return dict(cfg=cfg, eng=eng, caches=caches, prefill_ms=prefill_ms,
+                steps_ms=steps_ms, decode_s=decode_s, path=path, rel=rel,
+                agree=agree, n_params=n_params, cache_bytes=cache_bytes,
+                last_pos=LM_PROMPT + LM_STEPS - 1, token=gen_toks[:, -1])
+
+
+def _served_args(torch, dev, lm, layer, seed):
+    """B8's operands as the served path gives them, for one layer: views of
+    the stacked int8 cache, its (S,) live mask broadcast over B, and a
+    seeded q."""
+    c = lm["caches"][0][0]
+    kq, ks, vq, vs = (c[key][layer] for key in ("k", "k_scale", "v",
+                                                 "v_scale"))
+    b, s, g, hd = kq.shape
+    m = lm["cfg"].n_heads // g
+    cpos = c["pos"][layer]
+    live = ((cpos >= 0) & (cpos <= lm["last_pos"])).to(torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, g, m, hd), generator=gen, device=dev)
+    return [q, kq, ks, vq, vs, live[None].expand(b, s)]
+
+
+def _check_served_cache(torch, dev, da, lm) -> float:
+    """Phase 3 for B8 on the served int8 cache: layers 0 and 35, seeded q."""
+    errs = []
+    for layer in (0, lm["cfg"].n_layers - 1):
+        args = _served_args(torch, dev, lm, layer, seed=layer)
+        b, s, g, hd = args[1].shape
+        errs.append(_check_b8(torch, da, f"served_cache[layer {layer}]", args,
+                              f"B={b} S={s} G={g} M={args[0].shape[2]} "
+                              f"hd={hd} live={int(args[5][0].sum())}"))
+    return max(errs)
+
+
+def _time_lm(torch, dev, da, lm, b8_err, smi):
+    """Phase 5 for the LM side: B8 on the served cache's layer 0 (device
+    time of 50 launches in a CUDA graph, and one eager call), its plain
+    version, the library call (``scaled_dot_product_attention`` with
+    ``enable_gqa=True`` on an already-dequantized cache: it leaves the
+    dequant out), the bound; then prefill, decode step, tokens/s and B8's
+    share of a step. -> B8's kernel row."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import _inv_sqrt
+    args = _served_args(torch, dev, lm, 0, seed=7)
+    q, kq, ks, vq, vs, valid = args
+    b, s, g, hd = kq.shape
+    m = q.shape[2]
+    scale = _inv_sqrt(hd)
+
+    def kernel():
+        return da.decode_attention_int8(*args, scale=scale)
+
+    def plain():
+        return da.decode_attention_int8_ref(*args, scale=scale)
+
+    out_k = kernel()
+    err = max(b8_err, float((out_k - plain()).abs().max()))
+    # device times from CUDA graphs, as _times takes them for B1-B7 (10
+    # calls a graph for the plain version and the library call, which take
+    # milliseconds each), and one eager call of the kernel and the plain
+    ms = _graph_ms(torch, kernel)
+    ms_eager = _median_ms(torch, kernel)
+    plain_ms = _graph_ms(torch, plain, inner=10)
+    plain_eager = _median_ms(torch, plain, reps=10, warmup=2)
+    kd = (kq.to(torch.float32) * ks).permute(0, 2, 1, 3).contiguous()
+    vd = (vq.to(torch.float32) * vs).permute(0, 2, 1, 3).contiguous()
+    qh = q.reshape(b, g * m, 1, hd)
+    mask = (valid > 0.5)[:, None, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kd, vd, attn_mask=mask,
+                                              scale=scale, enable_gqa=True)
+
+    lib_gap = float((library().reshape(out_k.shape) - out_k).abs().max())
+    library_ms = _graph_ms(torch, library, inner=10)
+    del kd, vd
+    # bound: the int8 K/V, their scales, the mask's distinct bytes (the
+    # served (S,) mask is broadcast over B with stride 0) and q read once,
+    # the output written once; QK and PV products (2 flops each), the
+    # dequant products and one exp per score
+    mask_bytes = 4 * s * (1 if valid.stride(0) == 0 else b)
+    n_bytes = 2 * b * s * g * hd + 2 * 4 * b * s * g + mask_bytes \
+        + 2 * 4 * b * g * m * hd
+    ops = 4 * b * g * m * s * hd + 2 * b * s * g * hd + b * g * m * s
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    n_layers = lm["cfg"].n_layers
+    step_ms = statistics.median(lm["steps_ms"])
+    tok_s = LM_BATCH * LM_STEPS / lm["decode_s"]
+    print(f"time decode_attention (B8, served cache layer 0, B={b} S={s} "
+          f"G={g} M={m} hd={hd}): kernel {ms:.5f} ms (graph of 50), "
+          f"{ms_eager:.5f} ms (eager call); plain {plain_ms:.5f} ms (graph "
+          f"of 10), {plain_eager:.5f} ms (eager call); library "
+          f"scaled_dot_product_attention(enable_gqa=True) on the dequantized "
+          f"cache (dequant left out) {library_ms:.5f} ms (graph of 10), "
+          f"max|sdpa - kernel| = {lib_gap}; bound {bound_ms:.6f} ms "
+          f"({bound_by}: {n_bytes} B, {ops} flops) on {smi}")
+    print(f"time lm[{LM_ARCH}, f32, batch {LM_BATCH}]: prefill of "
+          f"{LM_PROMPT} tokens {lm['prefill_ms']:.2f} ms; decode step "
+          f"(eager, host clock to sync) median {step_ms:.3f} ms, min "
+          f"{min(lm['steps_ms']):.3f}, first {lm['steps_ms'][0]:.3f}; "
+          f"{tok_s:.1f} tokens/s over {LM_STEPS} steps; B8 "
+          f"{n_layers} x {ms:.5f} ms = {n_layers * ms:.3f} ms, "
+          f"{100 * n_layers * ms / step_ms:.1f}% of a step; weights "
+          f"{4 * lm['n_params'] / 1e9:.2f} GB at 3.35 TB/s = "
+          f"{1e3 * 4 * lm['n_params'] / HBM_BYTES_PER_S:.3f} ms a step; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"on {smi}")
+    return {"name": "decode_attention", "route": "cuda", "source": B8_SOURCE,
+            "replaces": B8_REPLACES, "launches": lm["path"]["decode_attention"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "ms_eager": ms_eager,
+            "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+            "shape": {"B": b, "S": s, "G": g, "M": m, "hd": hd,
+                      "live": int(valid[0].sum())}}
+
+
+def _profile_decode(torch, lm, smi):
+    """Where one decode step's device time goes: two more steps under
+    ``torch.profiler`` (after the counted run), kernels summed by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng, caches = lm["eng"], lm["caches"]
+    token = lm["token"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(2):
+            logits, caches = eng.decode(token, lm["last_pos"] + 1 + i,
+                                        caches)
+            token = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side events only: an operator's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    print(f"profile lm decode (2 steps): kernels {busy:.3f} ms of device "
+          f"time in {wall_ms:.3f} ms wall (idle share "
+          f"{100 * (1 - busy / wall_ms):.1f}%, profiler on) on {smi}")
+    for key, dev_ms, count in rows[:8]:
+        print(f"  {dev_ms / 2:9.3f} ms a step ({100 * dev_ms / busy:5.1f}%) "
+              f"x{count // 2} {key[:90]}")
 
 
 if __name__ == "__main__":

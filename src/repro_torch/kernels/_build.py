@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -110,6 +111,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def float_bits(x: float) -> int:
+    """The float32 bits of ``x`` as a signed int: how a float crosses the
+    plain C interface, which passes ints."""
+    return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
 def launch(name: str, device, pointers, ints) -> None:

@@ -1,0 +1,125 @@
+"""Int8-KV GQA decode attention (B8): CUDA kernel + wrapper.
+
+Replaces the Pallas TPU kernel of ``repro/kernels/decode_attention.py``:
+``_decode_attn_kernel`` (:32), reached from
+``decode_attention_int8_pallas`` (:63). The reference's quantized
+``gqa_decode`` computes the same function in plain XLA
+(``repro/models/attention.py:241-261``); the port's ``gqa_decode`` calls
+this kernel for it through ``ops.decode_attention_int8``. The CUDA source
+is ``csrc/decode_attention.cu``.
+
+    q (B,G,M,hd) f32; k_q/v_q (B,S,G,hd) int8; k_s/v_s (B,S,G,1) f32;
+    valid (B,S) f32 (> 0.5 = live slot) -> out (B,G,M,hd) f32
+
+The kernel reads the cache in its native (B, S, G, hd) layout through its
+strides (a layer's view of the stacked decode cache needs no copy) and
+dequantizes in registers, so a decode step moves the int8 bytes only. One
+CTA per (b, g); the loop over S lives inside the CTA.
+
+Bound: memory (the int8 K/V, the scales and the mask read once: 0.165 ms
+at B=8, S=32768, G=8, hd=128 on 3.35 TB/s). PERF.md holds the measured
+time.
+
+Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
+``decode_attention_int8_ref``. The kernel's online softmax sums in another
+order than the dense softmax of the plain version: the two agree to
+``RTOL``/``ATOL``, the reference's own Pallas-against-oracle tolerance.
+``LAUNCHES`` counts kernel launches and nothing else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import on_kernel_path
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import decode_attention_int8_ref
+
+RTOL, ATOL = 2e-4, 2e-5     # repro tests/test_decode_attention_kernel.py:40
+
+DIMS_PER_THREAD = 8         # one 8-byte load of K and of V per thread
+MAX_M = 8                   # query heads per kv head the kernel is built for
+
+LAUNCHES = {"decode_attention": 0}
+
+_INT_MAX = 2 ** 31 - 1
+
+
+def reset_launches() -> None:
+    LAUNCHES["decode_attention"] = 0
+
+
+def check_operands(q, k_q, k_s, v_q, v_s, valid) -> None:
+    """Raise unless the operands are what the kernel takes: q (B,G,M,hd)
+    f32 contiguous with M <= 8; k_q/v_q (B,S,G,hd) int8 with a contiguous
+    head dim and 8-byte-aligned rows; k_s/v_s (B,S,G,1) f32; valid (B,S)
+    f32 (any strides, a broadcast batch dim included); hd a multiple of 8
+    from 8 to 256; all on q's device."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, G, M, hd), got {tuple(q.shape)}")
+    b, g, m, hd = q.shape
+    if k_q.dim() != 4:
+        raise ValueError(f"k_q must be (B, S, G, hd), got {tuple(k_q.shape)}")
+    s = k_q.shape[1]
+    want = {"k_q": (b, s, g, hd), "v_q": (b, s, g, hd),
+            "k_s": (b, s, g, 1), "v_s": (b, s, g, 1), "valid": (b, s)}
+    ops = {"q": q, "k_q": k_q, "k_s": k_s, "v_q": v_q, "v_s": v_s,
+           "valid": valid}
+    for name, a in ops.items():
+        dtype = torch.int8 if name in ("k_q", "v_q") else torch.float32
+        if a.device != q.device:
+            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
+        if name in want and tuple(a.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(a.shape)}")
+        if any(st < 0 or st > _INT_MAX for st in a.stride()):
+            raise ValueError(f"{name} has strides the kernel cannot take: "
+                             f"{a.stride()}")
+    if not q.is_contiguous():
+        raise ValueError("q must be contiguous")
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"M = {m} query heads per kv head; the kernel "
+                         f"takes 1 to {MAX_M}")
+    if hd % DIMS_PER_THREAD or not 1 <= hd // DIMS_PER_THREAD <= 32:
+        raise ValueError(f"head dim {hd}: the kernel takes a multiple of "
+                         f"{DIMS_PER_THREAD} from 8 to 256")
+    if s == 0:
+        raise ValueError("the cache has no slots (S = 0)")
+    for name in ("k_q", "v_q"):
+        a = ops[name]
+        if a.stride(3) != 1 or a.data_ptr() % 8 or any(
+                st % 8 for st in a.stride()[:3]):
+            raise ValueError(f"{name} needs a contiguous head dim and "
+                             f"8-byte-aligned rows, got strides "
+                             f"{a.stride()} at offset {a.data_ptr() % 8}")
+
+
+def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
+                          scale: float) -> torch.Tensor:
+    """q (B,G,M,hd) f32; k_q/v_q (B,S,G,hd) int8; k_s/v_s (B,S,G,1) f32;
+    valid (B,S) f32 -> (B,G,M,hd) f32.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    and raises on operands it does not take."""
+    if not on_kernel_path(q):
+        return decode_attention_int8_ref(q, k_q, k_s, v_q, v_s, valid,
+                                         scale=scale)
+    check_operands(q, k_q, k_s, v_q, v_s, valid)
+    b, g, m, hd = q.shape
+    s = k_q.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    strides = []
+    for a in (k_q, k_s, v_q, v_s):
+        strides += list(a.stride()[:3])
+    _build.launch("decode_attention", q.device,
+                  (q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
+                   v_q.data_ptr(), v_s.data_ptr(), valid.data_ptr(),
+                   out.data_ptr()),
+                  (b, s, g, m, hd, *strides, *valid.stride(),
+                   _build.float_bits(scale)))
+    LAUNCHES["decode_attention"] += 1
+    return out

@@ -1,8 +1,9 @@
 """Public wrappers over the kernels: routing, the shared-memory fit check,
 and the scalar epilogues that turn kernel outputs into (pred, confidence).
 
-Port of ``repro/kernels/ops.py``: batch classify and the streaming wrappers
-(``pad_window``, ``evict_fill``, ``stream_update``). Routing follows
+Port of ``repro/kernels/ops.py``: batch classify, the streaming wrappers
+(``pad_window``, ``evict_fill``, ``stream_update``) and the int8-KV decode
+attention of the LM backend (``decode_attention_int8``). Routing follows
 ``device.on_kernel_path``: on a CUDA tensor each wrapper launches the
 hand-written kernel, on a CPU tensor it runs the kernel's plain version.
 ``TileConfig.impl='loop'`` runs the per-feature-loop kernel (B7) on a CUDA
@@ -27,6 +28,7 @@ from repro_torch.core.inference import classical_aggregate
 from repro_torch.device import resolve_device, true_div
 from repro_torch.kernels import bucketize as _bk
 from repro_torch.kernels import classical_lookup as _ck
+from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import ensemble_lookup as _ek
 from repro_torch.kernels import evict as _ev
 from repro_torch.kernels import ref as _ref
@@ -97,6 +99,20 @@ def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
     """
     return _su.stream_update(regs, bucket, ts, length, is_fwd, valid,
                              limit=limit)
+
+
+def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
+                          scale: float) -> torch.Tensor:
+    """Int8-KV GQA decode attention (B8), the attention core of the
+    quantized ``models.attention.gqa_decode``.
+
+    q (B,G,M,hd) f32; k_q/v_q (B,S,G,hd) int8 in the cache's own layout;
+    k_s/v_s (B,S,G,1) f32 per-slot scales; valid (B,S) f32 -> (B,G,M,hd)
+    f32. The CUDA kernel for a CUDA tensor (it raises on operands it does
+    not take), the dense plain version for a CPU tensor.
+    """
+    return _da.decode_attention_int8(q, k_q, k_s, v_q, v_s, valid,
+                                     scale=scale)
 
 
 def _flat_tree_tables(art: TableArtifact, vote: bool):

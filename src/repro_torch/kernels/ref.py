@@ -2,7 +2,7 @@
 is held against, and what a wrapper runs for a CPU tensor.
 
 Port of ``repro/kernels/ref.py`` (bucketize, ensemble and classical
-lookups, the streaming register update), plus the plain version of the
+lookups, the streaming register update, the int8-KV decode attention), plus the plain version of the
 per-feature-loop kernel (``ensemble_lookup_loop_ref``: the reference has
 none, and its tests run that kernel in interpret mode). The lookups are
 gathers over the unflattened tables; the flat-table counterpart of the
@@ -135,3 +135,18 @@ def stream_update_ref(regs, bucket, ts, length, is_fwd, valid, *,
     new_regs = torch.stack(new)
     g = torch.where(b < 0, b + n, b).clamp(0, n - 1)
     return new_regs, new_regs[:, g]
+
+
+def decode_attention_int8_ref(q, k_q, k_s, v_q, v_s, valid, *, scale):
+    """Dense oracle for the int8-KV decode-attention kernel (B8).
+
+    q (B,G,M,hd) f32; k_q/v_q (B,S,G,hd) int8; k_s/v_s (B,S,G,1) f32;
+    valid (B,S) -> (B,G,M,hd) f32. Dequantizes the whole cache, scores it,
+    masks dead slots with -1e30 and softmaxes, as the reference does: with
+    every slot dead the output is the uniform mean of V over all S slots."""
+    k = k_q.to(torch.float32) * k_s                        # (B,S,G,hd)
+    v = v_q.to(torch.float32) * v_s
+    sc = torch.einsum("bgmd,bsgd->bgms", q, k) * scale
+    sc = torch.where(valid[:, None, None, :] > 0.5, sc, -1e30)
+    w = torch.softmax(sc, dim=-1)
+    return torch.einsum("bgms,bsgd->bgmd", w, v)

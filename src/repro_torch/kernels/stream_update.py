@@ -33,8 +33,6 @@ clamped there), so the two agree bit for bit in any atomic order.
 
 from __future__ import annotations
 
-import struct
-
 import torch
 
 from repro_torch.device import on_kernel_path
@@ -50,12 +48,6 @@ LAUNCHES = {"stream_update": 0}
 
 def reset_launches() -> None:
     LAUNCHES["stream_update"] = 0
-
-
-def _float_bits(x: float) -> int:
-    """The float32 bits of ``x`` as a signed int (how the limit crosses the
-    plain C interface, which passes ints)."""
-    return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
 def check_window(regs, bucket, ts, length, is_fwd, valid) -> None:
@@ -102,6 +94,6 @@ def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
                    length.data_ptr(), is_fwd.data_ptr(), valid.data_ptr(),
                    rows.data_ptr()),
                   (n, w, int(limit is not None),
-                   _float_bits(0.0 if limit is None else limit), BLOCK))
+                   _build.float_bits(0.0 if limit is None else limit), BLOCK))
     LAUNCHES["stream_update"] += 1
     return regs, rows

@@ -594,3 +594,152 @@ def test_autotune_times_every_tree_candidate(served):
     assert _same(_serve(srv, x), _serve(plain, x))
     assert HybridServer(art, srv.backend_fn, autotune=True,
                         use_kernel=False).tiles.impl == "ref"
+
+
+# -- B8: the int8-KV decode attention, and the LM decode step on the card -------
+
+def _b8_args(dev, b, s, g, m, hd, seed, mask):
+    """A synthetic int8 cache (normal K/V of std 2, absmax/127 scales,
+    rounded codes), a seeded q and a live mask: every slot, a ring with
+    holes (each row live up to its own length, a fifth of those dead), or
+    none."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, g, m, hd), dtype=np.float32)
+    out = [torch.from_numpy(q)]
+    for _ in range(2):
+        f = rng.standard_normal((b, s, g, hd), dtype=np.float32) * 2
+        sc = (np.abs(f).max(axis=-1, keepdims=True) / 127.0
+              + 1e-8).astype(np.float32)
+        out += [torch.from_numpy(np.rint(f / sc).astype(np.int8)),
+                torch.from_numpy(sc)]
+    if mask == "all":
+        valid = np.ones((b, s), np.float32)
+    elif mask == "dead":
+        valid = np.zeros((b, s), np.float32)
+    else:
+        lengths = rng.integers(1, s + 1, (b, 1))
+        valid = ((np.arange(s)[None] < lengths)
+                 & (rng.random((b, s)) >= 0.2)).astype(np.float32)
+    q, kq, ks, vq, vs = out
+    return [a.to(dev) for a in (q, kq, ks, vq, vs, torch.from_numpy(valid))]
+
+
+def _b8_check(da, args):
+    """One launch, within rtol 2e-4 / atol 2e-5 of the plain version (the
+    reference's own Pallas-against-oracle tolerance)."""
+    scale = float(1.0 / np.sqrt(np.float32(args[0].shape[-1])))
+    before = da.LAUNCHES["decode_attention"]
+    out = da.decode_attention_int8(*args, scale=scale)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    ref = da.decode_attention_int8_ref(*args, scale=scale)
+    assert out.shape == ref.shape and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=da.RTOL, atol=da.ATOL)
+
+
+# the served shapes of qwen3-4b (S=32768, hd=128) and of h2o-danube's
+# 4096-slot ring (hd=80: 10 lanes of a 16-lane slot group hold dims), ragged
+# S, then M x hd at B=2, G=2
+B8_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
+             (2, 700, 2, 4, 128), (2, 1000, 2, 4, 128)] + [
+    (2, 1000, 2, m, hd) for m in (1, 4, 8) for hd in (16, 64, 80, 128)]
+
+
+@pytest.mark.parametrize("mask", ["all", "ring", "dead"])
+@pytest.mark.parametrize("b,s,g,m,hd", B8_SHAPES)
+def test_decode_attention_kernel_matches_plain(cuda, b, s, g, m, hd, mask):
+    from repro_torch.kernels import decode_attention as da
+    _b8_check(da, _b8_args(cuda, b, s, g, m, hd, seed=s + m + hd, mask=mask))
+
+
+def test_decode_attention_reads_strided_views(cuda):
+    """The served path's operands: one layer's view of a stacked cache and
+    an (S,) mask broadcast over B (stride 0)."""
+    from repro_torch.kernels import decode_attention as da
+    q, kq, ks, vq, vs, _ = _b8_args(cuda, 2, 600, 2, 4, 64, seed=3,
+                                    mask="all")
+    stack = [torch.stack([a.roll(1, 0), a]) for a in (kq, ks, vq, vs)]
+    live = (torch.arange(600, device=cuda) < 411).to(torch.float32)
+    args = [q] + [t[1] for t in stack] + [live[None].expand(2, 600)]
+    assert not args[1].is_contiguous() or args[1].storage_offset() > 0
+    _b8_check(da, args)
+
+
+def test_decode_attention_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain version is
+    never called for it, and bad operands raise instead of falling back."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+    args = _b8_args(cuda, 2, 300, 2, 4, 32, seed=0, mask="ring")
+    want = da.decode_attention_int8_ref(*args, scale=0.2)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(da, "decode_attention_int8_ref", refuse)
+    before = da.LAUNCHES["decode_attention"]
+    got = ops.decode_attention_int8(*args, scale=0.2)
+    torch.cuda.synchronize()
+    assert da.LAUNCHES["decode_attention"] == before + 1
+    torch.testing.assert_close(got, want, rtol=da.RTOL, atol=da.ATOL)
+    with pytest.raises(ValueError):                   # M = 9
+        ops.decode_attention_int8(torch.zeros(2, 2, 9, 32, device=cuda),
+                                  *args[1:], scale=0.2)
+    with pytest.raises(ValueError):                   # k_q on the CPU
+        ops.decode_attention_int8(args[0], args[1].cpu(), *args[2:],
+                                  scale=0.2)
+    with pytest.raises(TypeError):
+        ops.decode_attention_int8(*args[:5], args[5].double(), scale=0.2)
+    assert da.LAUNCHES["decode_attention"] == before + 1
+
+
+def fill_quantized(dst, src):
+    """Quantize the prefill K/V through the port's _q8 into the leading
+    slots of an int8 decode cache, in place (the reference's
+    tests/test_int8_kv.py helper; tests/test_torch_lm.py uses it too)."""
+    from repro_torch.models.attention import _q8
+    if isinstance(dst, dict):
+        for key in ("k", "v"):
+            q, sc = _q8(src[key])
+            dst[key][tuple(slice(0, x) for x in q.shape)] = q
+            dst[key + "_scale"][tuple(slice(0, x) for x in sc.shape)] = sc
+        dst["pos"][..., :src["pos"].shape[-1]] = src["pos"]
+        return dst
+    return [fill_quantized(d, s) for d, s in zip(dst, src)]
+
+
+# h2o-danube's smoke config has hd=16; "hd80" widens it to its published
+# head dim of 80 (d_model 320 over 4 heads)
+@pytest.mark.parametrize("arch", ["qwen3-4b", "h2o-danube-1.8b",
+                                  "h2o-danube-1.8b@hd80"])
+def test_int8_decode_step_on_card_equals_cpu(cuda, arch):
+    """A smoke-size int8 decode step on the card (B8 once per layer)
+    against the same step on the CPU (the plain version), within
+    1e-3 * max|logits|: the kernel's softmax order, the card's f32 matmuls,
+    and an int8 code that a one-ulp k can move by one."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import tree_map
+    name, _, width = arch.partition("@")
+    cfg = get_smoke_config(name)
+    if width == "hd80":
+        cfg = cfg.scaled(d_model=320)
+        assert cfg.head_dim == 80
+    params = M.init_model(cfg, 0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 20)).astype(np.int32))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda a, dev=dev: a.to(dev), params)
+        _, pc = M.prefill(p, cfg, {"tokens": toks[:, :19].to(dev)})
+        caches = fill_quantized(M.init_decode_cache(cfg, 2, 24, quantize_kv=True,
+                                              device=dev), pc)
+        before = da.LAUNCHES["decode_attention"]
+        logits, _ = M.decode_step(p, cfg, toks[:, 19].to(dev), 19, caches)
+        launched = da.LAUNCHES["decode_attention"] - before
+        out[dev] = (logits.cpu(), launched)
+    assert out["cpu"][1] == 0 and out["cuda"][1] == cfg.n_layers
+    ref, got = out["cpu"][0], out["cuda"][0]
+    assert float((ref - got).abs().max()) <= 1e-3 * float(ref.abs().max())
+    assert torch.equal(ref.argmax(-1), got.argmax(-1))
