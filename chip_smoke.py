@@ -21,8 +21,10 @@ Phases (any failure exits non-zero before the result line is printed):
      table (F=8, 128 bins, M=10) whose staged tables need the >48 KB
      opt-in; the range match at the main path's own shape (all 16000
      training rows against the fit's 64-bin quantile edges), on the served
-     edges (5, 63) and on a synthetic (8, 255) set with inputs on the
-     edges and at +-inf; the per-feature-loop lookup (B7) at N in {1, 127,
+     edges (5, 63), on a synthetic sorted (8, 255) set and on unsorted
+     (5, 255) rows with ragged +inf pads (the count, not a search), N in
+     {1, 300, 2048, 16000}, inputs on the edges and at +-inf; the
+     per-feature-loop lookup (B7) at N in {1, 127,
      2048, 2049} on the RF switch (staged and global tables), the XGB
      backend, and a hand-built artifact whose keys run past S (vote, sum);
      the int8-KV decode attention (B8) at rtol 2e-4 / atol 2e-5 (the
@@ -30,10 +32,13 @@ Phases (any failure exits non-zero before the result line is printed):
      sums in another order) at the slice's shape (B=8, S=32768, G=8, M=4,
      hd=128; a synthetic cache made as the reference's kernel test makes
      it) with every slot live, a ring with holes, every slot dead and the
-     served path's broadcast mask, then ragged S in {1, 700, 1000},
+     served path's broadcast mask, then ragged S in {1, 700, 1000}, the
+     split's edges (B=8, G=8: S one below, at and one above a chunk
+     boundary, a chunk entirely dead beside live ones, a row all dead),
      h2o-danube-1.8b's 4096-slot ring at its head dim of 80 (M=4), and M in
-     {1, 4, 8} x hd in {16, 64, 80, 128}; after phase 4f, layers 0 and 35
-     of the served int8 cache with a seeded q.
+     {1, 4, 8} x hd in {16, 64, 80, 128}; each case prints the split B8
+     chose (n_split, chunk, grid); after phase 4f, layers 0 and 35 of the
+     served int8 cache with a seeded q.
   4. serve, each path with every launch count set to 0 just before it and
      read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
@@ -87,17 +92,19 @@ Phases (any failure exits non-zero before the result line is printed):
      same function (``torch.searchsorted`` for the range match), and one
      full classify batch per switch family. Each kernel at its main-path
      shape: the lookups at a 2048-row batch, the range match at the
-     16000-row fit, B5 and B6 at N=8192, W=1024 (``torch.where`` is B6's
-     library call; B5 has none). One streaming step, eager and under graph
+     16000-row fit (and at 2048 rows, kernel and ``searchsorted`` in
+     turn), B5 and B6 at N=8192, W=1024 (``torch.where`` is B6's library
+     call; B5 has none). One streaming step, eager and under graph
      replay, its parts, and packets per second of ``serve_trace``. One
      classify of each phase-d server: eager, fused (per call and its
      graph's replay), loop tiles and autotuned tiles. B8 on the served
      cache: 50 launches in a CUDA graph and one eager call, its plain
      version, ``scaled_dot_product_attention(enable_gqa=True)`` on an
      already-dequantized cache (the library yardstick, dequant left out),
-     the bound; the prefill, the decode step (eager, median), tokens/s and
-     B8's share of a step; then two more decode steps under
-     ``torch.profiler``, kernels summed by name.
+     the bound and the split it chose; B8 at h2o-danube-1.8b's shape
+     (B=8, S=4096, G=8, M=4, hd=80) with its bound; the prefill, the decode
+     step (eager, median), tokens/s and B8's share of a step; then two more
+     decode steps under ``torch.profiler``, kernels summed by name.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -354,14 +361,23 @@ def main() -> int:
     syn_b4 = np.sort(rng.normal(size=(8, 255)), axis=1)
     syn_b4[:, -31:] = np.inf
     syn_b4 = torch.tensor(syn_b4, dtype=torch.float32, device=dev)
+    # rows that are not sorted (the count, not a search, is the contract),
+    # with ragged +inf pads: U=255, each row's pads a different length
+    uns_b4 = rng.normal(size=(5, 255)).astype(np.float32)
+    for f_i in range(5):
+        uns_b4[f_i, 255 - 13 * (f_i + 1):] = np.inf
+    rng.shuffle(uns_b4, axis=1)
+    uns_b4 = torch.tensor(uns_b4, device=dev)
     # the main path's own B4 call: a tree fit bins all 16000 training rows
     # with the 64-bin quantile edges it computes (ml/trees.py bin_data)
     xtr_dev = torch.as_tensor(xtr, dtype=torch.float32, device=dev)
     fit_edges = quantile_bin_edges(xtr_dev, 64)
     b4_cases = [("fit", fit_edges, xtr_dev, (xtr_dev.shape[0],))]
-    b4_cases += [(name, edges, edge_rows(edges, 2048), (1, 300, 2048))
+    b4_cases += [(name, edges, edge_rows(edges, 16000),
+                  (1, 300, 2048, 16000))
                  for name, edges in (("served", served_edges),
-                                     ("synthetic", syn_b4))]
+                                     ("synthetic", syn_b4),
+                                     ("unsorted_ragged", uns_b4))]
     for name, edges, x_src, ns in b4_cases:
         for n in ns:
             x = x_src[:n].contiguous()
@@ -1300,6 +1316,19 @@ def _time_bucketize(torch, bk, edges, x, launches):
     n_bytes = 4 * (x.numel() + edges.numel() + n * f)
     ops = n * f * u
     bound_ms, bound_by = _bound(n_bytes, ops)
+    # the same edges at a 2048-row batch: kernel and searchsorted in turn
+    # (kernel, library, kernel, library), graphs of 50
+    x2 = x[:2048].contiguous()
+    xt2 = x2.t().contiguous()
+    small = [_graph_ms(torch, fn) for fn in (
+        lambda: bk.bucketize(x2, edges), lambda: torch.searchsorted(edges, xt2),
+        lambda: bk.bucketize(x2, edges), lambda: torch.searchsorted(edges, xt2))]
+    b2, o2 = _bound(4 * (x2.numel() + edges.numel() + x2.numel()),
+                    x2.numel() * u)
+    print(f"time bucketize at N=2048 F={f} U={u}: kernel {small[0]:.5f} / "
+          f"{small[2]:.5f} ms, torch.searchsorted(edges, x.T) {small[1]:.5f} "
+          f"/ {small[3]:.5f} ms (graphs of 50, in turn); bound {b2:.6f} ms "
+          f"({o2})")
     return {"name": "bucketize", "route": "cuda",
             "source": "src/repro_torch/csrc/bucketize.cu",
             "replaces": "src/repro/kernels/bucketize.py:32",
@@ -1307,7 +1336,10 @@ def _time_bucketize(torch, bk, edges, x, launches):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "ms_eager": ms_eager,
             "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
-            "shape": {"N": n, "F": f, "U": u}}
+            "shape": {"N": n, "F": f, "U": u, "block": bk.BLOCK},
+            "n2048": {"ms": min(small[0], small[2]),
+                      "library_ms": min(small[1], small[3]),
+                      "bound_ms": b2}}
 
 
 def _time_tuned(torch, tuned, xb, smi):
@@ -1420,7 +1452,10 @@ def _check_b8(torch, da, name, args, detail) -> float:
     err = float(gap.max())
     ok = (launched == 1 and bool(torch.isfinite(out).all())
           and bool((gap <= da.ATOL + da.RTOL * ref.abs()).all()))
+    plan = da.plan_for(args[0], args[1], args[3])
     print(f"case decode_attention:{name} {detail} launches={launched} "
+          f"n_split={plan['n_split']} chunk={plan['chunk']} "
+          f"grid={plan['grid']} kd={plan['kd']} "
           f"max_abs_diff={err} within rtol={da.RTOL} atol={da.ATOL}: {ok}")
     if not ok:
         raise AssertionError(f"decode_attention kernel != plain: {name} "
@@ -1485,6 +1520,22 @@ def _check_decode_attention(torch, np, dev, da) -> float:
         args[5][:, s_r // 3:s_r // 2] = 0.0
         errs.append(_check_b8(torch, da, "ragged_s", args,
                               f"B=2 S={s_r} G=2 M=4 hd=128"))
+    # the split's edges at G=8, hd=128: S one below, at and one above a
+    # chunk boundary (the last chunk one slot short, whole, one slot long);
+    # then a chunk entirely dead beside live ones, and one row all dead
+    for name, s_r in _split_edges(da, dev, 8, 8, 4, 128):
+        args = _b8_inputs(torch, np, dev, 8, s_r, 8, 4, 128, seed=s_r)
+        chunk = da.plan_for(args[0], args[1], args[3])["chunk"]
+        errs.append(_check_b8(torch, da, f"split_edge[{name}]", args,
+                              f"B=8 S={s_r} G=8 M=4 hd=128"))
+        if name == "at":
+            args[5][:, chunk:2 * chunk] = 0.0
+            errs.append(_check_b8(torch, da, "split_dead_chunk", args,
+                                  f"B=8 S={s_r} slots [{chunk}, "
+                                  f"{2 * chunk}) dead"))
+            args[5][0] = 0.0
+            errs.append(_check_b8(torch, da, "split_dead_row", args,
+                                  f"B=8 S={s_r} row 0 all dead"))
     args = _b8_inputs(torch, np, dev, 8, 4096, 8, 4, 80, seed=80)
     args[5][:, ::5] = 0.0
     args[5][:, 3000:] = 0.0
@@ -1499,6 +1550,27 @@ def _check_decode_attention(torch, np, dev, da) -> float:
             errs.append(_check_b8(torch, da, "m_hd_grid", args,
                                   f"B=2 S=1000 G=2 M={m_r} hd={hd_r}"))
     return max(errs)
+
+
+def _split_edges(da, dev, b, g, m, hd):
+    """S one below, at and one above a chunk boundary of the split B8's
+    wrapper picks for (B, G, M, hd) on this card: the first S from 3000 up
+    whose chunk leaves a last chunk of chunk - 1, chunk and 1 slots."""
+    from repro_torch.kernels import _build
+    sms = _build.sm_count(dev)
+    found = {}
+    for s_r in range(3000, 20000):
+        plan = da.launch_plan(b, s_r, g, m, hd, wide=True, sms=sms)
+        if plan["n_split"] < 2:
+            continue
+        rest = s_r - (plan["n_split"] - 1) * plan["chunk"]
+        for name, want in (("below", plan["chunk"] - 1),
+                           ("at", plan["chunk"]), ("above", 1)):
+            if rest == want and name not in found:
+                found[name] = s_r
+        if len(found) == 3:
+            break
+    return sorted(found.items(), key=lambda kv: kv[1])
 
 
 def _serve_lm_launcher(torch, ek, serve, HybridServer):
@@ -1688,6 +1760,7 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
     ``enable_gqa=True`` on an already-dequantized cache: it leaves the
     dequant out), the bound; then prefill, decode step, tokens/s and B8's
     share of a step. -> B8's kernel row."""
+    import numpy as np
     import torch.nn.functional as F
     from repro_torch.models.attention import _inv_sqrt
     args = _served_args(torch, dev, lm, 0, seed=7)
@@ -1723,15 +1796,9 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
     lib_gap = float((library().reshape(out_k.shape) - out_k).abs().max())
     library_ms = _graph_ms(torch, library, inner=10)
     del kd, vd
-    # bound: the int8 K/V, their scales, the mask's distinct bytes (the
-    # served (S,) mask is broadcast over B with stride 0) and q read once,
-    # the output written once; QK and PV products (2 flops each), the
-    # dequant products and one exp per score
-    mask_bytes = 4 * s * (1 if valid.stride(0) == 0 else b)
-    n_bytes = 2 * b * s * g * hd + 2 * 4 * b * s * g + mask_bytes \
-        + 2 * 4 * b * g * m * hd
-    ops = 4 * b * g * m * s * hd + 2 * b * s * g * hd + b * g * m * s
-    bound_ms, bound_by = _bound(n_bytes, ops)
+    bound_ms, bound_by, n_bytes, ops = _b8_bound(valid, b, s, g, m, hd)
+    plan = da.plan_for(q, kq, vq)
+    danube = _time_b8_danube(torch, np, dev, da, smi)
     n_layers = lm["cfg"].n_layers
     step_ms = statistics.median(lm["steps_ms"])
     tok_s = LM_BATCH * LM_STEPS / lm["decode_s"]
@@ -1742,7 +1809,9 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
           f"scaled_dot_product_attention(enable_gqa=True) on the dequantized "
           f"cache (dequant left out) {library_ms:.5f} ms (graph of 10), "
           f"max|sdpa - kernel| = {lib_gap}; bound {bound_ms:.6f} ms "
-          f"({bound_by}: {n_bytes} B, {ops} flops) on {smi}")
+          f"({bound_by}: {n_bytes} B, {ops} flops); split n_split="
+          f"{plan['n_split']} chunk={plan['chunk']} grid={plan['grid']} "
+          f"threads={plan['threads']} kd={plan['kd']} on {smi}")
     print(f"time lm[{LM_ARCH}, f32, batch {LM_BATCH}]: prefill of "
           f"{LM_PROMPT} tokens {lm['prefill_ms']:.2f} ms; decode step "
           f"(eager, host clock to sync) median {step_ms:.3f} ms, min "
@@ -1761,7 +1830,46 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
             "library_ms": library_ms, "ms_eager": ms_eager,
             "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
             "shape": {"B": b, "S": s, "G": g, "M": m, "hd": hd,
-                      "live": int(valid[0].sum())}}
+                      "live": int(valid[0].sum())},
+            "split": {"n_split": plan["n_split"], "chunk": plan["chunk"],
+                      "grid": list(plan["grid"]), "kd": plan["kd"]},
+            "danube": danube}
+
+
+def _b8_bound(valid, b, s, g, m, hd):
+    """B8's bound: the int8 K/V, their scales, the mask's distinct bytes (an
+    (S,) mask broadcast over B with stride 0 counts once) and q read once,
+    the output written once; QK and PV products (2 flops each), the dequant
+    products and one exp per score. -> (ms, by, bytes, flops)"""
+    mask_bytes = 4 * s * (1 if valid.stride(0) == 0 else b)
+    n_bytes = 2 * b * s * g * hd + 2 * 4 * b * s * g + mask_bytes \
+        + 2 * 4 * b * g * m * hd
+    ops = 4 * b * g * m * s * hd + 2 * b * s * g * hd + b * g * m * s
+    return (*_bound(n_bytes, ops), n_bytes, ops)
+
+
+def _time_b8_danube(torch, np, dev, da, smi):
+    """B8 at h2o-danube-1.8b's shape (B=8, its 4096-slot ring, G=8, M=4,
+    hd=80) on a synthetic cache with holes: kernel (graph of 50), plain
+    (graph of 10), bound."""
+    from repro_torch.models.attention import _inv_sqrt
+    args = _b8_inputs(torch, np, dev, 8, 4096, 8, 4, 80, seed=80)
+    args[5][:, ::5] = 0.0
+    args[5][:, 3000:] = 0.0
+    scale = _inv_sqrt(80)
+    ms = _graph_ms(torch, lambda: da.decode_attention_int8(*args,
+                                                            scale=scale))
+    plain_ms = _graph_ms(torch, lambda: da.decode_attention_int8_ref(
+        *args, scale=scale), inner=10)
+    bound_ms, bound_by, n_bytes, _ = _b8_bound(args[5], 8, 4096, 8, 4, 80)
+    plan = da.plan_for(args[0], args[1], args[3])
+    print(f"time decode_attention (B8, h2o-danube shape B=8 S=4096 G=8 M=4 "
+          f"hd=80, holes): kernel {ms:.5f} ms (graph of 50); plain "
+          f"{plain_ms:.5f} ms (graph of 10); bound {bound_ms:.6f} ms "
+          f"({bound_by}: {n_bytes} B); split n_split={plan['n_split']} "
+          f"grid={plan['grid']} kd={plan['kd']} on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "n_split": plan["n_split"]}
 
 
 def _profile_decode(torch, lm, smi):
@@ -1791,7 +1899,7 @@ def _profile_decode(torch, lm, smi):
     print(f"profile lm decode (2 steps): kernels {busy:.3f} ms of device "
           f"time in {wall_ms:.3f} ms wall (idle share "
           f"{100 * (1 - busy / wall_ms):.1f}%, profiler on) on {smi}")
-    for key, dev_ms, count in rows[:8]:
+    for key, dev_ms, count in rows[:10]:
         print(f"  {dev_ms / 2:9.3f} ms a step ({100 * dev_ms / busy:5.1f}%) "
               f"x{count // 2} {key[:90]}")
 

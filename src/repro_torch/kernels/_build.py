@@ -113,6 +113,22 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_SMS: dict = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the card ``device`` names, read once per
+    card and cached (no sync: a property query, safe inside a graph
+    capture once cached)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _SMS:
+        _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SMS[index]
+
+
 def float_bits(x: float) -> int:
     """The float32 bits of ``x`` as a signed int: how a float crosses the
     plain C interface, which passes ints."""

@@ -2,17 +2,21 @@
 
 Replaces the Pallas TPU kernel of ``repro/kernels/bucketize.py``:
 ``_bucketize_kernel`` (:32), reached from ``bucketize_pallas`` (:45) and
-``ops.bucketize``. The CUDA source is ``csrc/bucketize.cu``; its range match
-is the device function ``csrc/range_match.cuh`` that the lookup kernels
-share.
+``ops.bucketize``. The CUDA source is ``csrc/bucketize.cu``.
 
     out[n, f] = #{u : x[n, f] > edges[f, u]}      x (N, F) f32, edges (F, U) f32
 
-as int32, edges padded with +inf (never matched). One thread per element;
-the ragged last block is masked, so N needs no padding.
+as int32, edges padded with +inf (never matched): a count on any edge row,
+sorted or not. A block takes one feature and ``BLOCK`` rows: each warp
+stages that edge row in shared memory with a (min, max) summary per group
+of 8 edges, and each thread counts one element: whole groups from their
+summaries, the one group it falls inside (or, on a row out of order, the
+whole row) edge by edge. A row past the shared-memory budget takes the
+serial walk of ``csrc/range_match.cuh`` (the lookup kernels' range match)
+instead. The ragged last block is masked, so N needs no padding.
 
-Bound: memory (x, edges and out once; ~83 KB at N=2048, F=5, U=63).
-PERF.md holds the measured time.
+Bound: memory (x, edges and out once; 641 KB at the fit's N=16000, F=5,
+U=63). PERF.md holds the measured time.
 
 Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 ``bucketize_ref``, the plain version. The counts are integers, so the two
@@ -30,7 +34,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ensemble_lookup import check_operands
 from repro_torch.kernels.ref import bucketize_ref
 
-BLOCK = 256             # threads per CUDA block
+BLOCK = 128             # rows of x a block takes (threads, a multiple of 32)
 
 LAUNCHES = {"bucketize": 0}
 

@@ -13,8 +13,13 @@ is ``csrc/decode_attention.cu``.
 
 The kernel reads the cache in its native (B, S, G, hd) layout through its
 strides (a layer's view of the stacked decode cache needs no copy) and
-dequantizes in registers, so a decode step moves the int8 bytes only. One
-CTA per (b, g); the loop over S lives inside the CTA.
+turns the int8 codes into f32 in registers, so a decode step moves the int8
+bytes only. S is split across CTAs (flash-decoding): one CTA per (batch
+row, chunk of slots), covering every kv head, then a second kernel merges
+the chunks' partial softmax states. ``launch_plan`` picks the chunk from
+B, G, S and the card's SM count so that the grid fills the card; it is not
+a knob of the caller. The wrapper allocates the scratch of partials with
+``torch.empty`` on q's device (so a call can be captured in a CUDA graph).
 
 Bound: memory (the int8 K/V, the scales and the mask read once: 0.165 ms
 at B=8, S=32768, G=8, hd=128 on 3.35 TB/s). PERF.md holds the measured
@@ -24,7 +29,9 @@ Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 ``decode_attention_int8_ref``. The kernel's online softmax sums in another
 order than the dense softmax of the plain version: the two agree to
 ``RTOL``/``ATOL``, the reference's own Pallas-against-oracle tolerance.
-``LAUNCHES`` counts kernel launches and nothing else.
+``LAUNCHES`` counts kernel launches: one per call that launches, though a
+call with more than one chunk launches the split kernel and the combine
+(as ``stream_update`` counts its two kernels once).
 """
 
 from __future__ import annotations
@@ -37,8 +44,14 @@ from repro_torch.kernels.ref import decode_attention_int8_ref
 
 RTOL, ATOL = 2e-4, 2e-5     # repro tests/test_decode_attention_kernel.py:40
 
-DIMS_PER_THREAD = 8         # one 8-byte load of K and of V per thread
+DIMS_PER_THREAD = 8         # the head dim's granule: one 8-byte load
 MAX_M = 8                   # query heads per kv head the kernel is built for
+WIDE_MAX_M = 4              # 16-byte loads (16 dims a lane) up to this M
+
+THREADS = 256               # threads of a CTA (csrc: kThreads)
+SLOTS_PER_STAGE = 4         # slots a row takes per ring stage (csrc: kSlots)
+CTAS_PER_SM = 2             # the grid's target, in CTAs per SM
+MIN_ITERS = 4               # a chunk takes at least this many ring stages
 
 LAUNCHES = {"decode_attention": 0}
 
@@ -96,6 +109,53 @@ def check_operands(q, k_q, k_s, v_q, v_s, valid) -> None:
                              f"{a.stride()} at offset {a.data_ptr() % 8}")
 
 
+def _pow2_at_least(n: int) -> int:
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def launch_plan(b: int, s: int, g: int, m: int, hd: int, *, wide: bool,
+                sms: int) -> dict:
+    """How the kernel splits a call: dims a lane takes (``kd``: 16 with
+    16-byte loads when ``wide`` and M <= 4, else 8), lanes a (slot, head)
+    group takes, heads a CTA takes, its rows, the chunk of slots a CTA
+    walks and ``n_split`` = ceil(S / chunk), and the grid
+    (n_split, head groups, B). The chunk is a whole number of the CTA's
+    sweeps, at least ``MIN_ITERS`` of them, and small enough that the grid
+    reaches ``CTAS_PER_SM * sms`` CTAs where S allows (so n_split stays
+    within that count, far below the combine's limit of 8192)."""
+    kd = 16 if wide and m <= WIDE_MAX_M and hd % 16 == 0 else 8
+    lps = _pow2_at_least(hd // kd)
+    hpc = min(g, THREADS // lps)
+    hgroups = -(-g // hpc)
+    rows = THREADS // (hpc * lps)
+    sweep = rows * SLOTS_PER_STAGE
+    n_want = max(1, -(-CTAS_PER_SM * sms // (b * hgroups)))
+    chunk = -(-s // n_want)
+    chunk = max(MIN_ITERS, -(-chunk // sweep)) * sweep
+    n_split = -(-s // chunk)
+    return {"kd": kd, "lanes_per_head": lps, "heads_per_cta": hpc,
+            "rows": rows, "chunk": chunk, "n_split": n_split,
+            "grid": (n_split, hgroups, b), "threads": THREADS}
+
+
+def _wide_ok(k_q, v_q, hd: int) -> bool:
+    """16-byte loads need 16-byte-aligned rows of K and V."""
+    return hd % 16 == 0 and all(
+        a.data_ptr() % 16 == 0 and all(st % 16 == 0 for st in a.stride()[:3])
+        for a in (k_q, v_q))
+
+
+def plan_for(q, k_q, v_q) -> dict:
+    """``launch_plan`` for these operands on their card."""
+    b, g, m, hd = q.shape
+    return launch_plan(b, k_q.shape[1], g, m, hd,
+                       wide=_wide_ok(k_q, v_q, hd),
+                       sms=_build.sm_count(q.device))
+
+
 def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
                           scale: float) -> torch.Tensor:
     """q (B,G,M,hd) f32; k_q/v_q (B,S,G,hd) int8; k_s/v_s (B,S,G,1) f32;
@@ -112,14 +172,20 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    plan = plan_for(q, k_q, v_q)
+    n_split = plan["n_split"]
+    # the chunks' partials: acc (B, n_split, G, M, hd), then (m, l) pairs
+    part = (torch.empty(b * n_split * g * m * (hd + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None)
     strides = []
     for a in (k_q, k_s, v_q, v_s):
         strides += list(a.stride()[:3])
     _build.launch("decode_attention", q.device,
                   (q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(),
                    v_q.data_ptr(), v_s.data_ptr(), valid.data_ptr(),
-                   out.data_ptr()),
+                   out.data_ptr(), None if part is None else part.data_ptr()),
                   (b, s, g, m, hd, *strides, *valid.stride(),
-                   _build.float_bits(scale)))
+                   _build.float_bits(scale), plan["kd"], plan["chunk"],
+                   n_split))
     LAUNCHES["decode_attention"] += 1
     return out

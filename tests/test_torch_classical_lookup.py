@@ -174,3 +174,70 @@ def test_every_kernel_source_includes_the_shared_range_match():
                      "ensemble_loop"}
     for name, text in texts.items():
         assert ('#include "range_match.cuh"' in text) == (name in users), name
+
+
+def _group_count(x, edges):
+    """The card's B4 count (csrc/bucketize.cu) in numpy: each row padded
+    with +inf to a multiple of 8, a (min, max) per group of 8 edges
+    ((-inf, +inf) for a group holding a NaN); an element above a group's
+    max takes 8, at or below its min 0; inside exactly one group it
+    compares that group, inside several the whole row."""
+    n, f = x.shape
+    u = edges.shape[1]
+    up = -(-u // 8) * 8
+    if up == 0:
+        return np.zeros((n, f), np.int32)
+    rows = np.full((f, up), np.inf, np.float32)
+    rows[:, :u] = edges
+    groups = rows.reshape(f, up // 8, 8)
+    nan = np.isnan(groups).any(axis=2)
+    lo = np.where(nan, -np.inf, np.nanmin(np.where(nan[..., None], 0, groups),
+                                          axis=2))
+    hi = np.where(nan, np.inf, np.nanmax(np.where(nan[..., None], 0, groups),
+                                         axis=2))
+    out = np.zeros((n, f), np.int32)
+    for j in range(f):
+        v = x[:, j:j + 1]
+        above = v > hi[j][None]
+        inside = ~above & ~(v <= lo[j][None])
+        whole = 8 * above.sum(axis=1)
+        one = inside.sum(axis=1) == 1
+        which = inside.argmax(axis=1)
+        part = (v > groups[j][which]).sum(axis=1)
+        full = (v > rows[j][None]).sum(axis=1)
+        out[:, j] = np.where(inside.sum(axis=1) > 1, full,
+                             whole + np.where(one, part, 0))
+    return out
+
+
+@pytest.mark.parametrize("case", ["sorted", "nan_edges", "dup_edges",
+                                  "inf_edges", "out_of_order", "no_edges"])
+def test_group_summary_count_equals_plain(case):
+    """The card's two-level count is the plain count on any row: whole
+    groups from their (min, max), open groups edge by edge; NaN edges and
+    elements, duplicates, +-inf and rows out of order included."""
+    rng = np.random.default_rng(11)
+    f, u = 4, 70
+    edges = np.sort(rng.normal(size=(f, u)), axis=1).astype(np.float32)
+    if case == "nan_edges":
+        edges[0, 9] = np.nan
+        edges[1, 64:] = np.nan
+    elif case == "dup_edges":
+        edges[:, 8:24] = edges[:, 8:9]
+    elif case == "inf_edges":
+        edges[:, :11] = -np.inf
+        edges[:, 60:] = np.inf
+    elif case == "out_of_order":
+        edges[2] = rng.permuted(edges[2])
+    elif case == "no_edges":
+        edges = np.zeros((f, 0), np.float32)
+    x = (rng.normal(size=(600, f)) * 1.5).astype(np.float32)
+    if edges.shape[1]:
+        x[:200] = edges[np.arange(f)[None],
+                        rng.integers(0, edges.shape[1], (200, f))]
+        x[200:210] = edges[:, 7][None]
+        x[210:220] = edges[:, 8][None]
+    x[220:223, 0] = [np.nan, np.inf, -np.inf]
+    want = tref.bucketize_ref(torch.from_numpy(x),
+                              torch.from_numpy(edges)).numpy()
+    assert_bit_equal(want, _group_count(x, edges))

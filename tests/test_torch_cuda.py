@@ -117,12 +117,24 @@ def _hard_rows(rng, edges, n):
     return x
 
 
+def _unsorted_edges(rng, f, u):
+    """Edge rows in no order, each with its own number of +inf pads, at
+    their own places: the count semantics, not a search's."""
+    edges = rng.normal(size=(f, u)).astype(np.float32)
+    for i in range(f):
+        edges[i, u - (i + 1) * u // (2 * f):] = np.inf
+    return rng.permuted(edges, axis=1)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
 @pytest.mark.parametrize("f,u", [(5, 63), (8, 255), (16, 128), (1, 1)])
-@pytest.mark.parametrize("n", [1, 300, 2048])
-def test_bucketize_kernel_equals_plain(cuda, n, f, u):
+@pytest.mark.parametrize("n", [1, 300, 2048, 16000])
+def test_bucketize_kernel_equals_plain(cuda, n, f, u, order):
     from repro_torch.kernels import bucketize as bk
     rng = np.random.default_rng(n + f + u)
     edges = _ragged_edges(rng, f, u) if u > 1 else np.zeros((f, u), np.float32)
+    if order == "unsorted":
+        edges = _unsorted_edges(rng, f, u)
     x = torch.from_numpy(_hard_rows(rng, edges, n)).to(cuda)
     e = torch.from_numpy(edges).to(cuda)
     before = bk.LAUNCHES["bucketize"]
@@ -131,6 +143,79 @@ def test_bucketize_kernel_equals_plain(cuda, n, f, u):
     assert bk.LAUNCHES["bucketize"] == before + 1
     assert out.dtype == torch.int32
     assert torch.equal(out, bk.bucketize_ref(x, e))
+
+
+def _group_case(rng, case):
+    """Edge rows that stress the kernel's (min, max) summaries of groups
+    of 8 edges, and rows on their bounds."""
+    f, u = 4, 70
+    edges = np.sort(rng.normal(size=(f, u)), axis=1).astype(np.float32)
+    if case == "nan_edges":
+        edges[0, 9] = np.nan                          # inside group 1
+        edges[1, 64:] = np.nan                        # the last group
+    elif case == "dup_edges":
+        edges[:, 8:24] = edges[:, 8:9]                # two groups of one value
+    elif case == "inf_edges":
+        edges[:, :11] = -np.inf
+        edges[:, 60:] = np.inf
+    elif case == "out_of_order":
+        edges[2] = rng.permuted(edges[2])
+    elif case == "long_row":                          # past the staging budget
+        edges = np.sort(rng.normal(size=(2, 3000)), axis=1).astype(np.float32)
+    elif case == "no_edges":
+        edges = np.zeros((3, 0), np.float32)
+    f, u = edges.shape
+    x = _hard_rows(rng, edges, 4096) if u else rng.normal(
+        size=(4096, f)).astype(np.float32)
+    if u >= 16:                                       # on group bounds
+        x[100:110] = edges[:, 7][None]
+        x[110:120] = edges[:, 8][None]
+        x[120:130] = edges[:, 15][None]
+    return x, edges
+
+
+@pytest.mark.parametrize("case", ["nan_edges", "dup_edges", "inf_edges",
+                                  "out_of_order", "long_row", "no_edges"])
+def test_bucketize_group_summaries(cuda, case):
+    from repro_torch.kernels import bucketize as bk
+    x, edges = _group_case(np.random.default_rng(7), case)
+    xt = torch.from_numpy(x).to(cuda)
+    e = torch.from_numpy(edges).to(cuda)
+    before = bk.LAUNCHES["bucketize"]
+    out = bk.bucketize(xt, e)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["bucketize"] == before + 1
+    assert torch.equal(out, bk.bucketize_ref(xt, e))
+
+
+def test_bucketize_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches the kernel or raises: the plain version is
+    never called for it, and bad operands raise instead of falling back."""
+    from repro_torch.kernels import bucketize as bk
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(4)
+    edges = _unsorted_edges(rng, 5, 63)
+    x = torch.from_numpy(_hard_rows(rng, edges, 2048)).to(cuda)
+    e = torch.from_numpy(edges).to(cuda)
+    want = bk.bucketize_ref(x, e)
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(bk, "bucketize_ref", refuse)
+    before = bk.LAUNCHES["bucketize"]
+    got = ops.bucketize(x, e)
+    torch.cuda.synchronize()
+    assert bk.LAUNCHES["bucketize"] == before + 1
+    assert torch.equal(got, want)
+    # the wrapper itself (ops.bucketize casts and moves its inputs first)
+    with pytest.raises(TypeError):
+        bk.bucketize(x.double(), e)
+    with pytest.raises(ValueError):                   # edges on the CPU
+        bk.bucketize(x, e.cpu())
+    with pytest.raises(ValueError):                   # not contiguous
+        bk.bucketize(x.t().contiguous().t(), e)
+    assert bk.LAUNCHES["bucketize"] == before + 1
 
 
 # -- B3: the classical lookup ---------------------------------------------------
@@ -650,6 +735,42 @@ B8_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
 def test_decode_attention_kernel_matches_plain(cuda, b, s, g, m, hd, mask):
     from repro_torch.kernels import decode_attention as da
     _b8_check(da, _b8_args(cuda, b, s, g, m, hd, seed=s + m + hd, mask=mask))
+
+
+def _split_case(dev, case):
+    """B8's operands at the split's edges (B=8, G=8, M=4, hd=128): S one
+    below, at and one above a chunk boundary of the split the wrapper picks
+    on this card, the middle chunk entirely dead beside live ones, and one
+    row all dead."""
+    from repro_torch.kernels import decode_attention as da
+    want = {"below": -1, "at": 0, "above": 1}.get(case, 0)
+    for s in range(3000, 20000):
+        plan = da.plan_for(torch.zeros(8, 8, 4, 128, device=dev),
+                           torch.zeros(8, s, 8, 128, dtype=torch.int8,
+                                       device=dev),
+                           torch.zeros(8, s, 8, 128, dtype=torch.int8,
+                                       device=dev))
+        rest = s - (plan["n_split"] - 1) * plan["chunk"]
+        if plan["n_split"] > 2 and (rest - plan["chunk"] if want < 1
+                                    else rest) == want:
+            break
+    args = _b8_args(dev, 8, s, 8, 4, 128, seed=s, mask="all")
+    chunk = plan["chunk"]
+    if case == "dead_chunk":
+        args[5][:, chunk:2 * chunk] = 0.0
+    elif case == "dead_row":
+        args[5][3] = 0.0
+    return args, plan
+
+
+@pytest.mark.parametrize("case", ["below", "at", "above", "dead_chunk",
+                                  "dead_row"])
+def test_decode_attention_split_edges(cuda, case):
+    from repro_torch.kernels import decode_attention as da
+    args, plan = _split_case(cuda, case)
+    s = args[1].shape[1]
+    assert (plan["n_split"] - 1) * plan["chunk"] < s
+    _b8_check(da, args)
 
 
 def test_decode_attention_reads_strided_views(cuda):

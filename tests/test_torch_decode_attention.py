@@ -181,3 +181,88 @@ def test_q8_roundtrip_error_bound():
     err = (q.to(torch.float32) * s - v).abs().amax(dim=-1)
     bound = v.abs().amax(dim=-1) / 127.0
     assert bool(torch.all(err <= bound * 1.001))
+
+
+def _split_merge(args, scale, chunk):
+    """B8's two passes in numpy, float32: per chunk of ``chunk`` slots an
+    online softmax state (max m, sum l, acc[hd]) with dead slots at -1e30
+    (the last chunk ragged, no slot past S), then the combine over chunks:
+    weights exp(m_c - max_c m_c), out = sum w acc / max(sum w l, 1e-30)."""
+    q, kq, ks, vq, vs, valid = args
+    s = kq.shape[1]
+    k = kq.astype(np.float32) * ks                    # (B, S, G, hd)
+    v = vq.astype(np.float32) * vs
+    ms, ls, accs = [], [], []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(s, c0 + chunk))
+        sc = np.einsum("bgmd,bsgd->bgms", q, k[:, sl]) * np.float32(scale)
+        sc = np.where(valid[:, None, None, sl] > 0.5, sc, np.float32(-1e30))
+        m = sc.max(axis=-1)                            # (B, G, M)
+        p = np.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(axis=-1))
+        accs.append(np.einsum("bgms,bsgd->bgmd", p, v[:, sl]))
+    m_all = np.stack(ms)                               # (n_split, B, G, M)
+    w = np.exp(m_all - m_all.max(axis=0))
+    den = (w * np.stack(ls)).sum(axis=0)
+    num = (w[..., None] * np.stack(accs)).sum(axis=0)
+    return (num / np.maximum(den, np.float32(1e-30))[..., None]).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("which", ["port", "ref", "pallas"])
+@pytest.mark.parametrize("case", ["all_dead", "dead_chunk", "ragged_last"])
+def test_split_merge_matches_dense(case, which):
+    """The split-S algebra the card's kernel keeps (per-chunk softmax
+    states, then a combine): every slot dead (each chunk at m = -1e30, the
+    merge gives the uniform mean of V), one chunk entirely dead beside live
+    ones (it weighs exp(-1e30 - m_live) = 0), and a ragged last chunk. It
+    agrees with the port's plain version and the JAX package's oracle and
+    Pallas kernel within rtol 2e-4 / atol 2e-5."""
+    b, s, g, m, hd, chunk = 2, 300, 2, 4, 32, 64
+    if case == "ragged_last":
+        s = 301                                        # last chunk: 45 slots
+    args = _setup(b, s, g, m, hd, seed=5)
+    valid = args[5]
+    if case == "all_dead":
+        valid[:] = 0.0
+    elif case == "dead_chunk":
+        valid[:, chunk:2 * chunk] = 0.0
+        valid[1, :chunk] = 0.0                         # row 1: two dead chunks
+    scale = 1.0 / np.sqrt(hd)
+    got = _split_merge(args, scale, chunk)
+    want = (_port(args, scale) if which == "port"
+            else _oracle(args, scale, which))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    if case == "all_dead":
+        mean_v = (args[3].astype(np.float32) * args[4]).mean(axis=1)
+        np.testing.assert_allclose(
+            got, np.broadcast_to(mean_v[:, :, None], got.shape),
+            rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,s,g,m,hd", [(8, 32768, 8, 4, 128),
+                                        (8, 4096, 8, 4, 80),
+                                        (2, 1, 2, 4, 128),
+                                        (2, 1000, 2, 8, 80),
+                                        (1, 64, 64, 8, 256)])
+def test_launch_plan_covers_every_slot(b, s, g, m, hd):
+    """The split the wrapper asks for: chunks of whole sweeps that cover S
+    with none empty, every head in some CTA, 16-byte loads only for M <= 4,
+    and at the served shape a grid of at least two CTAs per SM of an H100
+    (132 SMs)."""
+    plan = tda.launch_plan(b, s, g, m, hd, wide=True, sms=132)
+    chunk, n_split = plan["chunk"], plan["n_split"]
+    assert (n_split - 1) * chunk < s <= n_split * chunk
+    assert chunk % (plan["rows"] * tda.SLOTS_PER_STAGE) == 0
+    assert plan["kd"] == (16 if m <= tda.WIDE_MAX_M else 8)
+    lanes = plan["lanes_per_head"]
+    assert lanes >= hd // plan["kd"] and lanes & (lanes - 1) == 0
+    hgroups = plan["grid"][1]
+    assert plan["heads_per_cta"] * hgroups >= g
+    assert plan["rows"] * plan["heads_per_cta"] * lanes <= tda.THREADS
+    assert plan["grid"] == (n_split, hgroups, b)
+    if (b, s) == (8, 32768):
+        assert n_split * hgroups * b >= 2 * 132
+    narrow = tda.launch_plan(b, s, g, m, hd, wide=False, sms=132)
+    assert narrow["kd"] == 8
