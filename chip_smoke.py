@@ -15,7 +15,15 @@ Phases (any failure exits non-zero before the result line is printed):
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
      the select crossover), both selects, tables staged in shared memory
-     and read from global memory; the classical lookup (N also 1952, the
+     and read from global memory; the matmul select (B1) also at N in
+     {1, 127, 128, 129, 2048, 2049, 16000} with Co in {1, 2, 32} (staged
+     and from global memory, rows on the edges and at NaN / +-inf); the
+     streaming register update (B5) at N in {600, 8192, 2^20} x W in
+     {1, 96, 1024, 4096} and with every lane on one bucket, then N=8209
+     (not a multiple of its tile), an empty window, a window with no valid
+     lane and -0.0 count registers on the columns the window does not name,
+     each without a clamp, at 1000 and at 2^24, and the eviction fill (B6);
+     the classical lookup (N also 1952, the
      ragged last batch) on the SVM, NB and K-Means switch artifacts that
      phase 4 serves (staged and global) and on a synthetic 5-class SVM
      table (F=8, 128 bins, M=10) whose staged tables need the >48 KB
@@ -93,9 +101,10 @@ Phases (any failure exits non-zero before the result line is printed):
      full classify batch per switch family. Each kernel at its main-path
      shape: the lookups at a 2048-row batch, the range match at the
      16000-row fit (and at 2048 rows, kernel and ``searchsorted`` in
-     turn), B5 and B6 at N=8192, W=1024 (``torch.where`` is B6's library
-     call; B5 has none). One streaming step, eager and under graph
-     replay, its parts, and packets per second of ``serve_trace``. One
+     turn), B1 also at the streaming step's shape (its 1024 rows through
+     the RF 4x3 switch), B5 and B6 at N=8192, W=1024 (``torch.where`` is
+     B6's library call; B5 has none). One streaming step, eager and under
+     graph replay, its parts, and packets per second of ``serve_trace``. One
      classify of each phase-d server: eager, fused (per call and its
      graph's replay), loop tiles and autotuned tiles. B8 on the served
      cache: 50 launches in a CUDA graph and one eager call, its plain
@@ -324,18 +333,57 @@ def main() -> int:
                 flatten_vtable(torch.tensor(cls_q, dtype=torch.int32)).to(dev),
                 cls_m)
 
-    def edge_rows(edges, n):
+    def edge_rows(edges, n, gen=rng):
         """Rows around the edges, a quarter exactly on one, +-inf in two."""
         e = edges.cpu().numpy()
         f, u = e.shape
         finite = np.isfinite(e).sum(axis=1)
-        x = (rng.normal(size=(n, f)) * 1.5).astype(np.float32)
-        on = rng.random((n, f)) < 0.25
-        col = (rng.random((n, f)) * finite[None, :]).astype(np.int64)
+        x = (gen.normal(size=(n, f)) * 1.5).astype(np.float32)
+        on = gen.random((n, f)) < 0.25
+        col = (gen.random((n, f)) * finite[None, :]).astype(np.int64)
         pick = e[np.arange(f)[None, :], col]
         x[on] = pick[on]
         x[0, 0], x[1, 0] = np.inf, -np.inf
         return torch.tensor(x, device=dev)
+
+    # the matmul select's redesign (B1) at the batch sizes around its block
+    # (128 rows) and past the largest batch, Co in {1, 2, 32}, tables staged
+    # and read from global memory, rows on the edges and at NaN / +-inf
+    # (a generator of its own, so the cases after it see the same inputs)
+    m_rng = np.random.default_rng(17)
+    for cout in (1, 2, 32):
+        m_t, m_s = (60, 600) if cout == 1 else (33, 300)
+        m_edges = np.sort(m_rng.normal(size=(5, 39)), axis=1)
+        m_edges[:, -9:] = np.inf
+        m_ftable = torch.tensor(m_rng.integers(0, 2, (5, 40, m_t)),
+                                dtype=torch.int32)
+        m_strides = torch.tensor([[16, 8, 4, 2, 1]] * m_t, dtype=torch.int32)
+        m_dtable = torch.tensor(
+            m_rng.integers(0, cout, (m_t, m_s)) if cout > 1
+            else m_rng.integers(-2000, 2000, (m_t, m_s)), device=dev)
+        m_tabs = (torch.tensor(m_edges, dtype=torch.float32, device=dev),
+                  flatten_ftable(m_ftable, m_strides).to(dev),
+                  build_dtable_flat(m_dtable, cout, cout > 1),
+                  pad_dtable(m_dtable))
+        x_m = edge_rows(m_tabs[0], 16000, m_rng)
+        x_m[2, 1] = float("nan")
+        b_pad, t_pad = m_tabs[1].shape[0] // 5, m_tabs[1].shape[1]
+        fits = ek.fits_smem(5, 39, b_pad, t_pad, m_t, m_s, cout, "matmul",
+                            128)
+        for staged in ((True, False) if fits else (False,)):
+            for n in (1, 127, 128, 129, 2048, 2049, 16000):
+                x = x_m[:n].contiguous()
+                plan = ek.launch_plan(n, 5, 39, b_pad, t_pad, m_t, m_s, cout,
+                                      "matmul", staged, 128)
+                check_launch(
+                    "matmul", "matmul_select",
+                    lambda: ek.ensemble_lookup_fused(x, *m_tabs,
+                                                     select="matmul",
+                                                     staged=staged),
+                    lambda: ek.ensemble_lookup_fused_ref(x, *m_tabs,
+                                                         select="matmul"),
+                    f"N={n} F=5 U=39 T={m_t} S={m_s} Co={cout} "
+                    f"staged={staged} plan={plan}")
 
     x_cls = edge_rows(cls_tabs[0], 2048)
     cl_cases = [(k, (a.edges, a.vtable_flat, a.vtable.q.shape[2]), x_all)
@@ -575,6 +623,14 @@ def main() -> int:
               f"{row['plain_ms_eager']:.5f} ms (eager); library {lib}; bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
               f"shape {row['shape']}; on {smi}")
+    # B1's rows a block (tile_n; the default is 128): the grid it gives at
+    # the serve batch against the card's SMs
+    for tile_n in (16, 32, 64, 128, 512):
+        ms = _graph_ms(torch, lambda: ek.ensemble_lookup_fused(
+            x2048, *tables(served), select="matmul", tile_n=tile_n))
+        print(f"time ensemble_lookup:matmul tile_n={tile_n} "
+              f"({-(-x2048.shape[0] // tile_n)} blocks): kernel {ms:.5f} ms "
+              f"(graph) on {smi}")
 
     for name, srv in [("rf", server)] + [(k, families[k]["server"])
                                          for k in ("svm", "nb", "kmeans",
@@ -588,9 +644,9 @@ def main() -> int:
     _time_parts(torch, fused_classify, families["nb"]["server"], xb, "nb", smi)
     _time_tuned(torch, tuned, xb, smi)
 
-    stream_rows = _time_stream(torch, np, stream, smi)
+    stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
     kernel_rows += stream_rows
-    for row in stream_rows:
+    for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
                else f"{row['library_ms']:.5f} ms")
         print(f"time {row['name']}: kernel {row['ms']:.5f} ms (graph), "
@@ -653,6 +709,7 @@ def _stream_inputs(torch, dev, n, w, *, base=0.0, hot=False, gen=None):
     with four ids outside [0, N)."""
     u = lambda *shape: torch.rand(shape, generator=gen, device=dev)
     occ = u(n) < 0.4
+    occ[0] = occ[0] | hot          # the hot bucket holds a flow's counts
     cnt = torch.floor(u(n) * 59.0) + 1.0
     regs = torch.empty((8, n), dtype=torch.float32, device=dev)
     for r in (0, 1, 4, 5, 6, 7):
@@ -679,19 +736,36 @@ def _stream_inputs(torch, dev, n, w, *, base=0.0, hot=False, gen=None):
 def _check_stream_kernels(torch, dev, su, ev):
     """Phase 3 for B5 and B6: each kernel call against its plain version on
     the same inputs, atol=0, one launch per call."""
+    from repro_torch.kernels import _build
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     lim24 = float(1 << 24)
-    cases = [(n, w, limit, False)
+    cases = [(n, w, limit, "random")
              for n in (600, 8192, 1 << 20) for w in (1, 96, 1024, 4096)
              for limit in (None, 1000.0, lim24)]
-    cases += [(8192, 4096, limit, True) for limit in (None, 1000.0, lim24)]
-    for n, w, limit, hot in cases:
+    cases += [(8192, 4096, limit, "hot") for limit in (None, 1000.0, lim24)]
+    # the one-launch redesign's edges: N not a multiple of its tile, an
+    # empty window, a window with no valid lane, -0.0 count registers on
+    # the columns the window does not name
+    cases += [(n, w, limit, kind)
+              for n, w, kind in ((8209, 1024, "random"), (8192, 0, "random"),
+                                 (8192, 1024, "invalid"),
+                                 (8192, 1024, "neg_zero"))
+              for limit in (None, 1000.0, lim24)]
+    for n, w, limit, kind in cases:
         # at the 2^24 clamp the registers start 60000 below it, so the
         # window's sums cross it; without a clamp everything stays below
         base = lim24 - 60000.0 if limit == lim24 else 0.0
-        regs, cols = _stream_inputs(torch, dev, n, w, base=base, hot=hot,
-                                    gen=gen)
+        regs, cols = _stream_inputs(torch, dev, n, w, base=base,
+                                    hot=kind == "hot", gen=gen)
+        if kind == "invalid":
+            cols = cols[:4] + (torch.zeros_like(cols[4]),)
+        elif kind == "neg_zero":
+            named = torch.zeros(n, dtype=torch.bool, device=dev)
+            b = cols[0].long()
+            named[b[(b >= 0) & (b < n)]] = True
+            counts = [0, 1, 4, 5, 6, 7]
+            regs[counts] = torch.where(named, regs[counts], -0.0)
         want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=limit)
         before = su.LAUNCHES["stream_update"]
         got_regs, got_rows = su.stream_update(regs, *cols, limit=limit)
@@ -701,12 +775,15 @@ def _check_stream_kernels(torch, dev, su, ev):
                   _max_abs_err(got_rows, want_rows))
         crossed = int((got_regs[[1, 6, 7]] == lim24).sum()) if limit == lim24 \
             else 0
-        print(f"case stream_update N={n} W={w} limit={limit} hot={hot} "
+        if kind == "hot" and limit == lim24 and crossed == 0:
+            raise AssertionError("the hot bucket's sums did not reach 2^24")
+        print(f"case stream_update N={n} W={w} limit={limit} {kind} "
+              f"tile={su.tile_columns(n, _build.sm_count(dev))} "
               f"launches={launched} max_abs_diff={err} at_2^24={crossed}")
         if launched != 1 or not (torch.equal(got_regs, want_regs)
                                  and torch.equal(got_rows, want_rows)):
             raise AssertionError(f"stream_update kernel != plain at N={n} "
-                                 f"W={w} limit={limit} hot={hot}")
+                                 f"W={w} limit={limit} {kind}")
     fills = torch.tensor([0.0, 0.0, float("inf"), float("-inf"), 0.0, 0.0,
                           0.0, 0.0], device=dev)
     for n in (600, 8192, 1 << 20):
@@ -1038,8 +1115,10 @@ def _time_stream(torch, np, stream, smi):
     """Phase 5 for the streaming path: B5 and B6 at the main path's shape
     (N=8192, W=1024; the register file and eviction mask that serving the
     trace leaves), one step eager and under graph replay, its parts, and
-    packets per second of serve_trace. -> the two kernels' JSON rows."""
+    packets per second of serve_trace. -> (B5's and B6's JSON rows, [B1 at
+    the step's own shape: the window's rows through the RF 4x3 switch])."""
     from repro_torch.core.hybrid import combine, dispatch
+    from repro_torch.kernels import ensemble_lookup as ek
     from repro_torch.kernels import evict as ev
     from repro_torch.kernels import stream_update as su
     from repro_torch.kernels.ops import fused_classify
@@ -1137,6 +1216,13 @@ def _time_stream(torch, np, stream, smi):
     buf, idx, valid = dispatch(x, fwd, srv.capacity)
     be_pred = srv.backend_fn(buf)
 
+    b1_stream = _time_kernel(
+        torch, ek, "ensemble_lookup:matmul[stream_step]",
+        (srv.artifact.edges, srv.artifact.ftable_flat,
+         srv.artifact.dtable_flat, srv.artifact.dtable_pad), x.contiguous(),
+        "matmul", "src/repro/kernels/ensemble_lookup.py:112",
+        sum(r["path"]["matmul"] for r in runs.values()))
+
     def dispatch_backend_combine():
         b_, i_, v_ = dispatch(x, fwd, srv.capacity)
         return combine(sw_pred, srv.backend_fn(b_), i_, v_)
@@ -1170,7 +1256,7 @@ def _time_stream(torch, np, stream, smi):
               f"{med * 1e3:.2f} ms ({trace.n_packets / med:.0f} packets/s), "
               f"best {best * 1e3:.2f} ms ({trace.n_packets / best:.0f} "
               f"packets/s) on {smi}")
-    return rows
+    return rows, [b1_stream]
 
 
 def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,

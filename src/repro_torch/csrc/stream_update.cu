@@ -10,43 +10,59 @@
 // `limit` (the 2^24 f32 exactness envelope) when asked, and gathers each
 // lane's updated register row into rows (8, W). regs is updated IN PLACE.
 //
-// The TPU kernel is a one-hot MXU contraction per bucket tile whose rows
-// block is revisited by every step of a grid that runs in order, and set
-// up at step 0. On the card blocks run in no order, so that pattern would
-// race. Here it is two launches on one stream:
-//   1. scatter: one thread per lane. A valid lane whose bucket lies in
-//      [0, N) atomicAdds its six integer-valued contributions to the count
-//      registers and folds ts into t_min / t_max. CUDA has no float atomic
-//      min/max: a value with the sign bit clear takes atomicMin/Max on its
-//      int bits, one with the sign bit set atomicMax/Min on its unsigned
-//      bits, which orders every float (including +-inf, the identities of
-//      an untouched bucket, and the negative timestamps an explicit epoch
-//      can give). Invalid lanes touch nothing.
-//   2. finish: thread i adds +0.0 to column i's count registers and clamps
-//      them (i < N), and gathers lane i's row (i < W), applying the same
-//      +0.0 and clamp to what it reads. A read may race column b's clamp;
-//      both orders give the same bits, because the map is idempotent.
+// The decomposition is the TPU kernel's own: a grid step owns a tile of
+// bucket columns (TILE_B there), scans the whole window for the lanes that
+// fall in its tile, folds and clamps its own columns, and gathers the rows of
+// the lanes it owns. On the TPU the rows block was carried across grid steps
+// that run in order; here a block owns its tile [c0, c0 + tile) and writes
+// the rows of the lanes whose gather column lies in it outright, so nothing
+// is carried, nothing races, and the call is one launch of kBlock threads:
+//   1. each thread starts loading the registers it will settle;
+//   2. the block scans the window (17 bytes a lane, from L2) and lists, in
+//      shared memory, each valid lane whose bucket lies in its tile (one
+//      shared-memory int atomic a warp for the list's length); then each
+//      column's q = kBlock / tile threads walk the list and fold its
+//      column's lanes in registers:
+//      six sums from +0.0, t_min/t_max in a total order of the floats. A
+//      window longer than kListLanes is listed and folded in chunks;
+//   3. a column's q partial folds meet by xor shuffles, and the column is
+//      settled once, by the block that owns it: count registers regs + fold,
+//      then the clamp; t_min/t_max the ordered min/max of register and fold.
+//      Words whose bits change are written back, and the settled column is
+//      kept in shared memory;
+//   4. the block scans the window again and writes rows[:, i] for every lane
+//      whose gather column (b < 0 -> b + N, then clamped into [0, N), the
+//      reference's gather) lies in its tile, invalid lanes included.
+// No float atomics: shared-memory float atomics on one word (a flow's
+// packets) retry one lane at a time, and on the card a first version built
+// on them lost to the global atomics it replaced once a window held a heavy
+// flow. The lanes of a flow are summed by the threads of one column
+// instead. The tile (kernels/stream_update.py tile_columns) gives about two
+// blocks an SM, up to kBlock columns; N need not be a multiple of it.
 //
 // Exactness against the plain version (kernels/ref.py stream_update_ref,
-// regs + per-bucket sums, then the clamp): integer-valued f32 adds are
-// exact in any order below 2^24; with the clamp on, a sum that crosses
-// 2^24 still rounds to at least 2^24 in any order and clamps to exactly
-// 2^24; min/max are exact in any order. The +0.0 makes an untouched
-// column's count registers what regs + 0.0 gives in the plain version
-// (-0.0 becomes +0.0). Products use __fmul_rn/__fsub_rn so the compiler
-// cannot contract them differently from the plain version.
+// regs + per-bucket sums, then the clamp): the fold sums the window from
+// +0.0 as the plain version's segment sums do, integer-valued f32 adds are
+// exact in any order below 2^24, and with the clamp on a sum that crosses
+// 2^24 rounds to at least 2^24 and clamps to exactly 2^24; min/max are
+// exact in any order (order_key's order: the floats' own, with -0.0
+// below +0.0). Because every fold starts at +0.0, an untouched column's
+// -0.0 count register becomes +0.0, as regs + sums gives it. Products use
+// __fmul_rn/__fsub_rn so the compiler cannot contract them differently
+// from the plain version.
 //
 // Bound: memory. In place, the function must read the six count rows whole
 // (the clamp sees every column), t_min/t_max only at the columns the lanes
 // name, and the window (17 B a lane), and write the register words that
 // change and the rows (8*W*4 bytes); its adds and compares take less at the
-// card's f32 rate. This design moves more: kernel 2 reads and writes the
-// six count rows whole, and the pair pays two launches.
+// card's f32 rate. This design also reads t_min/t_max whole and each block
+// reads the window from L2.
 //
 // Plain C interface (bound with ctypes): the launcher returns
 // cudaGetLastError() and allocates nothing; the caller owns all buffers.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stddef.h>
 #include <string.h>
 
@@ -55,85 +71,175 @@ namespace {
 constexpr int kRegisters = 8;
 constexpr int kTMin = 2;
 constexpr int kTMax = 3;
+constexpr int kBlock = 256;        // threads of a block; the widest tile
+constexpr int kListLanes = 1024;   // lanes a block lists at once (16 KB)
+constexpr int kScan = kListLanes / kBlock;   // lanes a thread loads at once
 
-// k-th count register (pkt, byte, fwd/rev pkts, fwd/rev bytes): 0 1 4 5 6 7
-__device__ __forceinline__ int count_row(int k) { return k < 2 ? k : k + 2; }
-
-__device__ __forceinline__ bool sign_set(float v) {
-  return (__float_as_uint(v) >> 31) != 0u;
+// A total order of the floats, as an int: the bits, with the magnitude bits
+// of a value whose sign bit is set flipped (-0.0 below +0.0, every
+// negative value below every positive one).
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
 }
 
-__device__ __forceinline__ void atomic_min_f32(float* addr, float v) {
-  if (!sign_set(v))
-    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else
-    atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+// The float max/min of that order.
+__device__ __forceinline__ float ordered_min(float a, float b) {
+  return order_key(b) < order_key(a) ? b : a;
 }
 
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (!sign_set(v))
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  else
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+__device__ __forceinline__ float ordered_max(float a, float b) {
+  return order_key(b) > order_key(a) ? b : a;
 }
 
-// regs + 0.0, then the clamp: what the plain version leaves in a count
-// register. Idempotent, so applying it twice changes nothing.
-__device__ __forceinline__ float settle(float v, bool has_limit, float limit) {
-  v = __fadd_rn(v, 0.0f);
-  return (has_limit && v > limit) ? limit : v;
+// One lane of the window, as a block keeps it in its list: the column in
+// the tile (int bits), ts, length, is_fwd.
+__device__ __forceinline__ float4 lane_entry(int col, float t, float ln,
+                                             float fw) {
+  return make_float4(__int_as_float(col), t, ln, fw);
 }
 
-__global__ void su_scatter_kernel(float* __restrict__ regs,
-                                  const int* __restrict__ bucket,
-                                  const float* __restrict__ ts,
-                                  const float* __restrict__ length,
-                                  const float* __restrict__ is_fwd,
-                                  const unsigned char* __restrict__ valid,
-                                  int n, int w) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= w || !valid[i]) return;
-  const int b = bucket[i];
-  if (b < 0 || b >= n) return;          // dropped, as the segment ops drop it
-  const float ln = length[i];
-  const float fw = is_fwd[i];
-  const float rv = __fsub_rn(1.0f, fw);
-  const size_t col = (size_t)b;
+__global__ void __launch_bounds__(kBlock)
+stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
+                     const float* __restrict__ ts,
+                     const float* __restrict__ length,
+                     const float* __restrict__ is_fwd,
+                     const unsigned char* __restrict__ valid,
+                     float* __restrict__ rows, int n, int w, int tile,
+                     int has_limit, float limit) {
+  __shared__ float4 list[kListLanes];        // the tile's lanes of a chunk
+  __shared__ int listed;                     // lanes listed so far
+  extern __shared__ float settled[];         // [8][tile]
+  const int c0 = blockIdx.x * tile;
+  const int cols = min(tile, n - c0);
   const size_t nn = (size_t)n;
-  atomicAdd(regs + 0 * nn + col, 1.0f);
-  atomicAdd(regs + 1 * nn + col, ln);
-  atomicAdd(regs + 4 * nn + col, fw);
-  atomicAdd(regs + 5 * nn + col, rv);
-  atomicAdd(regs + 6 * nn + col, __fmul_rn(ln, fw));
-  atomicAdd(regs + 7 * nn + col, __fmul_rn(ln, rv));
-  const float t = ts[i];
-  atomic_min_f32(regs + kTMin * nn + col, t);
-  atomic_max_f32(regs + kTMax * nn + col, t);
-}
+  const int lane = threadIdx.x & 31;
+  // column c's q threads are consecutive; thread k of them settles the
+  // registers r with r % q == k
+  const int q = kBlock / tile;
+  const int c = threadIdx.x / q;
+  const int k = threadIdx.x & (q - 1);
 
-__global__ void su_finish_kernel(float* regs, const int* __restrict__ bucket,
-                                 float* __restrict__ rows, int n, int w,
-                                 int has_limit, float limit) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t nn = (size_t)n;
-  const bool lim = has_limit != 0;
-  if (i < n) {
+  // 1. the registers this thread settles, in flight during the scan
+  float reg[kRegisters];
+  if (c < cols) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      float* r = regs + count_row(k) * nn + i;
-      *r = settle(*r, lim, limit);
-    }
+    for (int r = 0; r < kRegisters; ++r)
+      if (r % q == k) reg[r] = regs[r * nn + c0 + c];
   }
-  if (i < w) {
-    int b = bucket[i];
-    if (b < 0) b += n;                  // the reference's gather semantics
-    b = b < 0 ? 0 : (b >= n ? n - 1 : b);
-    const volatile float* src = regs + (size_t)b;
+  if (threadIdx.x == 0) listed = 0;
+  __syncthreads();
+
+  // 2. fold the window chunk by chunk: list the chunk's lanes that fall in
+  //    the tile (one shared-memory int atomic a warp), then each column's q
+  //    threads sum its listed lanes in registers
+  float fold[kRegisters];
+#pragma unroll
+  for (int r = 0; r < kRegisters; ++r)
+    fold[r] = r == kTMin ? INFINITY : (r == kTMax ? -INFINITY : 0.f);
+  int base = 0;
+  for (int lo = 0; lo < w; lo += kListLanes) {
+    // the chunk's loads first, so they are in flight together
+    int b[kScan];
+    unsigned char ok[kScan];
+    float t[kScan], ln[kScan], fw[kScan];
+#pragma unroll
+    for (int s = 0; s < kScan; ++s) {
+      const int i = lo + s * kBlock + threadIdx.x;
+      b[s] = -1;
+      ok[s] = 0;
+      t[s] = ln[s] = fw[s] = 0.f;
+      if (i < w) {
+        b[s] = __ldg(bucket + i);
+        ok[s] = __ldg(valid + i);
+        t[s] = __ldg(ts + i);
+        ln[s] = __ldg(length + i);
+        fw[s] = __ldg(is_fwd + i);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kScan; ++s) {
+      const bool in = ok[s] != 0 && b[s] >= c0 && b[s] < c0 + cols;
+      const unsigned m = __ballot_sync(0xffffffffu, in);
+      if (m) {
+        int at = 0;
+        if (lane == 0) at = atomicAdd(&listed, __popc(m));
+        at = __shfl_sync(0xffffffffu, at, 0) - base;
+        if (in)
+          list[at + __popc(m & ((1u << lane) - 1u))] =
+              lane_entry(b[s] - c0, t[s], ln[s], fw[s]);
+      }
+    }
+    __syncthreads();
+    const int total = listed;
+#pragma unroll 4
+    for (int e = base + k; e < total; e += q) {
+      const float4 v = list[e - base];
+      if (__float_as_int(v.x) != c) continue;
+      const float rv = __fsub_rn(1.0f, v.w);
+      fold[0] += 1.0f;
+      fold[1] += v.z;
+      fold[kTMin] = ordered_min(fold[kTMin], v.y);
+      fold[kTMax] = ordered_max(fold[kTMax], v.y);
+      fold[4] += v.w;
+      fold[5] += rv;
+      fold[6] += __fmul_rn(v.z, v.w);
+      fold[7] += __fmul_rn(v.z, rv);
+    }
+    base = total;
+    __syncthreads();
+  }
+
+  // 3. the column's q partial folds meet by xor shuffles; the column is
+  //    then settled once, by the threads that own it
+  for (int o = q >> 1; o > 0; o >>= 1) {
 #pragma unroll
     for (int r = 0; r < kRegisters; ++r) {
-      float v = src[r * nn];
-      if (r != kTMin && r != kTMax) v = settle(v, lim, limit);
-      rows[(size_t)r * w + i] = v;
+      const float other = __shfl_xor_sync(0xffffffffu, fold[r], o);
+      fold[r] = r == kTMin ? ordered_min(fold[r], other)
+              : r == kTMax ? ordered_max(fold[r], other)
+                           : __fadd_rn(fold[r], other);
+    }
+  }
+  if (c < cols) {
+    const bool lim = has_limit != 0;
+#pragma unroll
+    for (int r = 0; r < kRegisters; ++r) {
+      if (r % q != k) continue;
+      float v;
+      if (r == kTMin) {
+        v = ordered_min(reg[r], fold[r]);
+      } else if (r == kTMax) {
+        v = ordered_max(reg[r], fold[r]);
+      } else {
+        v = __fadd_rn(reg[r], fold[r]);
+        if (lim && v > limit) v = limit;
+      }
+      if (__float_as_int(v) != __float_as_int(reg[r]))
+        regs[r * nn + c0 + c] = v;
+      settled[r * tile + c] = v;
+    }
+  }
+  __syncthreads();
+
+  // 4. the rows of the lanes this tile owns
+  for (int lo = 0; lo < w; lo += kListLanes) {
+    int b[kScan];
+#pragma unroll
+    for (int s = 0; s < kScan; ++s) {
+      const int i = lo + s * kBlock + threadIdx.x;
+      b[s] = i < w ? __ldg(bucket + i) : c0 - 1;
+    }
+#pragma unroll
+    for (int s = 0; s < kScan; ++s) {
+      const int i = lo + s * kBlock + threadIdx.x;
+      int g = b[s];
+      if (g < 0) g += n;                // the reference's gather semantics
+      g = g < 0 ? 0 : (g >= n ? n - 1 : g);
+      if (i >= w || g < c0 || g >= c0 + cols) continue;
+#pragma unroll
+      for (int r = 0; r < kRegisters; ++r)
+        rows[(size_t)r * w + i] = settled[r * tile + g - c0];
     }
   }
 }
@@ -142,27 +248,23 @@ __global__ void su_finish_kernel(float* regs, const int* __restrict__ bucket,
 
 extern "C" {
 
+// tile: bucket columns a block owns (kernels/stream_update.py
+// tile_columns): a power of two from 32 to kBlock.
 int stream_update_launch(void* regs, const void* bucket, const void* ts,
                          const void* length, const void* is_fwd,
                          const void* valid, void* rows, int n, int w,
-                         int has_limit, int limit_bits, int block,
+                         int has_limit, int limit_bits, int tile,
                          void* stream) {
-  if (n <= 0 || w < 0 || block < 1 || block > 1024)
+  if (n <= 0 || w < 0 || tile < 32 || tile > kBlock || (tile & (tile - 1)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
   float limit;
   memcpy(&limit, &limit_bits, sizeof(float));
-  if (w > 0) {
-    su_scatter_kernel<<<(w + block - 1) / block, block, 0, s>>>(
-        (float*)regs, (const int*)bucket, (const float*)ts,
-        (const float*)length, (const float*)is_fwd,
-        (const unsigned char*)valid, n, w);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  const int threads = n > w ? n : w;
-  su_finish_kernel<<<(threads + block - 1) / block, block, 0, s>>>(
-      (float*)regs, (const int*)bucket, (float*)rows, n, w, has_limit, limit);
+  const int grid = (int)(((long long)n + tile - 1) / tile);
+  const size_t smem = sizeof(float) * kRegisters * (size_t)tile;
+  stream_update_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+      (float*)regs, (const int*)bucket, (const float*)ts, (const float*)length,
+      (const float*)is_fwd, (const unsigned char*)valid, (float*)rows, n, w,
+      tile, has_limit, limit);
   return (int)cudaGetLastError();
 }
 

@@ -30,8 +30,7 @@ Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 order than the dense softmax of the plain version: the two agree to
 ``RTOL``/``ATOL``, the reference's own Pallas-against-oracle tolerance.
 ``LAUNCHES`` counts kernel launches: one per call that launches, though a
-call with more than one chunk launches the split kernel and the combine
-(as ``stream_update`` counts its two kernels once).
+call with more than one chunk launches the split kernel and the combine.
 """
 
 from __future__ import annotations

@@ -9,15 +9,20 @@ classical lookup and the standalone bucketize share.
 
 Per row: range match -> decision key per tree -> decision-table read ->
 vote count or payload sum. The TPU wrote each lookup as a one-hot matmul
-because Pallas has no gather; on Hopper one thread owns one row and gathers
-from the tables, staged in shared memory when they fit (``SMEM_BUDGET_BYTES``)
-and read through the read-only cache otherwise.
+because Pallas has no gather; on Hopper both selects gather from the
+tables, staged in shared memory when they fit (``SMEM_BUDGET_BYTES``) and
+read through the read-only cache otherwise. The matmul select (B1) gives a
+block ``tile_n`` rows with several threads a row (``launch_plan``): the
+range match from group summaries, one thread per (row, feature), while the
+tables are copied in behind it, then the row's trees split over its
+threads and their sums met by shuffles. The compare select (B2) gives one
+thread a row.
 
 Bound: memory. Each call must read x and the tables once and write the
 output. At the serving shape (N=2048, F=5, U~40, T=10, Sp~136, Co=2) that is
 about 75 KB — about 22 ns at 3.35 TB/s, far below a launch — so the design
-keeps to one launch per classify. PERF.md holds the measured time (~16 us of
-device time per launch: the per-thread latency chain, not bytes).
+keeps to one launch per classify. PERF.md holds the measured times (device
+time per launch: the chain of dependent steps, not bytes).
 
 The per-feature-loop kernel (B7, ``ensemble_lookup_loop``) replaces the
 reference's ``_loop_kernel`` (:249, reached from
@@ -53,6 +58,8 @@ SELECT_MATMUL_MAX = 8192
 SMEM_BUDGET_BYTES = 232448
 
 MAX_CLASSES = 32        # EL_MAX_CO in the CUDA source: outputs kept in registers
+MATMUL_THREADS = 512    # EL_MM_THREADS: most threads of a matmul-select block
+RM_GROUP = 8            # RM_GROUP in csrc/range_match.cuh: edges a summary covers
 
 LAUNCHES = {"matmul": 0, "compare": 0, "loop": 0}
 
@@ -72,14 +79,51 @@ def resolve_select(select: str, t: int, s_pad: int, cout: int) -> str:
 
 def smem_bytes(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
                cout: int, select: str, staged: bool, tile_n: int) -> int:
-    """Dynamic shared memory of one launch (mirrors ``el_smem_bytes`` in
-    the CUDA source): per-thread row offsets, plus the staged tables when
-    ``staged``."""
-    n_bytes = 4 * f * tile_n
+    """Dynamic shared memory of one launch (mirrors ``mm_layout`` and
+    ``compare_smem_bytes`` in the CUDA source). Matmul select, each part
+    rounded up to 16 bytes: a (min, max) per group of ``RM_GROUP`` edges,
+    the block's rows of x and their feature-table offsets, and when
+    ``staged`` the edges, the feature table's first T columns (rounded up
+    to 4) in rows 4 more than a multiple of 8 apart, and the decision
+    table; compare select:
+    per-thread row offsets, and when ``staged`` the edges and both tables
+    whole."""
+    if select == "compare":
+        if staged:
+            return 4 * (f * tile_n + f * u + f * b_pad * t_pad + t * s_pad)
+        return 4 * f * tile_n
+    words = _up4(2 * f * -(-u // RM_GROUP)) + 2 * _up4(f * tile_n)
     if staged:
-        d = (1 if select == "compare" else cout) * t * s_pad
-        n_bytes += 4 * (f * u + f * b_pad * t_pad + d)
-    return n_bytes
+        fs = _up4(t) + (0 if _up4(t) % 8 else 4)    # feature-table row stride
+        words += _up4(f * u) + f * b_pad * fs + cout * t * s_pad
+    return 4 * words
+
+
+def _up4(words: int) -> int:
+    return -(-words // 4) * 4
+
+
+def _pow2_floor(v: int) -> int:
+    return 1 << (max(v, 1).bit_length() - 1)
+
+
+def launch_plan(n: int, f: int, u: int, b_pad: int, t_pad: int, t: int,
+                s_pad: int, cout: int, select: str, staged: bool,
+                tile_n: int) -> dict:
+    """How one launch covers N rows: ``tile_n`` rows a block, ``blocks``
+    blocks, ``lanes`` threads a row, ``threads`` a block and ``smem`` bytes
+    of dynamic shared memory. The matmul select gives a row as many lanes
+    (a power of two, at most 32) as its trees can use and
+    ``MATMUL_THREADS`` allows; the compare select one thread a row."""
+    if select == "compare":
+        lanes, threads = 1, tile_n
+    else:
+        lanes = min(32, 1 << (max(t, 1) - 1).bit_length(),
+                    _pow2_floor(MATMUL_THREADS // tile_n))
+        threads = min(MATMUL_THREADS, -(-tile_n * lanes // 32) * 32)
+    return {"blocks": -(-n // tile_n), "threads": threads, "lanes": lanes,
+            "smem": smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select,
+                               staged, tile_n)}
 
 
 def fits_smem(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
@@ -140,8 +184,9 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
     f32 decision+aggregation table; dtable_pad (T, Sp) f32 raw decision
     table. select: 'matmul' reads dtable_flat, 'compare' reads dtable_pad,
     'auto' keeps the reference's crossover. Returns per-class votes (vote)
-    or payload sums (Co == 1). tile_n is the CUDA block size; staged=None
-    stages the tables in shared memory when ``fits_smem`` says so.
+    or payload sums (Co == 1). tile_n is the rows a CUDA block covers;
+    staged=None stages the tables in shared memory when ``fits_smem`` says
+    so.
     """
     n, f = x.shape
     u = edges.shape[1]
@@ -166,8 +211,9 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
     b_pad = fb // f
     if staged is None:
         staged = fits_smem(f, u, b_pad, t_pad, t, s_pad, cout, select, tile_n)
-    if smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, staged,
-                  tile_n) > SMEM_BUDGET_BYTES:
+    plan = launch_plan(n, f, u, b_pad, t_pad, t, s_pad, cout, select, staged,
+                       tile_n)
+    if plan["smem"] > SMEM_BUDGET_BYTES:
         raise ValueError("launch needs more shared memory than a block has; "
                          "lower tile_n or pass staged=False")
     out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
@@ -178,7 +224,8 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
                   (x.data_ptr(), edges.data_ptr(), ftable_flat.data_ptr(),
                    table.data_ptr(), out.data_ptr()),
                   (n, f, u, b_pad, t_pad, t, s_pad, cout,
-                   int(select == "compare"), int(staged), tile_n))
+                   int(select == "compare"), int(staged), tile_n,
+                   plan["lanes"], plan["threads"], plan["smem"]))
     LAUNCHES[select] += 1
     return out
 

@@ -129,7 +129,8 @@ def tree_tables_smem_bytes(art: TableArtifact,
                            tiles: TileConfig = None) -> int:
     """Shared memory a staged launch needs for this artifact: the edges, the
     flat feature table and the one decision table the chosen select reads,
-    plus the kernel's per-thread row offsets."""
+    plus what that select's kernel keeps per block
+    (``ensemble_lookup.smem_bytes``)."""
     tiles = tiles or DEFAULT_TILES
     ftable_flat, dtable_flat, _ = _flat_tree_tables(art, art.agg == "vote")
     f, u = art.edges.shape

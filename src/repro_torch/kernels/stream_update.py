@@ -11,11 +11,11 @@ timestamp by scatter-min/max), clamps the count registers at the 2^24 f32
 exactness envelope, and gathers each lane's updated register row (8, W)
 for the classify stage. The TPU realized the scatter as a one-hot MXU
 contraction over bucket tiles, with a rows block carried across a grid that
-runs in order. On the card that would race, so the kernel is two launches
-on one stream: per-lane atomics (float atomicAdd; the sign-aware integer
-min/max for the timestamps), then one pass that clamps every column and
-gathers every lane's row. One call of ``stream_update`` launches both
-kernels and counts once in ``LAUNCHES``.
+runs in order. The card keeps the tiles and drops the carry: one launch, a
+block per tile of bucket columns (``tile_columns``), which scans the whole
+window, lists the lanes of its tile in shared memory and folds each
+column's lanes in registers, settles and clamps its own columns, and writes
+the rows of the lanes whose gather column it owns.
 
 Bound: memory. In place, the function reads the six count rows whole (the
 clamp sees every column), t_min/t_max at the columns the window names and
@@ -39,7 +39,7 @@ from repro_torch.device import on_kernel_path
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import stream_update_ref
 
-BLOCK = 256             # threads per CUDA block
+MIN_TILE, MAX_TILE = 32, 256   # bucket columns a block owns (csrc: kBlock)
 
 N_REGISTERS = 8
 
@@ -48,6 +48,15 @@ LAUNCHES = {"stream_update": 0}
 
 def reset_launches() -> None:
     LAUNCHES["stream_update"] = 0
+
+
+def tile_columns(n: int, sms: int) -> int:
+    """Bucket columns a block owns: N over twice the SM count (two blocks
+    an SM, so a column's lanes are summed by more threads) rounded up to a
+    power of two, kept within [MIN_TILE, MAX_TILE]. The last block's tile
+    may be short."""
+    tile = 1 << (-(-n // max(2 * sms, 1)) - 1).bit_length()
+    return max(MIN_TILE, min(MAX_TILE, tile))
 
 
 def check_window(regs, bucket, ts, length, is_fwd, valid) -> None:
@@ -94,6 +103,7 @@ def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
                    length.data_ptr(), is_fwd.data_ptr(), valid.data_ptr(),
                    rows.data_ptr()),
                   (n, w, int(limit is not None),
-                   _build.float_bits(0.0 if limit is None else limit), BLOCK))
+                   _build.float_bits(0.0 if limit is None else limit),
+                   tile_columns(n, _build.sm_count(regs.device))))
     LAUNCHES["stream_update"] += 1
     return regs, rows

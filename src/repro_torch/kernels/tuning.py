@@ -2,10 +2,10 @@
 shared by autotuners.
 
 Port of ``repro/kernels/tuning.py``. The reference's three tile knobs were
-TPU grid and VMEM chunk sizes; on the card the kernel gives one thread to
-one row, so what remains is:
+TPU grid and VMEM chunk sizes; on the card what remains is:
 
-  tile_n   rows per CUDA block (the block size)
+  tile_n   rows per CUDA block (the compare select's block size; the
+           matmul select gives each row several threads)
   select   decision-select strategy: matmul | compare | auto
   impl     realization: fused (the CUDA kernel) | loop | ref (plain torch)
 

@@ -44,7 +44,7 @@ def _tables(rng, f, u, t, s, c, vote, dev):
 @pytest.mark.parametrize("f,u,t,s,c,vote", [
     (5, 34, 10, 81, 2, True), (3, 9, 7, 16, 4, True), (5, 62, 60, 600, 1, False),
     (8, 20, 33, 300, 32, True)])
-@pytest.mark.parametrize("n", [1, 127, 129, 2048])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 2049, 16000])
 def test_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, select, staged):
     rng = np.random.default_rng(n + f + t)
     tabs = _tables(rng, f, u, t, s, c, vote, cuda)
@@ -53,13 +53,74 @@ def test_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, select, staged):
     if staged and not ek.fits_smem(f, u, b_pad, t_pad, t, s_pad, cout,
                                    select, 128):
         pytest.skip("tables do not fit one block's shared memory")
-    x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(cuda)
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), n)).to(cuda)
     before = ek.LAUNCHES[select]
     out = ek.ensemble_lookup_fused(x, *tabs, select=select, staged=staged)
     torch.cuda.synchronize()
     assert ek.LAUNCHES[select] == before + 1
     assert torch.equal(out, ek.ensemble_lookup_fused_ref(x, *tabs,
                                                          select=select))
+
+
+def _lookup_rows(rng, edges, n):
+    """Rows for the tree lookup: normal values, a quarter of them exactly
+    on an edge, and NaN, +inf and -inf in the first rows."""
+    f = edges.shape[0]
+    x = rng.normal(size=(n, f)).astype(np.float32)
+    finite = np.isfinite(edges).sum(axis=1)
+    col = (rng.random((n, f)) * finite[None, :]).astype(np.int64)
+    on = rng.random((n, f)) < 0.25
+    x[on] = edges[np.arange(f)[None, :], col][on]
+    for i, v in enumerate((np.nan, np.inf, -np.inf)):
+        if i < n:
+            x[i, i % f] = v
+    return x
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("tile_n", [1, 16, 32, 256, 512, 1000])
+def test_matmul_kernel_tiles(cuda, tile_n, staged):
+    """The matmul kernel at block sizes other than the default: one lane a
+    row (512 rows and more, rows looped in rounds), many lanes a row (one
+    and 16 rows), a ragged last block."""
+    rng = np.random.default_rng(tile_n)
+    tabs = _tables(rng, 5, 39, 10, 130, 2, True, cuda)
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), 3001)).to(cuda)
+    before = ek.LAUNCHES["matmul"]
+    out = ek.ensemble_lookup_fused(x, *tabs, select="matmul", staged=staged,
+                                   tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["matmul"] == before + 1
+    assert torch.equal(out, ek.ensemble_lookup_fused_ref(x, *tabs,
+                                                         select="matmul"))
+
+
+def test_matmul_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches B1 or raises: the plain version is never
+    called for it, and bad operands raise instead of falling back."""
+    rng = np.random.default_rng(5)
+    tabs = _tables(rng, 5, 34, 10, 81, 2, True, cuda)
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), 2048)).to(cuda)
+    want = ek.ensemble_lookup_fused_ref(x, *tabs, select="matmul")
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ek, "ensemble_lookup_fused_ref", refuse)
+    before = ek.LAUNCHES["matmul"]
+    got = ek.ensemble_lookup_fused(x, *tabs, select="matmul")
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["matmul"] == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        ek.ensemble_lookup_fused(x.double(), *tabs, select="matmul")
+    with pytest.raises(ValueError):                   # a table on the CPU
+        ek.ensemble_lookup_fused(x, tabs[0], tabs[1], tabs[2].cpu(), tabs[3],
+                                 select="matmul")
+    with pytest.raises(ValueError):                   # not contiguous
+        ek.ensemble_lookup_fused(x.t().contiguous().t(), *tabs,
+                                 select="matmul")
+    assert ek.LAUNCHES["matmul"] == before + 1
 
 
 def test_kernel_rejects_bad_operands(cuda):
@@ -342,14 +403,33 @@ def _stream_case(rng, n, w, dev, *, hot=False, base=0.0, outside=False):
 
 
 @pytest.mark.parametrize("limit", [None, 1000.0, float(1 << 24)])
-@pytest.mark.parametrize("n,w,hot", [(600, 96, False), (8192, 1024, False),
-                                     (8192, 1, False), (257, 4096, True)])
-def test_stream_update_kernel_equals_plain(cuda, n, w, hot, limit):
+@pytest.mark.parametrize("n,w,kind", [
+    (600, 96, "random"), (8192, 1024, "random"), (8192, 1, "random"),
+    (257, 4096, "hot"), (8209, 1024, "random"), (8192, 1024, "invalid"),
+    (8192, 1024, "neg_zero"), (8192, 0, "random"), (300, 5000, "random"),
+    (1 << 20, 4096, "random")])
+def test_stream_update_kernel_equals_plain(cuda, n, w, kind, limit):
+    """B5 against its plain version: N not a multiple of the tile (8209,
+    600, 257, 300), every lane on one bucket (its sums cross 2^24 under the
+    clamp), a window with no valid lane, -0.0 count registers on the columns
+    the window does not name, an empty window, a window longer than N and
+    longer than a block's list."""
     from repro_torch.kernels import stream_update as su
     rng = np.random.default_rng(n + w)
     base = float(1 << 24) - 60000.0 if limit == float(1 << 24) else 0.0
-    regs, cols = _stream_case(rng, n, w, cuda, hot=hot, base=base,
-                              outside=not hot)
+    regs, cols = _stream_case(rng, n, w, cuda, hot=kind == "hot", base=base,
+                              outside=kind != "hot")
+    if kind == "hot":                   # bucket 0 holds a flow from `base`
+        regs[[0, 1, 4, 5, 6, 7], 0] = base + 1.0
+        regs[2, 0], regs[3, 0] = -3.0, -1.0
+    if kind == "invalid":
+        cols = cols[:4] + (torch.zeros_like(cols[4]),)
+    elif kind == "neg_zero":
+        untouched = torch.ones(n, dtype=torch.bool, device=cuda)
+        b = cols[0].long()
+        untouched[b[(b >= 0) & (b < n)]] = False
+        regs[[0, 1, 4, 5, 6, 7]] = torch.where(untouched, -0.0,
+                                               regs[[0, 1, 4, 5, 6, 7]])
     want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=limit)
     before = su.LAUNCHES["stream_update"]
     got_regs, got_rows = su.stream_update(regs, *cols, limit=limit)
@@ -358,6 +438,35 @@ def test_stream_update_kernel_equals_plain(cuda, n, w, hot, limit):
     assert got_regs.data_ptr() == regs.data_ptr()       # updated in place
     assert torch.equal(got_regs, want_regs)
     assert torch.equal(got_rows, want_rows)
+    if kind == "hot" and limit == float(1 << 24):     # crossed mid-window
+        assert (got_regs[[1, 6, 7], 0] == limit).any()
+
+
+def test_stream_update_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches B5 (one launch, in place) or raises: the plain
+    version is never called for it, and bad operands raise instead of
+    falling back."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_update as su
+    rng = np.random.default_rng(6)
+    regs, cols = _stream_case(rng, 8192, 1024, cuda, outside=True)
+    want = su.stream_update_ref(regs, *cols, limit=float(1 << 24))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(su, "stream_update_ref", refuse)
+    before = su.LAUNCHES["stream_update"]
+    got = ops.stream_update(regs, *cols, limit=float(1 << 24))
+    torch.cuda.synchronize()
+    assert su.LAUNCHES["stream_update"] == before + 1
+    assert got[0].data_ptr() == regs.data_ptr()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(TypeError):
+        ops.stream_update(regs, cols[0].long(), *cols[1:])
+    with pytest.raises(ValueError):                   # ts on the CPU
+        ops.stream_update(regs, cols[0], cols[1].cpu(), *cols[2:])
+    assert su.LAUNCHES["stream_update"] == before + 1
 
 
 def test_stream_update_kernel_rejects_bad_operands(cuda):

@@ -2,9 +2,11 @@
 scatter/readout (B5, ``ops.stream_update``) and the eviction fill (B6,
 ``ops.evict_fill``) against the reference's oracle and its Pallas kernels in
 interpret mode, ``ops.pad_window`` against its reference, and a replay of
-the CUDA kernel's algorithm (per-lane atomics in any order, the sign-aware
-integer min/max, the settle pass) in numpy. The kernels themselves run in
-``tests/test_torch_cuda.py`` on a card."""
+the CUDA kernel's algorithm in numpy (a block per tile of bucket columns,
+its lanes listed in any order and folded by each column's threads, their
+partial folds merged by shuffles, the per-tile settle, each lane's row
+written by the tile that owns its gather column). The kernels themselves
+run in ``tests/test_torch_cuda.py`` on a card."""
 
 import numpy as np
 import pytest
@@ -126,44 +128,90 @@ def test_stream_update_edge_cases_match_reference(case):
         assert (t_regs.numpy()[[1, 6, 7]] == OVERFLOW_LIMIT).any()
 
 
-def _replay_kernel(regs, bucket, ts, length, is_fwd, valid, limit, order):
-    """The CUDA kernel's algorithm in numpy, lanes taken in ``order``:
-    float adds into the registers one lane at a time, t_min/t_max through
-    the integer views (int min/max for a clear sign bit, unsigned max/min
-    for a set one), then the settle pass (+0.0, the clamp) and the gather."""
+K_BLOCK = 256      # threads of a B5 block (csrc/stream_update.cu kBlock)
+
+
+def _order_key(v):
+    """The kernel's total order of the floats (order_key): the int bits,
+    the magnitude bits flipped where the sign bit is set."""
+    b = np.asarray(v, np.float32).view(np.int32)
+    return b ^ ((b >> 31) & 0x7FFFFFFF)
+
+
+def _ordered(a, b, pick_min):
+    ka, kb = _order_key(a), _order_key(b)
+    take_b = kb < ka if pick_min else kb > ka
+    return np.where(take_b, b, a).astype(np.float32)
+
+
+def _replay_kernel(regs, bucket, ts, length, is_fwd, valid, limit, order,
+                   sms=132):
+    """The CUDA kernel's algorithm (csrc/stream_update.cu) in numpy, block
+    by block. A block owns ``tile_columns(N, sms)`` columns; it lists the
+    valid lanes whose bucket lies in its tile (in ``order``, as warps append
+    in any order); a column's q = K_BLOCK / tile threads each fold the
+    listed entries e = k, k + q, ... of its column from +0.0 (t_min/t_max
+    from +-inf, in the order of _order_key); the q partial folds meet in
+    xor-shuffle order; the column settles (regs + fold, the clamp; the
+    ordered min/max of register and fold); and the block writes the row of
+    every lane whose gather column it owns. -> (regs, rows, writes), writes
+    counting the times each lane's row was written."""
     regs = regs.copy()
     n = regs.shape[1]
-    ints, uints = regs.view(np.int32), regs.view(np.uint32)
+    w = bucket.shape[0]
     f32 = np.float32
-    for i in order:
-        b = int(bucket[i])
-        if not valid[i] or not 0 <= b < n:
-            continue
-        ln, fw = f32(length[i]), f32(is_fwd[i])
-        rv = f32(f32(1.0) - fw)
-        for r, c in ((0, f32(1.0)), (1, ln), (4, fw), (5, rv),
-                     (6, f32(ln * fw)), (7, f32(ln * rv))):
-            regs[r, b] = f32(regs[r, b] + c)
-        t = f32(ts[i])
-        ti, tu = np.array([t]).view(np.int32)[0], np.array([t]).view(np.uint32)[0]
-        if tu >> 31 == 0:
-            ints[2, b] = min(ints[2, b], ti)
-            ints[3, b] = max(ints[3, b], ti)
-        else:
-            uints[2, b] = max(uints[2, b], tu)
-            uints[3, b] = min(uints[3, b], tu)
-    for r in (0, 1, 4, 5, 6, 7):
-        regs[r] = regs[r] + f32(0.0)
-        if limit is not None:
-            regs[r] = np.minimum(regs[r], f32(limit))
+    tile = tsu.tile_columns(n, sms)
+    q = K_BLOCK // tile
+    rows = np.full((8, w), np.nan, np.float32)
+    writes = np.zeros(w, int)
     g = np.where(bucket < 0, bucket + n, bucket).clip(0, n - 1)
-    return regs, regs[:, g]
+    for c0 in range(0, n, tile):
+        cols = min(tile, n - c0)
+        listed = [i for i in order
+                  if valid[i] and c0 <= bucket[i] < c0 + cols]
+        settled = np.zeros((8, cols), np.float32)
+        for c in range(cols):
+            part = np.zeros((q, 8), np.float32)
+            part[:, 2], part[:, 3] = np.inf, -np.inf
+            for k in range(q):
+                for i in listed[k::q]:
+                    if bucket[i] != c0 + c:
+                        continue
+                    ln, fw = f32(length[i]), f32(is_fwd[i])
+                    rv = f32(f32(1.0) - fw)
+                    for r, v in ((0, f32(1.0)), (1, ln), (4, fw), (5, rv),
+                                 (6, f32(ln * fw)), (7, f32(ln * rv))):
+                        part[k, r] = f32(part[k, r] + v)
+                    part[k, 2] = _ordered(part[k, 2], f32(ts[i]), True)
+                    part[k, 3] = _ordered(part[k, 3], f32(ts[i]), False)
+            o = q // 2
+            while o:
+                other = part[np.arange(q) ^ o]
+                for r in range(8):
+                    part[:, r] = (_ordered(part[:, r], other[:, r], r == 2)
+                                  if r in (2, 3) else part[:, r] + other[:, r])
+                o //= 2
+            for r in range(8):
+                fold, reg = part[r % q, r], regs[r, c0 + c]
+                if r in (2, 3):
+                    v = _ordered(reg, fold, r == 2)
+                else:
+                    v = f32(reg + fold)
+                    if limit is not None and v > f32(limit):
+                        v = f32(limit)
+                regs[r, c0 + c] = v
+                settled[r, c] = v
+        for i in range(w):
+            if c0 <= g[i] < c0 + cols:
+                rows[:, i] = settled[:, g[i] - c0]
+                writes[i] += 1
+    return regs, rows, writes
 
 
 @pytest.mark.parametrize("limit", [None, 1000.0, OVERFLOW_LIMIT])
 def test_kernel_algorithm_is_order_free(limit):
-    """Whatever order the atomics land in, the kernel's algorithm gives the
-    plain version's bits: below the envelope without a clamp, and with the
+    """Whatever order a block lists its lanes in, the kernel's algorithm
+    gives the plain version's bits, and writes each lane's row once: below the envelope without a clamp, and with the
     clamp at 1000 and at 2^24 (sums crossing it)."""
     rng = np.random.default_rng(7)
     n, w = 61, 200
@@ -177,6 +225,60 @@ def test_kernel_algorithm_is_order_free(limit):
         got = _replay_kernel(regs, *cols, limit, order)
         assert_bit_equal(plain[0], got[0])
         assert_bit_equal(plain[1], got[1])
+        assert (got[2] == 1).all()
+
+
+@pytest.mark.parametrize("n,sms,tile", [(8192, 132, 32), (600, 132, 32),
+                                        (1, 132, 32), (1000, 8, 64),
+                                        (8192, 8, 256), (1 << 20, 132, 256),
+                                        (9000, 33, 256)])
+def test_tile_columns(n, sms, tile):
+    """B5's tile: N over twice the SM count, up to a power of two, within
+    [MIN_TILE, MAX_TILE] (what the launcher takes)."""
+    got = tsu.tile_columns(n, sms)
+    assert got == tile
+    assert got & (got - 1) == 0 and tsu.MIN_TILE <= got <= tsu.MAX_TILE
+
+
+@pytest.mark.parametrize("case", ["outside", "ragged_tile", "empty_window",
+                                  "wide_window", "above_limit", "neg_zero",
+                                  "all_invalid"])
+def test_tile_decomposition_equals_plain(case):
+    """Every lane's row is written by exactly one tile, and the tiles'
+    folds and per-tile settle give the plain version's bits: bucket ids
+    -1, -N-5, N and N+9, N not a multiple of the tile, an empty window, a
+    window wider than N, counts above the limit, -0.0 count registers on
+    columns the window does not name, a window with no valid lane."""
+    rng = np.random.default_rng(len(case))
+    n, w, sms, limit = 257, 96, 132, None
+    kw = {"outside": True}
+    if case == "ragged_tile":
+        n, sms = 1000, 8                                # tiles of 64
+    elif case == "empty_window":
+        w, limit = 0, 1000.0
+    elif case == "wide_window":
+        n, w = 40, 300
+    regs = _regs(n, rng, occupied=0.5)
+    cols = _window(w, n, rng, **kw)
+    if case == "above_limit":
+        limit = 1000.0
+        regs[[0, 1, 4, 5, 6, 7], ::3] = 5000.0
+    elif case == "neg_zero":
+        limit = 1000.0
+        named = np.zeros(n, bool)
+        named[cols[0][(cols[0] >= 0) & (cols[0] < n)]] = True
+        regs[np.ix_([0, 1, 4, 5, 6, 7], np.flatnonzero(~named))] = -0.0
+    elif case == "all_invalid":
+        cols = cols[:4] + (np.zeros(w, bool),)
+    if case == "ragged_tile":
+        assert n % tsu.tile_columns(n, sms)
+    plain = tops.stream_update(*_port(regs, cols), limit=limit)
+    got = _replay_kernel(regs, *cols, limit, rng.permutation(w), sms=sms)
+    assert (got[2] == 1).all()
+    assert_bit_equal(plain[0], got[0])
+    assert_bit_equal(plain[1], got[1])
+    if case == "neg_zero":
+        assert not np.signbit(got[0][[0, 1, 4, 5, 6, 7]]).any()
 
 
 @pytest.mark.parametrize("n", [600, 2048])
