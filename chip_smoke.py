@@ -14,10 +14,14 @@ Phases (any failure exits non-zero before the result line is printed):
   3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
-     the select crossover), both selects, tables staged in shared memory
-     and read from global memory; the matmul select (B1) also at N in
-     {1, 127, 128, 129, 2048, 2049, 16000} with Co in {1, 2, 32} (staged
-     and from global memory, rows on the edges and at NaN / +-inf); the
+     the select crossover), both selects, tables staged in shared memory,
+     only the edges and feature table staged, and read from global memory;
+     both selects (B1, B2) also at N in {1, 127, 128, 129, 2048, 2049,
+     16000} with Co in {1, 2, 32} in every staging mode that fits (rows on
+     the edges and at NaN / +-inf), at F=12 (more features than a thread
+     keeps row offsets for in registers), and on tables whose keys run past Sp
+     (T in {7, 70}, Co in {1, 3, 32}; the matmul select adds nothing for
+     such a key, the compare select reads leaf 0) at N in {1, 129, 2049}; the
      streaming register update (B5) at N in {600, 8192, 2^20} x W in
      {1, 96, 1024, 4096} and with every lane on one bucket, then N=8209
      (not a multiple of its tile), an empty window, a window with no valid
@@ -32,9 +36,11 @@ Phases (any failure exits non-zero before the result line is printed):
      edges (5, 63), on a synthetic sorted (8, 255) set and on unsorted
      (5, 255) rows with ragged +inf pads (the count, not a search), N in
      {1, 300, 2048, 16000}, inputs on the edges and at +-inf; the
-     per-feature-loop lookup (B7) at N in {1, 127,
-     2048, 2049} on the RF switch (staged and global tables), the XGB
-     backend, and a hand-built artifact whose keys run past S (vote, sum);
+     per-feature-loop lookup (B7) at N in {1, 127, 128,
+     129, 2048, 2049} on the RF switch (staged and global tables; test rows
+     and rows on the edges), the XGB backend, and hand-built artifacts whose
+     keys run past S (vote with Co 3 and 32, sum; N also 16000 on rows on
+     the edges with NaN / +-inf);
      the int8-KV decode attention (B8) at rtol 2e-4 / atol 2e-5 (the
      reference's own Pallas-against-oracle tolerance; an online softmax
      sums in another order) at the slice's shape (B=8, S=32768, G=8, M=4,
@@ -59,7 +65,7 @@ Phases (any failure exits non-zero before the result line is printed):
         front of the XGB 60x6 backend over all 4000 test rows in batches
         of 2048 (the last one ragged, 1952 rows); then the served
         isolation-forest tables against the plain lookup at N in
-        {1, 300, 1952, 2048}.
+        {1, 300, 1952, 2048}, both selects in every staging mode that fits.
      c. the streaming path: ``StreamingHybridServer.serve_trace`` over the
         repo's streaming configuration (``benchmarks/stream_bench.py``:
         ``synth_trace(n_flows=4000, seed=0)``, N=8192 buckets, windows of
@@ -99,7 +105,9 @@ Phases (any failure exits non-zero before the result line is printed):
      kernel, its plain version, the library call where one computes the
      same function (``torch.searchsorted`` for the range match), and one
      full classify batch per switch family. Each kernel at its main-path
-     shape: the lookups at a 2048-row batch, the range match at the
+     shape: the lookups at a 2048-row batch (B2 at both of its shapes, the
+     RF switch's and the isolation forest's, each a row with its own
+     launches; B1, B2 and B7 also by rows a block), the range match at the
      16000-row fit (and at 2048 rows, kernel and ``searchsorted`` in
      turn), B1 also at the streaming step's shape (its 1024 rows through
      the RF 4x3 switch), B5 and B6 at N=8192, W=1024 (``torch.where`` is
@@ -292,18 +300,25 @@ def main() -> int:
 
     cases = [("rf_switch", tables(rf_art), x_all, "auto", None),
              ("rf_switch", tables(rf_art), x_all, "compare", None),
-             ("rf_switch", tables(rf_art), x_all, "matmul", False),
-             ("rf_switch", tables(rf_art), x_all, "compare", False),
+             ("rf_switch", tables(rf_art), x_all, "matmul", "none"),
+             ("rf_switch", tables(rf_art), x_all, "compare", "none"),
+             ("rf_switch", tables(rf_art), x_all, "compare", "keys"),
              ("xgb_backend", tables(xgb_art), x_all, "auto", None),
              ("xgb_backend", tables(xgb_art), x_all, "matmul", None),
-             ("synthetic_vote", syn_tabs, x_syn, "auto", None)]
+             ("xgb_backend", tables(xgb_art), x_all, "matmul", "none"),
+             ("xgb_backend", tables(xgb_art), x_all, "compare", None),
+             ("xgb_backend", tables(xgb_art), x_all, "compare", "none"),
+             ("synthetic_vote", syn_tabs, x_syn, "auto", None),
+             ("synthetic_vote", syn_tabs, x_syn, "matmul", None),
+             ("synthetic_vote", syn_tabs, x_syn, "compare", "keys"),
+             ("synthetic_vote", syn_tabs, x_syn, "compare", "none")]
     for name, tabs, x_src, select, staged in cases:
         cout, t, s_pad = tabs[2].shape
         f, u = tabs[0].shape
         b_pad, t_pad = tabs[1].shape[0] // f, tabs[1].shape[1]
         resolved = ek.resolve_select(select, t, s_pad, cout)
-        st = (ek.fits_smem(f, u, b_pad, t_pad, t, s_pad, cout, resolved,
-                           128) if staged is None else staged)
+        st = (ek.stage_mode(f, u, b_pad, t_pad, t, s_pad, cout, resolved,
+                            128) if staged is None else staged)
         for n in (1, 300, 2048):
             x = x_src[:n].contiguous()
             check_launch(
@@ -346,10 +361,11 @@ def main() -> int:
         x[0, 0], x[1, 0] = np.inf, -np.inf
         return torch.tensor(x, device=dev)
 
-    # the matmul select's redesign (B1) at the batch sizes around its block
-    # (128 rows) and past the largest batch, Co in {1, 2, 32}, tables staged
-    # and read from global memory, rows on the edges and at NaN / +-inf
-    # (a generator of its own, so the cases after it see the same inputs)
+    # both selects (B1, B2) at the batch sizes around their block (128
+    # rows) and past the largest batch, Co in {1, 2, 32}, in every staging
+    # mode that fits (every table, the edges and feature table only, none),
+    # rows on the edges and at NaN / +-inf (a generator of its own, so the
+    # cases after it see the same inputs)
     m_rng = np.random.default_rng(17)
     for cout in (1, 2, 32):
         m_t, m_s = (60, 600) if cout == 1 else (33, 300)
@@ -367,23 +383,55 @@ def main() -> int:
                   pad_dtable(m_dtable))
         x_m = edge_rows(m_tabs[0], 16000, m_rng)
         x_m[2, 1] = float("nan")
-        b_pad, t_pad = m_tabs[1].shape[0] // 5, m_tabs[1].shape[1]
-        fits = ek.fits_smem(5, 39, b_pad, t_pad, m_t, m_s, cout, "matmul",
-                            128)
-        for staged in ((True, False) if fits else (False,)):
-            for n in (1, 127, 128, 129, 2048, 2049, 16000):
-                x = x_m[:n].contiguous()
-                plan = ek.launch_plan(n, 5, 39, b_pad, t_pad, m_t, m_s, cout,
-                                      "matmul", staged, 128)
-                check_launch(
-                    "matmul", "matmul_select",
-                    lambda: ek.ensemble_lookup_fused(x, *m_tabs,
-                                                     select="matmul",
-                                                     staged=staged),
-                    lambda: ek.ensemble_lookup_fused_ref(x, *m_tabs,
-                                                         select="matmul"),
-                    f"N={n} F=5 U=39 T={m_t} S={m_s} Co={cout} "
-                    f"staged={staged} plan={plan}")
+        for select in ("matmul", "compare"):
+            _check_selects(ek, check_launch, m_tabs, x_m, select,
+                           (1, 127, 128, 129, 2048, 2049, 16000),
+                           f"{select}_select")
+
+    # more features (12) than a thread keeps row offsets for in registers
+    w_edges = np.sort(m_rng.normal(size=(12, 10)), axis=1)
+    w_dtable = torch.tensor(m_rng.integers(0, 3, (9, 4100)), device=dev)
+    w_tabs = (torch.tensor(w_edges, dtype=torch.float32, device=dev),
+              flatten_ftable(
+                  torch.tensor(m_rng.integers(0, 2, (12, 11, 9)),
+                               dtype=torch.int32),
+                  torch.tensor([[2 ** (11 - j) for j in range(12)]] * 9,
+                               dtype=torch.int32)).to(dev),
+              build_dtable_flat(w_dtable, 3, True), pad_dtable(w_dtable))
+    x_w = edge_rows(w_tabs[0], 2049, m_rng)
+    for select in ("matmul", "compare"):
+        _check_selects(ek, check_launch, w_tabs, x_w, select, (1, 129, 2049),
+                       f"{select}_select:F=12")
+
+    # keys at and past Sp (codes in [0, 3), strides 3^j: keys up to 242):
+    # the matmul select adds nothing for such a tree, the compare select
+    # reads leaf 0; vote (Co 3 and 32) and sum, past the select crossover
+    # (T=70) and below it (T=7), both selects, every staging mode
+    for p_t, p_s, cout in ((7, 60, 3), (7, 60, 1), (70, 40, 3), (70, 40, 32),
+                           (70, 200, 1)):
+        p_edges = np.sort(m_rng.normal(size=(5, 34)), axis=1)
+        p_edges[:, -8:] = np.inf
+        p_dtable = torch.tensor(
+            m_rng.integers(0, cout, (p_t, p_s)) if cout > 1
+            else m_rng.integers(-2000, 2000, (p_t, p_s)), device=dev)
+        p_tabs = (torch.tensor(p_edges, dtype=torch.float32, device=dev),
+                  flatten_ftable(
+                      torch.tensor(m_rng.integers(0, 3, (5, 35, p_t)),
+                                   dtype=torch.int32),
+                      torch.tensor([[81, 27, 9, 3, 1]] * p_t,
+                                   dtype=torch.int32)).to(dev),
+                  build_dtable_flat(p_dtable, cout, cout > 1),
+                  pad_dtable(p_dtable))
+        x_p = edge_rows(p_tabs[0], 2049, m_rng)
+        keys = ek.decision_keys(x_p, p_tabs[0], p_tabs[1], p_t)
+        past = int((keys >= p_tabs[2].shape[2]).sum())
+        if not past:
+            raise AssertionError("no key past Sp in the keys-past-Sp case")
+        for select in ("matmul", "compare"):
+            _check_selects(ek, check_launch, p_tabs, x_p, select,
+                           (1, 129, 2049),
+                           f"{select}_select:keys_past_Sp({past} of "
+                           f"{keys.numel()})")
 
     x_cls = edge_rows(cls_tabs[0], 2048)
     cl_cases = [(k, (a.edges, a.vtable_flat, a.vtable.q.shape[2]), x_all)
@@ -536,6 +584,9 @@ def main() -> int:
             lambda: ek.ensemble_lookup_fused_ref(x, *ifo_tabs),
             f"N={n} T={ifo_art.n_trees} Sp={ifo_art.dtable_flat.shape[2]} "
             f"Co=1 select=auto->{ifo_select}")
+    for select in ("compare", "matmul"):
+        _check_selects(ek, check_launch, ifo_tabs, x_all, select,
+                       (1, 300, 1952, 2048), f"iforest_switch:{select}")
     for name, fam in families.items():
         srv = fam["server"]
         plain = HybridServer(srv.artifact, srv.backend_fn,
@@ -588,22 +639,25 @@ def main() -> int:
                + sum(p[k] for p in tuned["paths"].values())
                for k in ("matmul", "compare")}
     kernel_rows = []
-    timing_cases = [("ensemble_lookup:matmul", served, x2048, "matmul",
-                     "src/repro/kernels/ensemble_lookup.py:112"),
-                    ("ensemble_lookup:compare", served, x2048, "compare",
-                     "src/repro/kernels/ensemble_lookup.py:132")]
-    for name, art, x, select, replaces in timing_cases:
-        tabs = tables(art)
-        kernel_rows.append(_time_kernel(torch, ek, name, tabs, x, select,
-                                        replaces, path_ac[select]))
+    # B2 at both of its main-path shapes, each with its own launches: the
+    # RF switch's (the launcher's select=compare run and path d's sweep) and
+    # the isolation forest's (path b)
+    timing_cases = [("ensemble_lookup:matmul", served, "matmul",
+                     "src/repro/kernels/ensemble_lookup.py:112",
+                     path_ac["matmul"]),
+                    ("ensemble_lookup:compare", served, "compare",
+                     "src/repro/kernels/ensemble_lookup.py:132",
+                     path_ac["compare"]),
+                    ("ensemble_lookup:compare[iforest]", ifo_art, "compare",
+                     "src/repro/kernels/ensemble_lookup.py:132",
+                     path_b["compare"])]
+    for name, art, select, replaces, launches in timing_cases:
+        kernel_rows.append(_time_kernel(torch, ek, name, tables(art), x2048,
+                                        select, replaces, launches))
     # the backend's compare shape, reported beside the main-path rows
     extra = [_time_kernel(torch, ek, "ensemble_lookup:compare[xgb_backend]",
                           tables(xgb_art), x2048, "compare",
-                          "src/repro/kernels/ensemble_lookup.py:132", 0),
-             _time_kernel(torch, ek, "ensemble_lookup:compare[iforest]",
-                          tables(ifo_art), x2048, "compare",
-                          "src/repro/kernels/ensemble_lookup.py:132",
-                          path_b["compare"])]
+                          "src/repro/kernels/ensemble_lookup.py:132", 0)]
     cl_rows = {name: _time_classical(torch, ck, f"classical_lookup[{name}]",
                                      families[name]["server"].artifact, x2048,
                                      path_b["classical"])
@@ -623,14 +677,26 @@ def main() -> int:
               f"{row['plain_ms_eager']:.5f} ms (eager); library {lib}; bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
               f"shape {row['shape']}; on {smi}")
-    # B1's rows a block (tile_n; the default is 128): the grid it gives at
-    # the serve batch against the card's SMs
-    for tile_n in (16, 32, 64, 128, 512):
-        ms = _graph_ms(torch, lambda: ek.ensemble_lookup_fused(
-            x2048, *tables(served), select="matmul", tile_n=tile_n))
-        print(f"time ensemble_lookup:matmul tile_n={tile_n} "
-              f"({-(-x2048.shape[0] // tile_n)} blocks): kernel {ms:.5f} ms "
-              f"(graph) on {smi}")
+    # rows a block (tile_n; the default is 128) of B1, B2 at both of its
+    # shapes and B7: the grid each gives at the serve batch against the
+    # card's SMs
+    loop_tabs, loop_kw = _loop_args(torch, served)
+    sweeps = [
+        ("ensemble_lookup:matmul", lambda n: ek.ensemble_lookup_fused(
+            x2048, *tables(served), select="matmul", tile_n=n)),
+        ("ensemble_lookup:compare", lambda n: ek.ensemble_lookup_fused(
+            x2048, *tables(served), select="compare", tile_n=n)),
+        ("ensemble_lookup:compare[iforest]",
+         lambda n: ek.ensemble_lookup_fused(x2048, *tables(ifo_art),
+                                            select="compare", tile_n=n)),
+        ("ensemble_lookup_loop", lambda n: ek.ensemble_lookup_loop(
+            x2048, *loop_tabs, tile_n=n, **loop_kw))]
+    for name, call in sweeps:
+        for tile_n in (16, 32, 64, 128, 512):
+            ms = _graph_ms(torch, lambda: call(tile_n))
+            print(f"time {name} tile_n={tile_n} "
+                  f"({-(-x2048.shape[0] // tile_n)} blocks): kernel "
+                  f"{ms:.5f} ms (graph) on {smi}")
 
     for name, srv in [("rf", server)] + [(k, families[k]["server"])
                                          for k in ("svm", "nb", "kmeans",
@@ -948,6 +1014,30 @@ def _serve_tuned(torch, res, x_all):
                 tuned=tuned, timings=timings)
 
 
+def _check_selects(ek, check_launch, tabs, x_src, select, ns, name):
+    """Phase 3 for B1/B2: ``select`` on ``tabs`` against its plain version
+    in every staging mode whose shared memory fits one block, at each N."""
+    edges, ftable_flat, dtable_flat, _ = tabs
+    f, u = edges.shape
+    b_pad, t_pad = ftable_flat.shape[0] // f, ftable_flat.shape[1]
+    cout, t, s_pad = dtable_flat.shape
+    for staged in ("all", "keys", "none"):
+        if ek.smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, staged,
+                         128) > ek.SMEM_BUDGET_BYTES:
+            continue
+        for n in ns:
+            x = x_src[:n].contiguous()
+            plan = ek.launch_plan(n, f, u, b_pad, t_pad, t, s_pad, cout,
+                                  select, staged, 128)
+            check_launch(
+                select, name,
+                lambda: ek.ensemble_lookup_fused(x, *tabs, select=select,
+                                                 staged=staged),
+                lambda: ek.ensemble_lookup_fused_ref(x, *tabs, select=select),
+                f"N={n} F={f} U={u} T={t} Sp={s_pad} Co={cout} "
+                f"staged={staged} plan={plan}")
+
+
 def _loop_args(torch, art):
     """B7's operands from an artifact: the unflattened tables, the decision
     table as f32 (what ``fused_classify(impl='loop')`` hands the kernel)."""
@@ -960,46 +1050,82 @@ def _loop_args(torch, art):
 def _check_loop_kernel(torch, np, dev, ek, check_launch, rf_art, xgb_art,
                        x_all, rng):
     """Phase 3 for B7: the kernel against its plain version, atol=0, one
-    launch per call, at N in {1, 127, 2048, 2049}: the served RF switch
-    (vote; tables staged and global), the mapped XGB 60x6 backend (sum;
-    global: its 1.4 MB decision table does not fit a block), and a
-    hand-built artifact whose keys run past S (codes in [0, 3), strides
-    3^f: keys up to 242 against S = 200), vote and sum."""
+    launch per call, at N in {1, 127, 128, 129, 2048, 2049} (and 16000 on
+    the hand-built tables): the served RF switch (vote; tables staged and
+    global), the mapped XGB 60x6 backend (sum; global: its 1.4 MB decision
+    table does not fit a block), and hand-built artifacts whose keys run
+    past S (codes in [0, 3), strides 3^f: keys up to 242 against S = 200,
+    vote and sum; up to 26 against S = 20 with Co = 32), on normal rows and
+    on rows on the edges with NaN / +-inf."""
+    def hand_built(gen, f, u, t, s):
+        edges = np.sort(gen.normal(size=(f, u)), axis=1).astype(np.float32)
+        return (torch.tensor(edges, device=dev),
+                torch.tensor(gen.integers(0, 3, (f, u + 1, t)),
+                             dtype=torch.int32, device=dev),
+                torch.tensor([[3 ** j for j in range(f)]] * t,
+                             dtype=torch.int32, device=dev))
+
+    def on_edges(gen, edges, n):
+        e = edges.cpu().numpy()
+        f, u = e.shape
+        x = (gen.normal(size=(n, f)) * 1.2).astype(np.float32)
+        on = gen.random((n, f)) < 0.3
+        pick = e[np.arange(f)[None, :], gen.integers(0, u, (n, f))]
+        x[on] = pick[on]
+        x[0, 0], x[1, 0], x[2, f - 1] = np.nan, np.inf, -np.inf
+        return torch.tensor(x, device=dev)
+
     f, u, t, s = 5, 39, 10, 200
-    hb_edges = np.sort(rng.normal(size=(f, u)), axis=1).astype(np.float32)
-    hb = (torch.tensor(hb_edges, device=dev),
-          torch.tensor(rng.integers(0, 3, (f, u + 1, t)), dtype=torch.int32,
-                       device=dev),
-          torch.tensor([[3 ** j for j in range(f)]] * t, dtype=torch.int32,
-                       device=dev))
+    hb = hand_built(rng, f, u, t, s)
     hb_vote = torch.tensor(rng.integers(0, 3, (t, s)), dtype=torch.float32,
                            device=dev)
     hb_sum = torch.tensor(rng.integers(-30000, 30000, (t, s)),
                           dtype=torch.float32, device=dev)
     x_hb = torch.tensor(rng.normal(size=(2049, f)) * 1.2, dtype=torch.float32,
                         device=dev)
-    cases = [("rf_switch", *_loop_args(torch, rf_art), x_all, None),
-             ("rf_switch", *_loop_args(torch, rf_art), x_all, False),
-             ("xgb_backend", *_loop_args(torch, xgb_art), x_all, None),
+    gen = np.random.default_rng(23)             # the new cases' own inputs
+    x_hb_edges = on_edges(gen, hb[0], 16000)
+    hb32 = hand_built(gen, 3, 9, 33, 20)
+    hb32_vote = torch.tensor(gen.integers(0, 32, (33, 20)),
+                             dtype=torch.float32, device=dev)
+    x_rf_edges = on_edges(gen, rf_art.edges, 2049)
+    ns = (1, 127, 128, 129, 2048, 2049)
+    cases = [("rf_switch", *_loop_args(torch, rf_art), x_all, None, ns),
+             ("rf_switch", *_loop_args(torch, rf_art), x_all, False, ns),
+             ("rf_switch:edges", *_loop_args(torch, rf_art), x_rf_edges,
+              None, ns),
+             ("xgb_backend", *_loop_args(torch, xgb_art), x_all, None, ns),
              ("key_past_S:vote", hb + (hb_vote,),
-              dict(n_classes=3, vote=True), x_hb, None),
+              dict(n_classes=3, vote=True), x_hb, None, ns),
              ("key_past_S:vote", hb + (hb_vote,),
-              dict(n_classes=3, vote=True), x_hb, False),
+              dict(n_classes=3, vote=True), x_hb, False, ns),
              ("key_past_S:sum", hb + (hb_sum,), dict(n_classes=2, vote=False),
-              x_hb, None)]
-    for name, tabs, kw, x_src, staged in cases:
+              x_hb, None, ns),
+             ("key_past_S:vote:edges", hb + (hb_vote,),
+              dict(n_classes=3, vote=True), x_hb_edges, None, ns + (16000,)),
+             ("key_past_S:sum:edges", hb + (hb_sum,),
+              dict(n_classes=2, vote=False), x_hb_edges, False,
+              ns + (16000,)),
+             ("key_past_S:vote32", hb32 + (hb32_vote,),
+              dict(n_classes=32, vote=True), on_edges(gen, hb32[0], 2049),
+              None, ns),
+             ("key_past_S:vote32", hb32 + (hb32_vote,),
+              dict(n_classes=32, vote=True), on_edges(gen, hb32[0], 2049),
+              False, ns)]
+    for name, tabs, kw, x_src, staged, n_list in cases:
         f, u = tabs[0].shape
         t, s = tabs[3].shape
         st = (ek.loop_fits_smem(f, u, t, s, 128) if staged is None
               else staged)
-        for n in (1, 127, 2048, 2049):
+        for n in n_list:
             x = x_src[:n].contiguous()
             check_launch(
                 "loop", f"ensemble_lookup_loop:{name}",
                 lambda: ek.ensemble_lookup_loop(x, *tabs, staged=staged, **kw),
                 lambda: ek.ensemble_lookup_loop_ref(x, *tabs, **kw),
-                f"N={n} F={f} U={u} T={t} S={s} vote={kw['vote']} "
-                f"staged={st} smem={ek.loop_smem_bytes(f, u, t, s, st, 128)}B")
+                f"N={n} F={f} U={u} T={t} S={s} Co={kw['n_classes']} "
+                f"vote={kw['vote']} staged={st} "
+                f"plan={ek.loop_launch_plan(n, f, u, t, s, st, 128)}")
 
 
 STREAM_RUNS = (("no_eviction", {}),
@@ -1494,13 +1620,17 @@ def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
         torch, lambda: ek.ensemble_lookup_fused(x, *tabs, select=select),
         lambda: ek.ensemble_lookup_fused_ref(x, *tabs, select=select))
 
-    # bound: bytes this call must move (x, edges, feature table read once;
-    # the decision-table entries these rows touch; the output written once)
-    # and the compares and adds it must do, at the card's peak rates
+    # bound: bytes this call must move (x, edges and the feature table's
+    # U+1 bins x T trees read once, as B7's unpadded table, not the Bp x Tp
+    # padding; the decision-table entries these rows touch; the output
+    # written once) and the compares and adds it must do, at the card's
+    # peak rates
     keys = ek.decision_keys(x, edges, ftable_flat, t)
-    pairs = torch.unique(keys + torch.arange(t, device=x.device) * s_pad)
+    inside = (keys >= 0) & (keys < s_pad)
+    pairs = torch.unique((keys + torch.arange(t, device=x.device)
+                          * s_pad)[inside])
     d_bytes = 4 * pairs.numel() * (cout if select == "matmul" else 1)
-    n_bytes = 4 * (x.numel() + edges.numel() + ftable_flat.numel()
+    n_bytes = 4 * (x.numel() + edges.numel() + f * (u + 1) * t
                    + n * cout) + d_bytes
     ops = n * f * u + n * t * f + n * t * cout
     bound_ms, bound_by = _bound(n_bytes, ops)
@@ -1511,7 +1641,10 @@ def _time_kernel(torch, ek, name, tabs, x, select, replaces, launches):
             "bound_by": bound_by, "library_ms": None, "ms_eager": ms_eager,
             "plain_ms_eager": plain_ms_eager, "bytes": n_bytes, "ops": ops,
             "shape": {"N": n, "F": f, "U": u, "T": t, "Sp": s_pad,
-                      "Co": cout}}
+                      "Co": cout, "tile_n": 128,
+                      "staged": ek.stage_mode(f, u, ftable_flat.shape[0] // f,
+                                              ftable_flat.shape[1], t, s_pad,
+                                              cout, select, 128)}}
 
 
 # -- the LM side: B8 and Qwen3-4B serving ------------------------------------

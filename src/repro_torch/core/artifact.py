@@ -245,8 +245,12 @@ def build_dtable_flat(dtable, n_classes: int, vote: bool,
 
 
 def pad_dtable(dtable, lane: int = LANE) -> torch.Tensor:
-    """(T, S) -> (T, Sp) f32 for the compare-select strategy. Pad entries
-    can never match (keys < S), so their value is irrelevant."""
+    """(T, S) -> (T, Sp) f32 for the compare-select strategy. A mapped
+    artifact's keys stay below S, so no pad entry is read. The lookups
+    still accept a key at or past S, as the reference does: a key in
+    [S, Sp) reads a pad entry, which is 0, and one outside [0, Sp) reads
+    leaf 0 (``kernels/ensemble_lookup.py``), so every key outside [0, S)
+    reads leaf 0."""
     t, s = dtable.shape
     s_pad = round_up_to_lane(s, lane)
     out = torch.zeros((t, s_pad), dtype=torch.float32, device=dtable.device)

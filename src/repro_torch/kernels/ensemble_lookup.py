@@ -11,12 +11,15 @@ Per row: range match -> decision key per tree -> decision-table read ->
 vote count or payload sum. The TPU wrote each lookup as a one-hot matmul
 because Pallas has no gather; on Hopper both selects gather from the
 tables, staged in shared memory when they fit (``SMEM_BUDGET_BYTES``) and
-read through the read-only cache otherwise. The matmul select (B1) gives a
-block ``tile_n`` rows with several threads a row (``launch_plan``): the
-range match from group summaries, one thread per (row, feature), while the
-tables are copied in behind it, then the row's trees split over its
-threads and their sums met by shuffles. The compare select (B2) gives one
-thread a row.
+read through the read-only cache otherwise (``stage_mode``: every table,
+the edges and feature table only, or none). Both selects are one kernel
+design that differs only in its last step: a block takes ``tile_n`` rows
+with several threads a row (``launch_plan``), the range match from group
+summaries, one thread per (row, feature), while the tables are copied in
+behind it, then the row's trees split over its threads and their votes or
+sums met by shuffles. A key outside [0, Sp) matches no decision entry, as
+in the reference: the matmul select adds nothing for it, the compare
+select reads leaf 0.
 
 Bound: memory. Each call must read x and the tables once and write the
 output. At the serving shape (N=2048, F=5, U~40, T=10, Sp~136, Co=2) that is
@@ -29,7 +32,7 @@ reference's ``_loop_kernel`` (:249, reached from
 ``ensemble_lookup_pallas_loop`` :289), the tile autotune's
 ``impl='loop'`` candidate. Its source is ``csrc/ensemble_loop.cu`` (the same
 range match); it reads the unflattened tables and sums each tree's key in
-f32 feature by feature, as the reference does.
+f32 feature by feature, as the reference does, with the same lanes a row.
 
 Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 the plain version (``ensemble_lookup_fused_ref`` on the same flat tables,
@@ -58,8 +61,12 @@ SELECT_MATMUL_MAX = 8192
 SMEM_BUDGET_BYTES = 232448
 
 MAX_CLASSES = 32        # EL_MAX_CO in the CUDA source: outputs kept in registers
-MATMUL_THREADS = 512    # EL_MM_THREADS: most threads of a matmul-select block
+BLOCK_THREADS = 512     # EL_THREADS / LP_THREADS: most threads of a block
 RM_GROUP = 8            # RM_GROUP in csrc/range_match.cuh: edges a summary covers
+
+# where the tree lookups read their tables from: the CUDA source's
+# STAGE_NONE, STAGE_KEYS (edges and feature table staged) and STAGE_ALL
+STAGE_MODES = {"none": 0, "keys": 1, "all": 2}
 
 LAUNCHES = {"matmul": 0, "compare": 0, "loop": 0}
 
@@ -78,24 +85,23 @@ def resolve_select(select: str, t: int, s_pad: int, cout: int) -> str:
 
 
 def smem_bytes(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
-               cout: int, select: str, staged: bool, tile_n: int) -> int:
-    """Dynamic shared memory of one launch (mirrors ``mm_layout`` and
-    ``compare_smem_bytes`` in the CUDA source). Matmul select, each part
-    rounded up to 16 bytes: a (min, max) per group of ``RM_GROUP`` edges,
-    the block's rows of x and their feature-table offsets, and when
-    ``staged`` the edges, the feature table's first T columns (rounded up
-    to 4) in rows 4 more than a multiple of 8 apart, and the decision
-    table; compare select:
-    per-thread row offsets, and when ``staged`` the edges and both tables
-    whole."""
-    if select == "compare":
-        if staged:
-            return 4 * (f * tile_n + f * u + f * b_pad * t_pad + t * s_pad)
-        return 4 * f * tile_n
+               cout: int, select: str, staged: str, tile_n: int) -> int:
+    """Dynamic shared memory of one launch (mirrors ``el_layout`` in the
+    CUDA source), each part rounded up to 16 bytes: a (min, max) per group
+    of ``RM_GROUP`` edges, the block's rows of x and their feature-table
+    offsets; from ``staged='keys'`` the edges and the feature table's first
+    T columns (rounded up to 4) in rows 4 more than a multiple of 8 apart;
+    at ``staged='all'`` also the decision table the select reads, (Co, T,
+    Sp) for the matmul select and (T, Sp) for the compare select."""
+    if staged not in STAGE_MODES:
+        raise ValueError(f"staged must be one of {sorted(STAGE_MODES)}, "
+                         f"got {staged!r}")
     words = _up4(2 * f * -(-u // RM_GROUP)) + 2 * _up4(f * tile_n)
-    if staged:
+    if staged != "none":
         fs = _up4(t) + (0 if _up4(t) % 8 else 4)    # feature-table row stride
-        words += _up4(f * u) + f * b_pad * fs + cout * t * s_pad
+        words += _up4(f * u) + f * b_pad * fs
+    if staged == "all":
+        words += (1 if select == "compare" else cout) * t * s_pad
     return 4 * words
 
 
@@ -107,32 +113,41 @@ def _pow2_floor(v: int) -> int:
     return 1 << (max(v, 1).bit_length() - 1)
 
 
+def _lanes_threads(t: int, tile_n: int) -> tuple:
+    """(lanes, threads): as many lanes a row (a power of two, at most 32)
+    as its T trees can use and ``BLOCK_THREADS`` allows, in whole warps."""
+    lanes = min(32, 1 << (max(t, 1) - 1).bit_length(),
+                _pow2_floor(BLOCK_THREADS // tile_n))
+    return lanes, min(BLOCK_THREADS, -(-tile_n * lanes // 32) * 32)
+
+
 def launch_plan(n: int, f: int, u: int, b_pad: int, t_pad: int, t: int,
-                s_pad: int, cout: int, select: str, staged: bool,
+                s_pad: int, cout: int, select: str, staged: str,
                 tile_n: int) -> dict:
     """How one launch covers N rows: ``tile_n`` rows a block, ``blocks``
-    blocks, ``lanes`` threads a row, ``threads`` a block and ``smem`` bytes
-    of dynamic shared memory. The matmul select gives a row as many lanes
-    (a power of two, at most 32) as its trees can use and
-    ``MATMUL_THREADS`` allows; the compare select one thread a row."""
-    if select == "compare":
-        lanes, threads = 1, tile_n
-    else:
-        lanes = min(32, 1 << (max(t, 1) - 1).bit_length(),
-                    _pow2_floor(MATMUL_THREADS // tile_n))
-        threads = min(MATMUL_THREADS, -(-tile_n * lanes // 32) * 32)
+    blocks, ``lanes`` threads a row, ``threads`` a block, ``stage`` (the
+    CUDA source's STAGE_NONE, STAGE_KEYS or STAGE_ALL) and ``smem`` bytes
+    of dynamic shared memory. Both selects give a row as many lanes as its
+    trees can use."""
+    lanes, threads = _lanes_threads(t, tile_n)
     return {"blocks": -(-n // tile_n), "threads": threads, "lanes": lanes,
             "smem": smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select,
-                               staged, tile_n)}
+                               staged, tile_n),
+            "stage": STAGE_MODES[staged]}
 
 
-def fits_smem(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
-              cout: int, select: str, tile_n: int) -> bool:
-    """The shared-memory fit check: stage the tables in shared memory when
-    they fit in one block's budget, else read them from global memory. It
-    picks where the kernel reads from; it never routes away from the kernel."""
-    return smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, True,
-                      tile_n) <= SMEM_BUDGET_BYTES
+def stage_mode(f: int, u: int, b_pad: int, t_pad: int, t: int, s_pad: int,
+               cout: int, select: str, tile_n: int) -> str:
+    """The shared-memory fit check: 'all' when every table fits one block's
+    budget, else 'keys' when the edges and the feature table do (the
+    decision entries then come through the read-only cache), else 'none'.
+    It picks where the kernel reads from; it never routes away from the
+    kernel."""
+    for mode in ("all", "keys"):
+        if smem_bytes(f, u, b_pad, t_pad, t, s_pad, cout, select, mode,
+                      tile_n) <= SMEM_BUDGET_BYTES:
+            return mode
+    return "none"
 
 
 def decision_keys(x, edges, ftable_flat, t: int) -> torch.Tensor:
@@ -147,14 +162,20 @@ def decision_keys(x, edges, ftable_flat, t: int) -> torch.Tensor:
 
 def ensemble_lookup_fused_ref(x, edges, ftable_flat, dtable_flat, dtable_pad,
                               *, select: str = "auto") -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on the same flat tables."""
+    """Plain PyTorch version of the kernel, on the same flat tables. A key
+    outside [0, Sp) matches no decision entry, as in the reference's
+    one-hot match: the matmul select adds nothing for that tree, the
+    compare select reads leaf 0."""
     cout, t, s_pad = dtable_flat.shape
     select = resolve_select(select, t, s_pad, cout)
     keys = decision_keys(x, edges, ftable_flat, t)          # (N, T)
+    inside = (keys >= 0) & (keys < s_pad)
+    keys = torch.where(inside, keys, 0)
     t_idx = torch.arange(t, device=x.device)[None, :]
     if select == "matmul":
-        return dtable_flat[:, t_idx, keys].sum(dim=2).t().contiguous()
-    leaf = dtable_pad[t_idx, keys]                          # (N, T)
+        vals = torch.where(inside, dtable_flat[:, t_idx, keys], 0.0)
+        return vals.sum(dim=2).t().contiguous()
+    leaf = torch.where(inside, dtable_pad[t_idx, keys], 0.0)  # (N, T)
     if cout > 1:
         c_iota = torch.arange(cout, dtype=torch.float32, device=x.device)
         return (leaf[:, :, None] == c_iota).to(torch.float32).sum(dim=1)
@@ -176,7 +197,7 @@ def check_operands(x, *tables, dtype=torch.float32) -> None:
 
 def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
                           select: str = "auto", tile_n: int = None,
-                          staged: bool = None) -> torch.Tensor:
+                          staged: str = None) -> torch.Tensor:
     """Fused pipeline on pre-flattened tables -> (N, Co) f32.
 
     x (N, F) f32 (any N); edges (F, U) f32; ftable_flat (F*Bp, Tp) f32
@@ -185,8 +206,8 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
     table. select: 'matmul' reads dtable_flat, 'compare' reads dtable_pad,
     'auto' keeps the reference's crossover. Returns per-class votes (vote)
     or payload sums (Co == 1). tile_n is the rows a CUDA block covers;
-    staged=None stages the tables in shared memory when ``fits_smem`` says
-    so.
+    staged picks which tables live in shared memory ('all', 'keys' or
+    'none'; ``STAGE_MODES``); None takes what ``stage_mode`` says fits.
     """
     n, f = x.shape
     u = edges.shape[1]
@@ -210,12 +231,12 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
                          f"columns, got {cout}")
     b_pad = fb // f
     if staged is None:
-        staged = fits_smem(f, u, b_pad, t_pad, t, s_pad, cout, select, tile_n)
+        staged = stage_mode(f, u, b_pad, t_pad, t, s_pad, cout, select, tile_n)
     plan = launch_plan(n, f, u, b_pad, t_pad, t, s_pad, cout, select, staged,
                        tile_n)
     if plan["smem"] > SMEM_BUDGET_BYTES:
         raise ValueError("launch needs more shared memory than a block has; "
-                         "lower tile_n or pass staged=False")
+                         "lower tile_n or stage fewer tables")
     out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
     if n == 0:
         return out
@@ -224,7 +245,7 @@ def ensemble_lookup_fused(x, edges, ftable_flat, dtable_flat, dtable_pad, *,
                   (x.data_ptr(), edges.data_ptr(), ftable_flat.data_ptr(),
                    table.data_ptr(), out.data_ptr()),
                   (n, f, u, b_pad, t_pad, t, s_pad, cout,
-                   int(select == "compare"), int(staged), tile_n,
+                   int(select == "compare"), plan["stage"], tile_n,
                    plan["lanes"], plan["threads"], plan["smem"]))
     LAUNCHES[select] += 1
     return out
@@ -254,12 +275,24 @@ def ensemble_lookup(x, edges, ftable, strides, dtable, *, n_classes: int,
 def loop_smem_bytes(f: int, u: int, t: int, s: int, staged: bool,
                     tile_n: int) -> int:
     """Dynamic shared memory of one loop-kernel launch (mirrors
-    ``lp_smem_bytes`` in ``csrc/ensemble_loop.cu``): per-thread table
-    offsets, plus the staged edges, codes, strides and decision table."""
-    n_bytes = 4 * f * tile_n
+    ``lp_layout`` in ``csrc/ensemble_loop.cu``), each part rounded up to 16
+    bytes: a (min, max) per group of ``RM_GROUP`` edges, the block's rows
+    of x and their code-row offsets, and when ``staged`` the edges, the
+    codes (F, U+1, T), the strides (T, F) and the decision table (T, S)."""
+    words = _up4(2 * f * -(-u // RM_GROUP)) + 2 * _up4(f * tile_n)
     if staged:
-        n_bytes += 4 * (f * u + f * (u + 1) * t + t * f + t * s)
-    return n_bytes
+        words += (_up4(f * u) + _up4(f * (u + 1) * t) + _up4(t * f)
+                  + t * s)
+    return 4 * words
+
+
+def loop_launch_plan(n: int, f: int, u: int, t: int, s: int, staged: bool,
+                     tile_n: int) -> dict:
+    """How one loop-kernel launch covers N rows: as ``launch_plan`` (the
+    same lanes a row), with ``loop_smem_bytes``."""
+    lanes, threads = _lanes_threads(t, tile_n)
+    return {"blocks": -(-n // tile_n), "threads": threads, "lanes": lanes,
+            "smem": loop_smem_bytes(f, u, t, s, staged, tile_n)}
 
 
 def loop_fits_smem(f: int, u: int, t: int, s: int, tile_n: int) -> bool:
@@ -279,8 +312,9 @@ def ensemble_lookup_loop(x, edges, ftable, strides, dtable, *, n_classes: int,
     dtable (T, S) f32 class ids or quantized payloads. Returns
     (N, n_classes) votes or (N, 1) sums, as ``ensemble_lookup_loop_ref``
     computes them (f32 keys summed feature by feature; a key outside
-    [0, S) reads leaf 0). tile_n is the CUDA block size; staged=None
-    stages the tables in shared memory when ``loop_fits_smem`` says so.
+    [0, S) reads leaf 0). tile_n is the rows a CUDA block covers;
+    staged=None stages the tables in shared memory when ``loop_fits_smem``
+    says so.
     """
     if not on_kernel_path(x):
         return ensemble_lookup_loop_ref(x, edges, ftable, strides, dtable,
@@ -304,7 +338,8 @@ def ensemble_lookup_loop(x, edges, ftable, strides, dtable, *, n_classes: int,
                          f"columns, got {cout}")
     if staged is None:
         staged = loop_fits_smem(f, u, t, s, tile_n)
-    if loop_smem_bytes(f, u, t, s, staged, tile_n) > SMEM_BUDGET_BYTES:
+    plan = loop_launch_plan(n, f, u, t, s, staged, tile_n)
+    if plan["smem"] > SMEM_BUDGET_BYTES:
         raise ValueError("launch needs more shared memory than a block has; "
                          "lower tile_n or pass staged=False")
     out = torch.empty((n, cout), dtype=torch.float32, device=x.device)
@@ -313,6 +348,7 @@ def ensemble_lookup_loop(x, edges, ftable, strides, dtable, *, n_classes: int,
     _build.launch("ensemble_loop", x.device,
                   (x.data_ptr(), edges.data_ptr(), ftable.data_ptr(),
                    strides.data_ptr(), dtable.data_ptr(), out.data_ptr()),
-                  (n, f, u, t, s, cout, int(vote), int(staged), tile_n))
+                  (n, f, u, t, s, cout, int(vote), int(staged), tile_n,
+                   plan["lanes"], plan["threads"], plan["smem"]))
     LAUNCHES["loop"] += 1
     return out

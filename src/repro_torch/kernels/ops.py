@@ -138,7 +138,7 @@ def tree_tables_smem_bytes(art: TableArtifact,
     cout, t, s_pad = dtable_flat.shape
     select = _ek.resolve_select(tiles.select, t, s_pad, cout)
     return _ek.smem_bytes(f, u, fb // f, t_pad, t, s_pad, cout, select,
-                          True, tiles.tile_n)
+                          "all", tiles.tile_n)
 
 
 def _flat_vtable(art: TableArtifact) -> torch.Tensor:
@@ -155,9 +155,12 @@ def classical_tables_smem_bytes(art: TableArtifact) -> int:
 
 
 def fits_smem(art: TableArtifact, tiles: TileConfig = None) -> bool:
-    """True when the kernel that ``tiles`` picks stages this artifact's
-    tables in shared memory; False means it reads them from global memory
-    (same kernel, same result)."""
+    """True when the kernel that ``tiles`` picks stages every table of this
+    artifact in shared memory (same kernel, same result either way). On
+    False the classical and loop kernels read every table from global
+    memory, while the fused tree lookup may still stage the edges and the
+    feature table and read only the decision entries from global memory
+    (``ensemble_lookup.stage_mode`` says which)."""
     tiles = tiles or DEFAULT_TILES
     if art.ftable is None:
         return classical_tables_smem_bytes(art) <= _ek.SMEM_BUDGET_BYTES

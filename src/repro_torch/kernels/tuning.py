@@ -4,8 +4,8 @@ shared by autotuners.
 Port of ``repro/kernels/tuning.py``. The reference's three tile knobs were
 TPU grid and VMEM chunk sizes; on the card what remains is:
 
-  tile_n   rows per CUDA block (the compare select's block size; the
-           matmul select gives each row several threads)
+  tile_n   rows per CUDA block, for both selects and the loop kernel
+           (each gives a row several threads: launch_plan)
   select   decision-select strategy: matmul | compare | auto
   impl     realization: fused (the CUDA kernel) | loop | ref (plain torch)
 

@@ -164,12 +164,16 @@ def test_library_digest_covers_shared_headers(tmp_path, monkeypatch):
 
 
 def test_every_kernel_source_includes_the_shared_range_match():
-    """Every kernel source that range-matches calls the one device function
-    of range_match.cuh; the streaming kernels (stream_update, evict) do no
+    """Every kernel source that range-matches calls a device function of
+    range_match.cuh: the plain count, its grouped form, or (the lane-split
+    tree lookups B1/B2/B7) lane_lookup.cuh's lane_range_match, which runs
+    the grouped form; the streaming kernels (stream_update, evict) do no
     range match and leave the header out."""
     texts = {name: (_build.CSRC_DIR / f"{name}.cu").read_text()
              for name in _build.sources()}
-    users = {name for name, text in texts.items() if "range_match<" in text}
+    calls = ("range_match<", "range_match_grouped<", "lane_range_match<")
+    users = {name for name, text in texts.items()
+             if any(call in text for call in calls)}
     assert users == {"bucketize", "classical_lookup", "ensemble_lookup",
                      "ensemble_loop"}
     for name, text in texts.items():

@@ -22,14 +22,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _tables(rng, f, u, t, s, c, vote, dev):
+def _tables(rng, f, u, t, s, c, vote, dev, past=False):
+    """Flat tables for the fused lookup. Codes in [0, radix) with strides
+    radix^j: radix 2 keeps every key below S; past=True takes radix 3, so
+    keys run to 3^f - 1, past S and Sp."""
     edges = np.sort(rng.normal(size=(f, u)), axis=1).astype(np.float32)
     edges[:, u - u // 4:] = np.inf                    # +inf pads never match
-    radix = 2
+    radix = 3 if past else 2
     ftable = rng.integers(0, radix, (f, u + 1, t)).astype(np.int32)
     strides = np.array([[radix ** (f - 1 - j) for j in range(f)]] * t,
                        np.int32)
-    assert radix ** f <= s
+    assert past or radix ** f <= s
     dtable = (rng.integers(0, c, (t, s)) if vote
               else rng.integers(-2000, 2000, (t, s))).astype(np.int32)
     d = torch.from_numpy(dtable).to(dev)
@@ -39,27 +42,65 @@ def _tables(rng, f, u, t, s, c, vote, dev):
             pad_dtable(d))
 
 
-@pytest.mark.parametrize("staged", [True, False])
-@pytest.mark.parametrize("select", ["matmul", "compare"])
-@pytest.mark.parametrize("f,u,t,s,c,vote", [
-    (5, 34, 10, 81, 2, True), (3, 9, 7, 16, 4, True), (5, 62, 60, 600, 1, False),
-    (8, 20, 33, 300, 32, True)])
-@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 2049, 16000])
-def test_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, select, staged):
-    rng = np.random.default_rng(n + f + t)
-    tabs = _tables(rng, f, u, t, s, c, vote, cuda)
-    cout, _, s_pad = tabs[2].shape
-    b_pad, t_pad = tabs[1].shape[0] // f, tabs[1].shape[1]
-    if staged and not ek.fits_smem(f, u, b_pad, t_pad, t, s_pad, cout,
-                                   select, 128):
-        pytest.skip("tables do not fit one block's shared memory")
-    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), n)).to(cuda)
+def _fits(tabs, select, staged, tile_n=128):
+    f = tabs[0].shape[0]
+    cout, t, s_pad = tabs[2].shape
+    return ek.smem_bytes(f, tabs[0].shape[1], tabs[1].shape[0] // f,
+                         tabs[1].shape[1], t, s_pad, cout, select, staged,
+                         tile_n) <= ek.SMEM_BUDGET_BYTES
+
+
+def _check_fused(x, tabs, select, staged, tile_n=None):
     before = ek.LAUNCHES[select]
-    out = ek.ensemble_lookup_fused(x, *tabs, select=select, staged=staged)
+    out = ek.ensemble_lookup_fused(x, *tabs, select=select, staged=staged,
+                                   tile_n=tile_n)
     torch.cuda.synchronize()
     assert ek.LAUNCHES[select] == before + 1
     assert torch.equal(out, ek.ensemble_lookup_fused_ref(x, *tabs,
                                                          select=select))
+
+
+@pytest.mark.parametrize("staged", ["all", "none", "keys"])
+@pytest.mark.parametrize("select", ["matmul", "compare"])
+@pytest.mark.parametrize("f,u,t,s,c,vote", [
+    (5, 34, 10, 81, 2, True), (3, 9, 7, 16, 4, True), (5, 62, 60, 600, 1, False),
+    (8, 20, 33, 300, 32, True), (5, 40, 40, 300, 3, True),
+    (10, 12, 9, 1100, 3, True)])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 2049, 16000])
+def test_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, select, staged):
+    """Both selects at every staging mode (every table, the edges and
+    feature table only, none), Co 1 to 32, F up to 10 (past the 8 whose
+    offsets a thread keeps in registers), rows on the edges and at NaN /
+    +-inf."""
+    rng = np.random.default_rng(n + f + t)
+    tabs = _tables(rng, f, u, t, s, c, vote, cuda)
+    if not _fits(tabs, select, staged):
+        pytest.skip("tables do not fit one block's shared memory")
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), n)).to(cuda)
+    _check_fused(x, tabs, select, staged)
+
+
+@pytest.mark.parametrize("staged", ["all", "none", "keys"])
+@pytest.mark.parametrize("select", ["matmul", "compare"])
+@pytest.mark.parametrize("f,u,t,s,c,vote", [
+    (4, 10, 7, 60, 3, True), (4, 10, 7, 60, 1, False),
+    (5, 34, 70, 40, 3, True), (5, 34, 70, 40, 32, True)])
+@pytest.mark.parametrize("n", [1, 129, 2049])
+def test_kernel_keys_past_sp_equals_plain(cuda, n, f, u, t, s, c, vote,
+                                          select, staged):
+    """Keys at and past Sp (codes in [0, 3), strides 3^j): the matmul
+    select adds nothing for such a tree, the compare select reads leaf 0,
+    in every staging mode, as the plain version does."""
+    rng = np.random.default_rng(n + t + c)
+    tabs = _tables(rng, f, u, t, s, c, vote, cuda, past=True)
+    if not _fits(tabs, select, staged):
+        pytest.skip("tables do not fit one block's shared memory")
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), n)).to(cuda)
+    if n > 1:                                 # the case is real
+        keys = ek.decision_keys(x, tabs[0], tabs[1], t)
+        assert bool((keys >= tabs[2].shape[2]).any())
+        assert bool((keys < s).any())
+    _check_fused(x, tabs, select, staged)
 
 
 def _lookup_rows(rng, edges, n):
@@ -77,7 +118,7 @@ def _lookup_rows(rng, edges, n):
     return x
 
 
-@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("staged", ["all", "none"])
 @pytest.mark.parametrize("tile_n", [1, 16, 32, 256, 512, 1000])
 def test_matmul_kernel_tiles(cuda, tile_n, staged):
     """The matmul kernel at block sizes other than the default: one lane a
@@ -93,6 +134,73 @@ def test_matmul_kernel_tiles(cuda, tile_n, staged):
     assert ek.LAUNCHES["matmul"] == before + 1
     assert torch.equal(out, ek.ensemble_lookup_fused_ref(x, *tabs,
                                                          select="matmul"))
+
+
+@pytest.mark.parametrize("staged", ["all", "none", "keys"])
+@pytest.mark.parametrize("tile_n", [1, 16, 32, 256, 512, 1000])
+def test_compare_kernel_tiles(cuda, tile_n, staged):
+    """The compare kernel at block sizes other than the default, as the
+    matmul kernel's: one lane a row (512 rows and more, rows looped in
+    rounds), many lanes a row, a ragged last block; votes and sums."""
+    rng = np.random.default_rng(tile_n + 1)
+    for c, vote in ((2, True), (1, False)):
+        tabs = _tables(rng, 5, 39, 10, 130, c, vote, cuda)
+        x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(),
+                                          3001)).to(cuda)
+        _check_fused(x, tabs, "compare", staged, tile_n)
+
+
+def _never_plain(monkeypatch, name):
+    def refuse(*a, **k):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(ek, name, refuse)
+
+
+def test_compare_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches B2 or raises: the plain version is never
+    called for it, and bad operands raise instead of falling back."""
+    rng = np.random.default_rng(6)
+    tabs = _tables(rng, 5, 34, 10, 81, 2, True, cuda)
+    x = torch.from_numpy(_lookup_rows(rng, tabs[0].cpu().numpy(), 2048)).to(cuda)
+    want = ek.ensemble_lookup_fused_ref(x, *tabs, select="compare")
+    _never_plain(monkeypatch, "ensemble_lookup_fused_ref")
+    before = ek.LAUNCHES["compare"]
+    got = ek.ensemble_lookup_fused(x, *tabs, select="compare")
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["compare"] == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        ek.ensemble_lookup_fused(x.double(), *tabs, select="compare")
+    with pytest.raises(ValueError):                   # a table on the CPU
+        ek.ensemble_lookup_fused(x, tabs[0], tabs[1], tabs[2], tabs[3].cpu(),
+                                 select="compare")
+    with pytest.raises(ValueError):                   # no such staging mode
+        ek.ensemble_lookup_fused(x, *tabs, select="compare", staged="half")
+    assert ek.LAUNCHES["compare"] == before + 1
+
+
+def test_loop_cuda_never_takes_plain(cuda, monkeypatch):
+    """A CUDA tensor launches B7 or raises: the plain version is never
+    called for it, and bad operands raise instead of falling back."""
+    rng = np.random.default_rng(7)
+    edges, ftable, strides, dtable = _loop_tables(rng, 5, 39, 10, 136, 2,
+                                                  True, cuda)
+    x = torch.from_numpy(_hard_rows(rng, edges.cpu().numpy(), 2048)).to(cuda)
+    kw = dict(n_classes=2, vote=True)
+    want = ek.ensemble_lookup_loop_ref(x, edges, ftable, strides, dtable, **kw)
+    _never_plain(monkeypatch, "ensemble_lookup_loop_ref")
+    before = ek.LAUNCHES["loop"]
+    got = ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable, **kw)
+    torch.cuda.synchronize()
+    assert ek.LAUNCHES["loop"] == before + 1
+    assert torch.equal(got, want)
+    with pytest.raises(TypeError):
+        ek.ensemble_lookup_loop(x.double(), edges, ftable, strides, dtable,
+                                **kw)
+    with pytest.raises(ValueError):                   # a table on the CPU
+        ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable.cpu(), **kw)
+    assert ek.LAUNCHES["loop"] == before + 1
 
 
 def test_matmul_cuda_never_takes_plain(cuda, monkeypatch):
@@ -603,7 +711,7 @@ def _loop_tables(rng, f, u, t, s, c, vote, dev):
     (5, 39, 10, 136, 2, True), (5, 34, 10, 200, 3, True),
     (3, 9, 33, 20, 32, True), (5, 39, 10, 136, 1, False),
     (5, 62, 60, 5712, 1, False)])
-@pytest.mark.parametrize("n", [1, 127, 2048, 2049])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 2049, 16000])
 def test_loop_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, staged):
     rng = np.random.default_rng(n + f + t + s)
     edges, ftable, strides, dtable = _loop_tables(rng, f, u, t, s, c, vote,
@@ -620,6 +728,28 @@ def test_loop_kernel_equals_plain(cuda, n, f, u, t, s, c, vote, staged):
     assert out.shape == (n, c if vote else 1)
     assert torch.equal(out, ek.ensemble_lookup_loop_ref(
         x, edges, ftable, strides, dtable, **kw))
+
+
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("tile_n", [1, 16, 32, 256, 512, 1000])
+def test_loop_kernel_tiles(cuda, tile_n, staged):
+    """B7 at block sizes other than the default: one lane a row (512 rows
+    and more, rows looped in rounds), many lanes a row, a ragged last
+    block; votes (keys past S among them) and sums."""
+    rng = np.random.default_rng(tile_n + 2)
+    for c, vote in ((3, True), (1, False)):
+        edges, ftable, strides, dtable = _loop_tables(rng, 5, 39, 10, 200, c,
+                                                      vote, cuda)
+        x = torch.from_numpy(_hard_rows(rng, edges.cpu().numpy(),
+                                        3001)).to(cuda)
+        kw = dict(n_classes=c, vote=vote)
+        before = ek.LAUNCHES["loop"]
+        out = ek.ensemble_lookup_loop(x, edges, ftable, strides, dtable,
+                                      staged=staged, tile_n=tile_n, **kw)
+        torch.cuda.synchronize()
+        assert ek.LAUNCHES["loop"] == before + 1
+        assert torch.equal(out, ek.ensemble_lookup_loop_ref(
+            x, edges, ftable, strides, dtable, **kw))
 
 
 def test_loop_kernel_rejects_bad_operands(cuda):

@@ -43,6 +43,28 @@ def port_artifact(jax_art):
     return artifact_from_arrays(artifact_arrays(jax_art))
 
 
+def hand_built(vote: bool, seed: int = 0, t: int = 7, s: int = 60):
+    """A reference tree artifact whose strides let keys run past S: codes
+    in [0, 3) with strides 3^f over F = 4 features reach 3^4 - 1 = 80, so
+    with S = 60 (Sp = 64) some keys fall outside [0, S) and some outside
+    [0, Sp). There the compare selects and the loop kernel read leaf 0 (a
+    vote for class 0) and the matmul select adds nothing."""
+    import jax.numpy as jnp
+    from repro.core.artifact import TableArtifact
+    from repro.core.quantize import quantize_fixed
+    rng = np.random.default_rng(seed)
+    f, u, c = 4, 10, 3
+    dvals = rng.integers(-900, 900, (t, s)).astype(np.float32)
+    return TableArtifact(
+        edges=jnp.asarray(np.sort(rng.normal(size=(f, u)), axis=1)
+                          .astype(np.float32)),
+        agg="vote" if vote else "wsum_sigmoid", n_classes=c if vote else 2,
+        ftable=jnp.asarray(rng.integers(0, 3, (f, u + 1, t)).astype(np.int32)),
+        strides=jnp.asarray(np.array([[1, 3, 9, 27]] * t, np.int32)),
+        dtable_class=jnp.asarray(rng.integers(0, c, (t, s)).astype(np.int32)),
+        dtable_value=quantize_fixed(dvals, 16))
+
+
 def port_ensemble(jax_ens, device="cpu"):
     return ensemble_from_arrays(
         np.array(jax_ens.feat), np.array(jax_ens.thresh),
