@@ -10,7 +10,7 @@ Phases (any failure exits non-zero before the result line is printed):
      the classical lookup (B3) and the standalone range match (B4), all
      sharing ``csrc/range_match.cuh`` with the per-feature-loop tree lookup
      (B7), the streaming register scatter / readout (B5), the eviction
-     fill (B6) and the int8-KV decode attention (B8).
+     fill and timeout sweep (B6) and the int8-KV decode attention (B8).
   3. kernel vs plain, atol=0, N in {1, 300, 2048}, one launch per call:
      the tree lookup at the serving shapes (the anomaly RF switch artifact,
      the mapped 60-tree XGB backend artifact, a synthetic vote artifact past
@@ -26,12 +26,19 @@ Phases (any failure exits non-zero before the result line is printed):
      {1, 96, 1024, 4096} and with every lane on one bucket, then N=8209
      (not a multiple of its tile), an empty window, a window with no valid
      lane and -0.0 count registers on the columns the window does not name,
-     each without a clamp, at 1000 and at 2^24, and the eviction fill (B6);
-     the classical lookup (N also 1952, the
-     ragged last batch) on the SVM, NB and K-Means switch artifacts that
-     phase 4 serves (staged and global) and on a synthetic 5-class SVM
-     table (F=8, 128 bins, M=10) whose staged tables need the >48 KB
-     opt-in; the range match at the main path's own shape (all 16000
+     each without a clamp, at 1000 and at 2^24; the eviction fill (B6's
+     mask-taking entry) at N in {600, 8192, 8209, 2^20}, and B6's timeout
+     sweep (in place, the count from the same launch) against its plain
+     composition at N in {600, 8192, 8209, 2^20} x W in {1, 1024, 4096}:
+     as drawn, no valid lane, a NaN timestamp on a valid lane, columns last
+     seen exactly at the cutoff, every column evicted, none evicted;
+     the classical lookup (B3) on the SVM (M=1), NB and K-Means (M=2)
+     switch artifacts that phase 4 serves (the test rows, N in {1, 300,
+     1952, 2048}, 1952 the ragged last batch) and on a synthetic 5-class
+     SVM table (F=8, 128 bins, M=10) whose staged tables need the >48 KB
+     opt-in, each also on rows on the edges with NaN / +-inf at N in {1,
+     127, 128, 129, 1952, 2048, 2049} in every staging mode that fits
+     ('all', 'edges', 'none'); the range match at the main path's own shape (all 16000
      training rows against the fit's 64-bin quantile edges), on the served
      edges (5, 63), on a synthetic sorted (8, 255) set and on unsorted
      (5, 255) rows with ragged +inf pads (the count, not a search), N in
@@ -72,7 +79,8 @@ Phases (any failure exits non-zero before the result line is printed):
         1024 packets, tau 0.9, capacity 64; RF 4x3 switch and RF 16x6
         backend trained on the trace's batch flow features), twice: without
         eviction, and with ``evict_age=5.0`` under the timeout policy. Each
-        step launches B5 and B1 once (and B6 once in the second run); the
+        step launches B5 and B1 once (and B6's timeout sweep once in the
+        second run, in place, the cutoff and the count included); the
         first run's flow table equals the batch ``flow_features`` on the
         card bit for bit; the second evicts.
      d. ``HybridServer`` at the serve default's width (phase a's artifact
@@ -110,8 +118,11 @@ Phases (any failure exits non-zero before the result line is printed):
      launches; B1, B2 and B7 also by rows a block), the range match at the
      16000-row fit (and at 2048 rows, kernel and ``searchsorted`` in
      turn), B1 also at the streaming step's shape (its 1024 rows through
-     the RF 4x3 switch), B5 and B6 at N=8192, W=1024 (``torch.where`` is
-     B6's library call; B5 has none). One streaming step, eager and under
+     the RF 4x3 switch), B5 and B6 at N=8192, W=1024 (B6's timeout sweep
+     against its plain composition and the parent's 14-launch sweep, its
+     mask-taking entry against ``torch.where``, its library call; B5 has
+     none), and the floor of one graph-replayed launch (a one-element
+     ``fill_``). One streaming step, eager and under
      graph replay, its parts, and packets per second of ``serve_trace``. One
      classify of each phase-d server: eager, fused (per call and its
      graph's replay), loop tiles and autotuned tiles. B8 on the served
@@ -433,25 +444,43 @@ def main() -> int:
                            f"{select}_select:keys_past_Sp({past} of "
                            f"{keys.numel()})")
 
+    # the classical lookup (B3): the served SVM (M=1), NB and K-Means (M=2)
+    # tables and the synthetic 5-class SVM (M=10), on the test rows at the
+    # served batches (1952: the ragged last one) and on rows on the edges
+    # with NaN / +-inf around the 128-row block, in every staging mode that
+    # fits ('all', 'edges', 'none')
+    # (a generator of its own for the rows on the edges, so the cases after
+    # it see the same inputs)
     x_cls = edge_rows(cls_tabs[0], 2048)
+    cl_rng = np.random.default_rng(23)
     cl_cases = [(k, (a.edges, a.vtable_flat, a.vtable.q.shape[2]), x_all)
                 for k, a in classical_arts.items()]
     cl_cases.append(("synthetic_svm5", cls_tabs, x_cls))
     for name, (edges, vflat, m), x_src in cl_cases:
         f, u = edges.shape
         b_pad, m_pad = vflat.shape[0] // f, vflat.shape[1]
-        fits = ck.fits_smem(f, u, b_pad, m_pad)
-        for staged in (None, False):
-            for n in (1, 300, 1952, 2048):       # 1952: the ragged last batch
+        x_edge = edge_rows(edges, 2049, cl_rng)
+        x_edge[2, f - 1] = float("nan")
+        runs = [("test_rows" if name in classical_arts else "edge_rows",
+                 x_src, None, (1, 300, 1952, 2048))]
+        runs += [("edge_rows", x_edge, staged,
+                  (1, 127, 128, 129, 1952, 2048, 2049))
+                 for staged in ("all", "edges", "none")
+                 if ck.smem_bytes(f, u, b_pad, m, staged, 128)
+                 <= ck.SMEM_BUDGET_BYTES]
+        for rows, x_src, staged, ns in runs:
+            st = ck.stage_mode(f, u, b_pad, m, 128) if staged is None \
+                else staged
+            for n in ns:
                 x = x_src[:n].contiguous()
                 check_launch(
                     "classical", f"classical:{name}",
                     lambda: ck.classical_lookup_fused(x, edges, vflat, m,
                                                       staged=staged),
                     lambda: ck.classical_lookup_fused_ref(x, edges, vflat, m),
-                    f"N={n} F={f} U={u} Bp={b_pad} M={m} Mp={m_pad} "
-                    f"staged={fits if staged is None else staged} "
-                    f"smem={ck.smem_bytes(f, u, b_pad, m_pad, True)}B")
+                    f"{rows} N={n} F={f} U={u} Bp={b_pad} M={m} Mp={m_pad} "
+                    f"staged={st} plan="
+                    f"{ck.launch_plan(n, f, u, b_pad, m, st, 128)}")
 
     served_edges = classical_arts["svm"].edges
     syn_b4 = np.sort(rng.normal(size=(8, 255)), axis=1)
@@ -852,7 +881,7 @@ def _check_stream_kernels(torch, dev, su, ev):
                                  f"W={w} limit={limit} {kind}")
     fills = torch.tensor([0.0, 0.0, float("inf"), float("-inf"), 0.0, 0.0,
                           0.0, 0.0], device=dev)
-    for n in (600, 8192, 1 << 20):
+    for n in (600, 8192, 8209, 1 << 20):
         regs, _ = _stream_inputs(torch, dev, n, 1, gen=gen)
         for kind in ("random", "all", "none"):
             mask = {"random": torch.rand(n, generator=gen, device=dev) < 0.3,
@@ -869,6 +898,66 @@ def _check_stream_kernels(torch, dev, su, ev):
             if launched != 1 or not torch.equal(got, want):
                 raise AssertionError(f"evict_fill kernel != plain at N={n} "
                                      f"mask={kind}")
+    # the timeout sweep (B6's second entry, in place) against its plain
+    # composition on a copy of the same register file: the state after it
+    # and the count
+    age = 5.0
+    for n in (600, 8192, 8209, 1 << 20):
+        for w in (1, 1024, 4096):
+            for case in SWEEP_CASES:
+                regs, ts, valid = _sweep_inputs(torch, dev, n, w, case, age,
+                                                gen)
+                want, want_n = ev.timeout_sweep_ref(regs, ts, valid, age,
+                                                    fills)
+                before = ev.LAUNCHES["evict_fill"]
+                got, n_ev = ev.timeout_sweep(regs.clone(), ts, valid, age,
+                                             fills)
+                torch.cuda.synchronize()
+                launched = ev.LAUNCHES["evict_fill"] - before
+                print(f"case evict_fill:timeout_sweep N={n} W={w} {case} "
+                      f"plan={ev.sweep_plan(n, _build.sm_count(dev))} "
+                      f"launches={launched} evicted={int(n_ev)} "
+                      f"plain_evicted={int(want_n)} "
+                      f"max_abs_diff={_max_abs_err(got, want)}")
+                if launched != 1 or not torch.equal(got, want) \
+                        or int(n_ev) != int(want_n):
+                    raise AssertionError(f"timeout sweep kernel != plain at "
+                                         f"N={n} W={w} {case}")
+                if case in ("no_valid", "nan_ts", "none") and int(n_ev):
+                    raise AssertionError(f"the {case} sweep evicted")
+                if case == "all" and int(n_ev) != n:
+                    raise AssertionError("the 'all' sweep left columns")
+
+
+SWEEP_CASES = ("random", "no_valid", "nan_ts", "at_cutoff", "all", "none")
+
+
+def _sweep_inputs(torch, dev, n, w, case, age, gen):
+    """A register file and a window (``_stream_inputs``) for one case of
+    the timeout sweep: as drawn ('random'); no valid lane (cutoff -inf); a
+    NaN timestamp on a valid lane (cutoff NaN); a third of the occupied
+    columns last seen exactly at the cutoff (they survive); every column
+    occupied and the window 100 s later (all evicted); the window 100 s
+    earlier (none evicted)."""
+    from repro_torch.kernels.evict import evict_cutoff
+    regs, cols = _stream_inputs(torch, dev, n, w, gen=gen)
+    ts, valid = cols[1], cols[4]
+    if case == "no_valid":
+        valid = torch.zeros_like(valid)
+    elif case == "nan_ts":
+        valid[0] = True
+        ts[0] = float("nan")
+    elif case == "at_cutoff":
+        valid[0] = True
+        cut = evict_cutoff(ts, valid, age)
+        regs[3, 1::3] = torch.where(regs[0, 1::3] > 0, cut, regs[3, 1::3])
+    elif case == "all":
+        regs[0].clamp_(min=1.0)
+        valid[0] = True
+        ts = ts + 100.0
+    elif case == "none":
+        ts = ts - 100.0
+    return regs, ts, valid
 
 
 def _serve_tuned(torch, res, x_all):
@@ -1239,17 +1328,20 @@ def _serve_stream(torch, np, dev):
 
 def _time_stream(torch, np, stream, smi):
     """Phase 5 for the streaming path: B5 and B6 at the main path's shape
-    (N=8192, W=1024; the register file and eviction mask that serving the
-    trace leaves), one step eager and under graph replay, its parts, and
-    packets per second of serve_trace. -> (B5's and B6's JSON rows, [B1 at
-    the step's own shape: the window's rows through the RF 4x3 switch])."""
+    (N=8192, W=1024; the register file and window that serving the trace
+    leaves at step k): B6's timeout sweep against its plain composition and
+    the parent's 14-launch sweep, B6's mask-taking entry against
+    ``torch.where``, the floor of one graph-replayed launch; one step eager
+    and under graph replay, its parts, and packets per second of
+    serve_trace. -> (B5's and B6's JSON rows, [B1 at the step's own shape:
+    the window's rows through the RF 4x3 switch])."""
     from repro_torch.core.hybrid import combine, dispatch
     from repro_torch.kernels import ensemble_lookup as ek
     from repro_torch.kernels import evict as ev
     from repro_torch.kernels import stream_update as su
     from repro_torch.kernels.ops import fused_classify
-    from repro_torch.netsim.stream import (EVICT_FILLS, OVERFLOW_LIMIT,
-                                           evict_cutoff, iter_windows,
+    from repro_torch.netsim.stream import (OVERFLOW_LIMIT, evict_cutoff,
+                                           evict_fills, iter_windows,
                                            window_update_readout)
     from repro_torch.serving.stream_serving import accumulate_stream_stats
 
@@ -1299,31 +1391,98 @@ def _time_stream(torch, np, stream, smi):
                        "columns_named": named, "words_changed": changed,
                        "limit": OVERFLOW_LIMIT}}]
 
-    # B6: the register file and eviction mask step k's timeout sweep sees
+    # B6, the timeout sweep (the main path's entry): the register file, the
+    # window and the age step k's sweep sees, against its plain composition
+    # and against the parent's sweep (the cutoff, the mask, the fills, the
+    # mask-taking B6 and the sum, 14 launches); and the floor of one
+    # graph-replayed launch
     regs = out_p[0]
-    mask = ((regs[0] > 0) & (regs[3] < evict_cutoff(w.ts, w.valid,
-                                                    server.evict_age)))
-    fills = torch.tensor(EVICT_FILLS, dtype=torch.float32, device=regs.device)
+    age = server.evict_age
+    fills = evict_fills(regs.device)
+    want, want_n = ev.timeout_sweep_ref(regs, w.ts, w.valid, age, fills)
+    got, got_n = ev.timeout_sweep(regs.clone(), w.ts, w.valid, age, fills)
+    sweep_err = _max_abs_err(got, want)
+    n_ev = int(want_n)
+    if not torch.equal(got, want) or int(got_n) != n_ev:
+        raise AssertionError("timeout sweep != plain on step k's state")
+    one = torch.zeros(1, device=regs.device)
+    floor_ms = _graph_ms(torch, lambda: one.fill_(1.0))
+    regs_s = got.clone()        # swept: every later call reads, evicts none
+    src = regs.clone()
+
+    def parent_sweep():
+        fl = torch.zeros(8, dtype=torch.float32, device=regs.device)
+        fl[2:3].fill_(float("inf"))
+        fl[3:4].fill_(float("-inf"))
+        mask = (regs[0] > 0) & (regs[3] < evict_cutoff(w.ts, w.valid, age))
+        return ev.evict_fill(regs, mask, fl), mask.sum(dtype=torch.int32)
+
+    ms, ms_eager, plain_ms, plain_eager, _ = _times(
+        torch, lambda: ev.timeout_sweep(regs_s, w.ts, w.valid, age, fills),
+        lambda: ev.timeout_sweep_ref(regs, w.ts, w.valid, age, fills))
+    parent_ms = _graph_ms(torch, parent_sweep)
+    parent_eager = _median_ms(torch, parent_sweep, inner=20)
+    copy_ms = _graph_ms(torch, lambda: regs_s.copy_(src))
+    copy_sweep_ms = _graph_ms(torch, lambda: (
+        regs_s.copy_(src), ev.timeout_sweep(regs_s, w.ts, w.valid, age,
+                                            fills)))
+    # bound: rows 0 and 3 read, the window (ts 4 B, valid 1 B a lane), the
+    # evicted columns' 8 registers and the count written; a max and a min a
+    # valid lane, two compares a column
+    n_valid = int(w.valid.sum())
+    n_bytes = 2 * n * 4 + wl * 5 + 8 * 4 * n_ev + 4
+    ops = 2 * n_valid + 2 * n
+    bound_ms, bound_by = _bound(n_bytes, ops)
+    print(f"time launch floor (one-element fill_, graph of 50): "
+          f"{floor_ms:.5f} ms on {smi}")
+    print(f"time evict_fill:timeout_sweep N={n} W={wl} evicted={n_ev}: "
+          f"kernel {ms:.5f} ms (graph; on the swept file, no writes), "
+          f"{ms_eager:.5f} ms (eager call); with its evictions, copy + "
+          f"sweep {copy_sweep_ms:.5f} ms less the copy {copy_ms:.5f} ms; "
+          f"plain composition {plain_ms:.5f} ms (graph), {plain_eager:.5f} "
+          f"ms (eager); the parent's sweep (14 launches) {parent_ms:.5f} ms "
+          f"(graph), {parent_eager:.5f} ms (eager); bound {bound_ms:.6f} ms "
+          f"({bound_by}) on {smi}")
+
+    # B6, the mask-taking entry (the TPU kernel's counterpart; approx-LRU
+    # and callers with a mask of their own), on the same register file and
+    # step k's eviction mask
+    mask = ((regs[0] > 0) & (regs[3] < evict_cutoff(w.ts, w.valid, age)))
     out_k = ev.evict_fill(regs, mask, fills)
     out_p = ev.evict_fill_ref(regs, mask, fills)
     lib = torch.where(mask[None], fills[:, None], regs)
     print(f"library torch.where(mask[None], fills[:, None], regs) equals the "
           f"kernel: {torch.equal(lib, out_k)}")
-    ms, ms_eager, plain_ms, plain_eager, library_ms = _times(
+    m_ms, m_eager, m_plain, m_plain_eager, m_lib = _times(
         torch, lambda: ev.evict_fill(regs, mask, fills),
         lambda: ev.evict_fill_ref(regs, mask, fills),
         lambda: torch.where(mask[None], fills[:, None], regs))
-    n_bytes = 2 * 8 * n * 4 + n + 8 * 4
-    bound_ms, bound_by = _bound(n_bytes, 8 * n)
+    m_bytes = 2 * 8 * n * 4 + n + 8 * 4
+    m_bound, m_by = _bound(m_bytes, 8 * n)
+    print(f"time evict_fill:mask N={n}: kernel {m_ms:.5f} ms (graph), "
+          f"{m_eager:.5f} ms (eager); plain {m_plain:.5f} ms; torch.where "
+          f"{m_lib:.5f} ms; bound {m_bound:.6f} ms ({m_by}) on {smi}")
     rows.append({"name": "evict_fill", "route": "cuda",
                  "source": "src/repro_torch/csrc/evict.cu",
                  "replaces": "src/repro/kernels/evict.py:27",
-                 "launches": path_ev, "max_abs_err": _max_abs_err(out_k, out_p),
+                 "launches": path_ev, "max_abs_err": sweep_err,
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms,
+                 "bound_by": bound_by, "library_ms": None,
                  "ms_eager": ms_eager, "plain_ms_eager": plain_eager,
-                 "bytes": n_bytes, "ops": 8 * n,
-                 "shape": {"R": 8, "N": n, "evicted": int(mask.sum())}})
+                 "bytes": n_bytes, "ops": ops,
+                 "entry": "timeout_sweep (in place, one launch a step)",
+                 "launch_floor_ms": floor_ms,
+                 "copy_sweep_ms": copy_sweep_ms, "copy_ms": copy_ms,
+                 "parent_sweep_ms": parent_ms,
+                 "parent_sweep_ms_eager": parent_eager,
+                 "shape": {"R": 8, "N": n, "W": wl, "valid_lanes": n_valid,
+                           "evicted": n_ev, "evict_age": age},
+                 "mask_entry": {
+                     "ms": m_ms, "ms_eager": m_eager, "plain_ms": m_plain,
+                     "plain_ms_eager": m_plain_eager, "library_ms": m_lib,
+                     "bound_ms": m_bound, "bound_by": m_by, "bytes": m_bytes,
+                     "max_abs_err": _max_abs_err(out_k, out_p),
+                     "launches": 0, "evicted": int(mask.sum())}})
 
     # one step, eager and under graph replay, then its parts
     for name, run in runs.items():
@@ -1333,6 +1492,35 @@ def _time_stream(torch, np, stream, smi):
         print(f"time stream_step[{name}](W={wl}, N={n}, RF 4x3 switch, RF "
               f"16x6 backend) median {eager:.4f} ms per eager call, "
               f"{graph:.4f} ms device time (graph replay) on {smi}")
+    # what eviction adds to an eager step, and the sweep's own eager time
+    # against the parent's 14-launch sweep: ten pairs in turns (the host's
+    # clock moves 2x between calls, so a difference of two medians taken
+    # apart says little)
+    no_ev, with_ev = (runs[k]["server"] for k in ("no_eviction",
+                                                   "evict_timeout"))
+    turns = {"no_eviction": [], "evict_timeout": [], "sweep": [],
+             "parent_sweep": []}
+    for _ in range(10):
+        for key, fn in (("no_eviction", lambda: no_ev.step(w)),
+                        ("evict_timeout", lambda: with_ev.step(w)),
+                        ("sweep", lambda: ev.timeout_sweep(
+                            regs_s, w.ts, w.valid, age, fills)),
+                        ("parent_sweep", parent_sweep)):
+            turns[key].append(_median_ms(torch, fn, reps=5, warmup=1,
+                                         inner=5))
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    step_cost = statistics.median(
+        b - a for a, b in zip(turns["no_eviction"], turns["evict_timeout"]))
+    sweep_cut = statistics.median(
+        b - a for a, b in zip(turns["sweep"], turns["parent_sweep"]))
+    print(f"time stream_step eager, ten pairs in turns: no eviction "
+          f"{med['no_eviction']:.4f} ms, evict_timeout "
+          f"{med['evict_timeout']:.4f} ms, eviction adds {step_cost:.4f} ms "
+          f"(median of the pairs' differences); the sweep eager "
+          f"{med['sweep']:.5f} ms against the parent's sweep "
+          f"{med['parent_sweep']:.5f} ms, {sweep_cut:.5f} ms less (median "
+          f"of the pairs' differences) on {smi}")
+    rows[1].update(eviction_eager_ms=step_cost, sweep_eager_cut_ms=sweep_cut)
     srv = runs["evict_timeout"]["server"]
     kw = dict(evict_age=srv.evict_age, saturate=True)
     state = srv.state.clone()       # B5 updates it in place, call by call

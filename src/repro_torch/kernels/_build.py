@@ -135,13 +135,14 @@ def float_bits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
-def launch(name: str, device, pointers, ints) -> None:
-    """Call ``<name>_launch`` of ``csrc/<name>.cu`` on the current stream of
-    ``device``: the device pointers, then the ints, then the stream (the
-    plain C interface every kernel source exports). Raises RuntimeError
-    with CUDA's message when the launch is refused."""
+def launch(name: str, device, pointers, ints, *, entry: str = None) -> None:
+    """Call ``<name>_launch`` (``<name>_<entry>_launch`` when ``entry`` is
+    given: a second kernel of the same source) of ``csrc/<name>.cu`` on the
+    current stream of ``device``: the device pointers, then the ints, then
+    the stream (the plain C interface every kernel source exports). Raises
+    RuntimeError with CUDA's message when the launch is refused."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}_{entry}_launch" if entry else f"{name}_launch")
     msg = getattr(lib, f"{name}_error_string")
     if fn.argtypes is None:        # argtypes last: it marks the binding done
         p, i = ctypes.c_void_p, ctypes.c_int

@@ -2,10 +2,11 @@
 and the scalar epilogues that turn kernel outputs into (pred, confidence).
 
 Port of ``repro/kernels/ops.py``: batch classify, the streaming wrappers
-(``pad_window``, ``evict_fill``, ``stream_update``) and the int8-KV decode
-attention of the LM backend (``decode_attention_int8``). Routing follows
-``device.on_kernel_path``: on a CUDA tensor each wrapper launches the
-hand-written kernel, on a CPU tensor it runs the kernel's plain version.
+(``pad_window``, ``evict_fill``, ``timeout_sweep``, ``stream_update``) and
+the int8-KV decode attention of the LM backend (``decode_attention_int8``).
+Routing follows ``device.on_kernel_path``: on a CUDA tensor each wrapper
+launches the hand-written kernel, on a CPU tensor it runs the kernel's
+plain version.
 ``TileConfig.impl='loop'`` runs the per-feature-loop kernel (B7) on a CUDA
 tensor and its plain version on a CPU tensor. ``TileConfig.impl='ref'`` and
 ``use_kernel=False`` run the plain gather version on either device, and
@@ -86,6 +87,19 @@ def evict_fill(regs, mask, fills, *, use_kernel=None) -> torch.Tensor:
     return _ev.evict_fill(regs, mask, fills)
 
 
+def timeout_sweep(regs, ts, valid, evict_age, fills):
+    """The timeout sweep of one window in one call (B6's second entry).
+
+    regs (8, N) f32 stacked register file; ts (W,) f32 and valid (W,) bool
+    the window's columns; fills (8,) -> (regs, n_evicted i32): every
+    occupied column last seen before ``evict_cutoff(ts, valid, evict_age)``
+    reset to its fills. The CUDA kernel for a CUDA tensor (it updates
+    ``regs`` in place and returns it), the plain composition
+    (``evict.timeout_sweep_ref``) for a CPU tensor (new tensors).
+    """
+    return _ev.timeout_sweep(regs, ts, valid, evict_age, fills)
+
+
 def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):
     """Streaming register scatter + clamp + touched-row gather (B5).
 
@@ -146,24 +160,28 @@ def _flat_vtable(art: TableArtifact) -> torch.Tensor:
             else flatten_vtable(art.vtable.q))
 
 
-def classical_tables_smem_bytes(art: TableArtifact) -> int:
+def classical_tables_smem_bytes(art: TableArtifact,
+                                tiles: TileConfig = None) -> int:
     """Shared memory a staged classical launch needs: the edges and the
-    flat value table."""
+    value table's live columns, plus what the kernel keeps per block
+    (``classical_lookup.smem_bytes``)."""
+    tiles = tiles or DEFAULT_TILES
     f, u = art.edges.shape
-    fb, m_pad = _flat_vtable(art).shape
-    return _ck.smem_bytes(f, u, fb // f, m_pad, True)
+    return _ck.smem_bytes(f, u, _flat_vtable(art).shape[0] // f,
+                          art.vtable.q.shape[2], "all", tiles.tile_n)
 
 
 def fits_smem(art: TableArtifact, tiles: TileConfig = None) -> bool:
     """True when the kernel that ``tiles`` picks stages every table of this
     artifact in shared memory (same kernel, same result either way). On
-    False the classical and loop kernels read every table from global
-    memory, while the fused tree lookup may still stage the edges and the
-    feature table and read only the decision entries from global memory
-    (``ensemble_lookup.stage_mode`` says which)."""
+    False the loop kernel reads every table from global memory, while the
+    fused tree lookup may still stage the edges and the feature table and
+    the classical lookup the edges, reading the rest from global memory
+    (``ensemble_lookup.stage_mode`` and ``classical_lookup.stage_mode`` say
+    which)."""
     tiles = tiles or DEFAULT_TILES
     if art.ftable is None:
-        return classical_tables_smem_bytes(art) <= _ek.SMEM_BUDGET_BYTES
+        return classical_tables_smem_bytes(art, tiles) <= _ek.SMEM_BUDGET_BYTES
     if tiles.impl == "loop":
         f, u = art.edges.shape
         t, s = art.dtable_class.shape

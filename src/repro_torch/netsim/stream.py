@@ -13,7 +13,9 @@ arrive continuously and per-flow registers are updated incrementally:
                      (``kernels.ops.stream_update``, B5) on the card;
                      ``update_flow_table`` is the plain composition
   aging sweep     -> ``age_out`` / ``approx_lru_sweep`` through the masked
-                     reset ``kernels.ops.evict_fill`` (B6)
+                     reset ``kernels.ops.evict_fill`` (B6); on the serving
+                     step, the whole timeout sweep in one call
+                     (``kernels.ops.timeout_sweep``, B6's second entry)
   register readout-> ``flow_table_readout``: the same 8 feature columns as
                      the one-shot ``features.flow_features``
   recirculation   -> ``iter_windows``: fixed-size packet windows, the final
@@ -44,7 +46,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import evict_fill, stream_update
+from repro_torch.kernels.evict import evict_cutoff
+from repro_torch.kernels.ops import evict_fill, stream_update, timeout_sweep
 from repro_torch.netsim.features import (fnv1a_hash, rebase_ts_np,
                                          table_from_registers)
 
@@ -187,13 +190,26 @@ def update_flow_table(state: FlowTableState,
     return FlowTableState(regs)
 
 
+_FILLS: dict = {}
+
+
 def evict_fills(device) -> torch.Tensor:
-    """``EVICT_FILLS`` as an (8,) f32 tensor, written on the device itself:
-    no host-to-device copy, so a serving step stays free of host syncs and
-    can be captured in a CUDA graph."""
-    fills = torch.zeros(len(EVICT_FILLS), dtype=torch.float32, device=device)
-    fills[2:3].fill_(float("inf"))
-    fills[3:4].fill_(float("-inf"))
+    """``EVICT_FILLS`` as an (8,) f32 tensor on ``device``, built once per
+    device and shared (read it, never write it). It is written on the
+    device itself, with no host-to-device copy, so a serving step stays
+    free of host syncs; one built while a CUDA graph is being captured
+    belongs to that graph and is not kept."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    fills = _FILLS.get(dev)
+    if fills is None:
+        fills = torch.zeros(len(EVICT_FILLS), dtype=torch.float32, device=dev)
+        fills[2:3].fill_(float("inf"))
+        fills[3:4].fill_(float("-inf"))
+        if not (dev.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            _FILLS[dev] = fills
     return fills
 
 
@@ -299,15 +315,6 @@ def approx_lru_sweep(state: FlowTableState, w: PacketWindow,
     return _reset(state, evict, use_kernel)
 
 
-def evict_cutoff(ts, valid, evict_age: float):
-    """Aging cutoff for one window: ``min(now - evict_age, window_min)``,
-    no later than every timestamp in the window, so a flow seen in this
-    window always survives it."""
-    now = torch.where(valid, ts, -float("inf")).max()
-    w_min = torch.where(valid, ts, float("inf")).min()
-    return torch.minimum(now - float(np.float32(evict_age)), w_min)
-
-
 def lifecycle_sweep(state: FlowTableState, w: PacketWindow,
                     evict_age: Optional[float], saturate: bool,
                     prev: Optional[FlowTableState] = None, *,
@@ -387,9 +394,13 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
     n_overflow)``. By default the scatter-update, the 2^24 clamp and the
     touched-row gather are one ``kernels.ops.stream_update`` call (the B5
     kernel on the card, which updates ``state.regs`` in place: keep only the
-    returned state), and the sweep resets through B6. use_kernel=False runs
-    the plain composition (``update_flow_table``, the sweep, the gather) on
-    either device. The two are bit-identical because
+    returned state). The timeout sweep is one ``kernels.ops.timeout_sweep``
+    call: on the card B6's sweep entry, which finds the cutoff, resets the
+    evicted columns and counts them in one launch, in place on the register
+    file B5 has just updated (again: keep only the returned state). The
+    approx-LRU sweep resets through B6's mask-taking entry, out of place.
+    use_kernel=False runs the plain composition (``update_flow_table``, the
+    sweep, the gather) on either device. The two are bit-identical because
 
       * eviction cannot touch this window's rows (the cutoff is clamped to
         the window minimum, the approx-LRU sweep protects flows seen this
@@ -416,10 +427,18 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
     regs, rows = stream_update(state.regs, w.bucket, w.ts, w.length,
                                w.is_fwd, w.valid,
                                limit=OVERFLOW_LIMIT if saturate else None)
-    state, n_ev, n_ov = lifecycle_sweep(FlowTableState(regs), w, evict_age,
-                                        False, **kw)
+    if evict_age is not None and evict_policy == "timeout":
+        # the register file is this step's own: the sweep works in place
+        regs, n_ev = timeout_sweep(regs, w.ts, w.valid, evict_age,
+                                   evict_fills(regs.device))
+        state, n_ov = FlowTableState(regs), None
+    else:
+        state, n_ev, n_ov = lifecycle_sweep(FlowTableState(regs), w,
+                                            evict_age, False, **kw)
     if saturate:
         n_ov = _newly_saturated(before, rows, bucket, state.n_buckets)
+    elif n_ov is None:
+        n_ov = torch.zeros((), dtype=torch.int32, device=regs.device)
     return state, table_from_registers(*rows), n_ev, n_ov
 
 

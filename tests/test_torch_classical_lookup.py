@@ -127,14 +127,27 @@ def test_classical_lookup_edge_values_exact():
 
 
 def test_classical_smem_fit_check():
-    # the served shape (F=5, 64 bins, M=2): ~11 KB staged
-    assert tck.smem_bytes(5, 63, 64, 8, True) == 4 * (5 * 63 + 5 * 64 * 8)
-    assert tck.smem_bytes(5, 63, 64, 8, False) == 0
-    assert tck.fits_smem(5, 63, 64, 8)
-    # a 5-class SVM at 128 bins: past 48 KB, so staged through the opt-in
-    opt_in = tck.smem_bytes(8, 127, 128, 16, True)
+    """smem_bytes mirrors cl_layout: the lane head (a (min, max) per group
+    of 8 edges, the block's rows of x and their offsets), the edges, and
+    the value table's M live columns, packed."""
+    head = 4 * (80 + 2 * 640)            # F=5, U=63 (8 groups), 128 rows
+    # the served shape (F=5, 64 bins, M=2 of Mp=8): ~9 KB staged
+    assert tck.smem_bytes(5, 63, 64, 2, "all", 128) == \
+        head + 4 * (316 + 5 * 64 * 2)
+    assert tck.smem_bytes(5, 63, 64, 2, "edges", 128) == head + 4 * 316
+    assert tck.smem_bytes(5, 63, 64, 2, "none", 128) == head
+    assert tck.fits_smem(5, 63, 64, 2)
+    assert tck.stage_mode(5, 63, 64, 2, 128) == "all"
+    # a 5-class SVM at 128 bins (M=10): past 48 KB, so staged through the
+    # opt-in
+    opt_in = tck.smem_bytes(8, 127, 128, 10, "all", 128)
     assert 48 * 1024 < opt_in <= tck.SMEM_BUDGET_BYTES
+    # a table past the budget: the edges alone are staged
     assert not tck.fits_smem(64, 255, 256, 16)
+    assert tck.stage_mode(64, 255, 256, 16, 128) == "edges"
+    assert tck.stage_mode(2048, 255, 256, 1, 128) == "none"
+    with pytest.raises(ValueError):
+        tck.smem_bytes(5, 63, 64, 2, "keys", 128)
 
 
 def test_wrappers_route_by_device():
@@ -245,3 +258,58 @@ def test_group_summary_count_equals_plain(case):
     want = tref.bucketize_ref(torch.from_numpy(x),
                               torch.from_numpy(edges)).numpy()
     assert_bit_equal(want, _group_count(x, edges))
+
+
+# -- B3's plan on the card, modelled in numpy ------------------------------------
+
+def _classical_model(x, edges, flat, m, tile_n=128):
+    """B3 (csrc/classical_lookup.cu classical_lookup_kernel) in numpy, in the
+    kernel's own f32 order: the grouped range match, the value table's M
+    live columns staged packed (M words a row) with each (row, feature)'s
+    offset into them, a row's features split over ``lanes`` threads
+    (feature f to lane f % lanes, each lane adding its features in order),
+    and the lanes met by xor shuffles, column c read from lane c % lanes."""
+    from test_torch_ensemble_lookup import _grouped_count, _merge_lanes
+    n, f = x.shape
+    fb = flat.shape[0]
+    b_pad = fb // f
+    lanes = tck.launch_plan(n, f, edges.shape[1], b_pad, m, "all",
+                            tile_n)["lanes"]
+    staged = np.ascontiguousarray(flat[:, :m]).reshape(-1)
+    off = (np.arange(f)[None] * b_pad + _grouped_count(x, edges)) * m
+    acc = np.zeros((n, lanes, m), np.float32)
+    for j in range(f):
+        acc[:, j % lanes] += staged[off[:, j, None] + np.arange(m)[None]]
+    return _merge_lanes(acc, m)
+
+
+@pytest.mark.parametrize("m", [1, 2, 10])
+@pytest.mark.parametrize("f", [1, 5, 8, 12])
+def test_classical_kernel_plan_equals_plain_and_reference(f, m):
+    """The card's plan for B3 gives the plain version's bits and the
+    reference's interpret-mode kernel's, on ragged +inf-padded edges with
+    rows on the edges, NaN and +-inf: the lanes a row takes (F=1 one lane,
+    F=12 more features than lanes at 128 rows a block), the grouped range
+    match, the packed live columns (M of Mp=8 or 16) and the shuffles."""
+    rng = np.random.default_rng(10 * f + m)
+    n, u = 256, 63
+    edges = _edges(rng, f, u)
+    x = rng.normal(0, 12, (n, f)).astype(np.float32)
+    on = rng.random((n, f)) < 0.3
+    pick = edges[np.arange(f)[None], rng.integers(0, u, (n, f))]
+    x[on & np.isfinite(pick)] = pick[on & np.isfinite(pick)]
+    x[0, 0], x[1, 0], x[2, f - 1] = np.nan, np.inf, -np.inf
+    q = rng.integers(-32767, 32768, (f, u + 1, m)).astype(np.float32)
+    flat = tart.flatten_vtable(torch.from_numpy(q))
+    plain = tck.classical_lookup_fused_ref(torch.from_numpy(x),
+                                           torch.from_numpy(edges), flat, m)
+    jflat = jart.flatten_vtable(jnp.asarray(q), 8)
+    jout = np.asarray(jck.classical_lookup_fused(
+        jnp.asarray(x), jnp.asarray(edges), jflat, interpret=True,
+        tile_n=128))[:, :m]
+    model = _classical_model(x, edges, flat.numpy(), m)
+    assert_bit_equal(jout, plain)
+    assert_bit_equal(plain, model)
+    plan = tck.launch_plan(n, f, u, flat.shape[0] // f, m, "all", 128)
+    assert plan["lanes"] == min(32, 1 << (f - 1).bit_length(), 4)
+    assert plan["threads"] <= 512 and plan["blocks"] == 2

@@ -389,11 +389,15 @@ def test_bucketize_cuda_never_takes_plain(cuda, monkeypatch):
 
 # -- B3: the classical lookup ---------------------------------------------------
 
-@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("staged", ["all", "edges", "none"])
 @pytest.mark.parametrize("f,u,m", [(5, 63, 1), (5, 63, 2), (8, 127, 10),
-                                   (3, 20, 17)])
-@pytest.mark.parametrize("n", [1, 127, 129, 2048])
+                                   (3, 20, 17), (12, 30, 2), (1, 7, 8)])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 2048, 2049])
 def test_classical_kernel_equals_plain(cuda, n, f, u, m, staged):
+    """B3 in every staging mode: M of 1, 2 (a quarter of Mp=8 staged), 10
+    and 17 (past one chunk of 16 columns), 8 (the whole table), F from 1 (one
+    lane a row) to 12 (more features than lanes), rows on the edges and at
+    NaN / +-inf, N around the 128-row block."""
     from repro_torch.core.artifact import flatten_vtable
     from repro_torch.kernels import classical_lookup as ck
     rng = np.random.default_rng(n + f + u + m)
@@ -408,6 +412,25 @@ def test_classical_kernel_equals_plain(cuda, n, f, u, m, staged):
     assert ck.LAUNCHES["classical"] == before + 1
     assert out.shape == (n, m)
     assert torch.equal(out, ck.classical_lookup_fused_ref(x, e, flat, m))
+
+
+@pytest.mark.parametrize("staged", ["all", "none"])
+@pytest.mark.parametrize("tile_n", [1, 16, 64, 512, 1000])
+def test_classical_kernel_tiles(cuda, tile_n, staged):
+    """B3 at other rows a block (the autotune's tile_n): fewer lanes a row
+    when the rows fill the block's threads, a block looping over its rows
+    when they outnumber its threads."""
+    from repro_torch.core.artifact import flatten_vtable
+    from repro_torch.kernels import classical_lookup as ck
+    rng = np.random.default_rng(tile_n)
+    edges = _ragged_edges(rng, 5, 63)
+    flat = flatten_vtable(torch.from_numpy(
+        rng.integers(-32767, 32768, (5, 64, 2)).astype(np.int32))).to(cuda)
+    e = torch.from_numpy(edges).to(cuda)
+    x = torch.from_numpy(_hard_rows(rng, edges, 2049)).to(cuda)
+    out = ck.classical_lookup_fused(x, e, flat, 2, staged=staged,
+                                    tile_n=tile_n)
+    assert torch.equal(out, ck.classical_lookup_fused_ref(x, e, flat, 2))
 
 
 def test_b3_b4_reject_bad_operands(cuda):
@@ -426,6 +449,10 @@ def test_b3_b4_reject_bad_operands(cuda):
         ck.classical_lookup_fused(x, e, flat, 9)          # m > Mp
     with pytest.raises(ValueError):
         ck.classical_lookup_fused(x, e.cpu(), flat, 2)
+    with pytest.raises(ValueError):
+        ck.classical_lookup_fused(x, e, flat, 2, staged="keys")
+    with pytest.raises(ValueError):                   # x not contiguous
+        ck.classical_lookup_fused(x.t().contiguous().t(), e, flat, 2)
     assert ck.classical_lookup_fused(x[:0], e, flat, 2).shape == (0, 2)
     assert bk.bucketize(x[:0], e).shape == (0, 3)
 
@@ -599,13 +626,19 @@ def test_stream_update_kernel_rejects_bad_operands(cuda):
 
 # -- B6: the eviction fill ---------------------------------------------------------
 
-@pytest.mark.parametrize("mask_kind", ["random", "all", "none"])
-@pytest.mark.parametrize("n", [1, 600, 8192, 1 << 20])
+@pytest.mark.parametrize("mask_kind", ["random", "all", "none", "offset"])
+@pytest.mark.parametrize("n", [1, 600, 8192, 8209, 1 << 20])
 def test_evict_fill_kernel_equals_plain(cuda, n, mask_kind):
+    """The mask-taking entry: 16-byte rows where N % 4 == 0, 4-byte
+    accesses at N=8209 and on a register file that starts one float past
+    an aligned address ('offset')."""
     from repro_torch.kernels import evict as ev
     g = torch.Generator(device=cuda)
     g.manual_seed(n)
     regs = torch.randn((8, n), generator=g, device=cuda)
+    if mask_kind == "offset":
+        regs = torch.cat([regs.new_zeros(1), regs.reshape(-1)])[1:].view(8, n)
+        mask_kind = "random"
     mask = {"random": torch.rand(n, generator=g, device=cuda) < 0.3,
             "all": torch.ones(n, dtype=torch.bool, device=cuda),
             "none": torch.zeros(n, dtype=torch.bool, device=cuda)}[mask_kind]
@@ -633,6 +666,121 @@ def test_evict_fill_kernel_rejects_bad_operands(cuda):
         ev.evict_fill(regs, mask, fills.cpu())
     with pytest.raises(ValueError):
         ev.evict_fill(torch.zeros((8, 64), device=cuda)[:, ::2], mask, fills)
+
+
+def _sweep_case(dev, n, w, case):
+    """A register file (half the columns occupied, last seen in [-20, 15],
+    one NaN t_max) and a window (timestamps in [10, 12], a fifth of the
+    lanes invalid) for one timeout-sweep case."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(n + w)
+    u = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    occ = (u(n) < 0.5) | (case == "all")
+    regs = torch.zeros((8, n), device=dev)
+    for r in (0, 1, 4, 5, 6, 7):
+        regs[r] = torch.where(occ, torch.floor(u(n) * 50.0) + 1.0, 0.0)
+    t0 = u(n) * 30.0 - 20.0
+    regs[2] = torch.where(occ, t0, float("inf"))
+    regs[3] = torch.where(occ, t0 + 5.0 * u(n), float("-inf"))
+    if case != "all":
+        regs[3, 0] = float("nan")
+    ts = 10.0 + 2.0 * u(w)
+    valid = u(w) > 0.2
+    valid[0] = True
+    if case == "no_valid":
+        valid[:] = False
+    elif case == "nan_ts":
+        ts[0] = float("nan")
+    elif case == "all":
+        ts += 90.0
+    elif case == "none":
+        ts -= 60.0
+    elif case == "at_cutoff":
+        from repro_torch.kernels.evict import evict_cutoff
+        cut = evict_cutoff(ts, valid, 5.0)
+        regs[3, 1::3] = torch.where(regs[0, 1::3] > 0, cut, regs[3, 1::3])
+    return regs, ts, valid
+
+
+@pytest.mark.parametrize("case", ["random", "no_valid", "nan_ts",
+                                  "at_cutoff", "all", "none"])
+@pytest.mark.parametrize("n,w", [(1, 1), (600, 96), (8192, 1024),
+                                 (8209, 1024), (8192, 4096)])
+def test_timeout_sweep_kernel_equals_plain(cuda, n, w, case):
+    """The timeout sweep in one launch against its plain composition on a
+    copy of the same register file: updated in place (the same tensor comes
+    back), the count an i32 scalar equal to the plain count; a second sweep
+    of the same window evicts nothing (the launch's count starts from 0)."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.netsim.stream import evict_fills
+    regs, ts, valid = _sweep_case(cuda, n, w, case)
+    fills = evict_fills(cuda)
+    want, want_n = ev.timeout_sweep_ref(regs, ts, valid, 5.0, fills)
+    before = ev.LAUNCHES["evict_fill"]
+    got, n_ev = ev.timeout_sweep(regs, ts, valid, 5.0, fills)
+    torch.cuda.synchronize()
+    assert ev.LAUNCHES["evict_fill"] == before + 1
+    assert got is regs
+    assert n_ev.dtype == torch.int32 and n_ev.shape == ()
+    assert _same_bits(got, want) and int(n_ev) == int(want_n)
+    if case in ("no_valid", "nan_ts", "none"):
+        assert int(n_ev) == 0
+    elif case == "all":
+        assert int(n_ev) == n
+    again, n_again = ev.timeout_sweep(regs, ts, valid, 5.0, fills)
+    assert _same_bits(again, want) and int(n_again) == 0
+
+
+def _same_bits(a, b):
+    """Bit for bit (a NaN register included, which torch.equal rejects)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def test_timeout_sweep_replays_in_a_graph(cuda):
+    """Captured in a CUDA graph, the sweep counts afresh at every replay."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.netsim.stream import evict_fills
+    regs, ts, valid = _sweep_case(cuda, 8192, 1024, "random")
+    fills = evict_fills(cuda)
+    src = regs.clone()
+    want, want_n = ev.timeout_sweep_ref(src, ts, valid, 5.0, fills)
+    assert int(want_n) > 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ev.timeout_sweep(regs, ts, valid, 5.0, fills)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, n_ev = ev.timeout_sweep(regs, ts, valid, 5.0, fills)
+    for _ in range(3):
+        regs.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(regs, want) and int(n_ev) == int(want_n)
+
+
+def test_timeout_sweep_rejects_bad_operands(cuda):
+    from repro_torch.kernels import evict as ev
+    regs = torch.zeros((8, 32), device=cuda)
+    ts = torch.zeros(16, device=cuda)
+    valid = torch.ones(16, dtype=torch.bool, device=cuda)
+    fills = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        ev.timeout_sweep(regs, ts.double(), valid, 5.0, fills)
+    with pytest.raises(TypeError):
+        ev.timeout_sweep(regs, ts, valid.to(torch.int32), 5.0, fills)
+    with pytest.raises(ValueError):
+        ev.timeout_sweep(regs, ts, valid[:8], 5.0, fills)
+    with pytest.raises(ValueError):
+        ev.timeout_sweep(regs, ts[:0], valid[:0], 5.0, fills)
+    with pytest.raises(ValueError):
+        ev.timeout_sweep(regs[:4], ts, valid, 5.0, fills[:4])
+    with pytest.raises(ValueError):
+        ev.timeout_sweep(regs, ts.cpu(), valid, 5.0, fills)
+    with pytest.raises(ValueError):
+        ev.timeout_sweep(torch.zeros((8, 64), device=cuda)[:, ::2], ts,
+                         valid, 5.0, fills)
 
 
 # -- the streaming server on the card ---------------------------------------------

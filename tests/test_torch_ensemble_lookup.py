@@ -248,8 +248,11 @@ def test_smem_fit_check(artifacts):
     assert tek.stage_mode(5, 62, 64, 64, 60, 5712, 1, "compare", 128) == "keys"
     svm = port_artifact(arts["SVM"])
     f, u = svm.edges.shape
-    fb, m_pad = svm.vtable_flat.shape
-    assert tops.classical_tables_smem_bytes(svm) == 4 * (f * u + fb * m_pad)
+    fb = svm.vtable_flat.shape[0]
+    m = svm.vtable.q.shape[2]
+    # the lane head, the edges and the value table's M live columns
+    assert tops.classical_tables_smem_bytes(svm) == 4 * (
+        _up4(2 * f * -(-u // 8)) + 2 * _up4(f * 128) + _up4(f * u) + fb * m)
     assert tops.fits_smem(svm)
 
 

@@ -312,6 +312,8 @@ def _assert_stats_equal(jstats, tstats):
 
 @pytest.mark.parametrize("evict", [
     {}, {"evict_policy": "timeout", "evict_age": 2.0},
+    # the streaming configuration's age (the timeout sweep in one call)
+    {"evict_policy": "timeout", "evict_age": 5.0},
     # 400 flows in 256 buckets: the approx-LRU sweep runs under pressure
     {"evict_policy": "approx_lru", "evict_age": 2.0, "n_buckets": 256}])
 def test_step_matches_reference_window_by_window(stream_setup, evict):

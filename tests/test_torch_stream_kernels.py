@@ -1,7 +1,9 @@
 """Port parity for the streaming kernels' plain versions: the register
-scatter/readout (B5, ``ops.stream_update``) and the eviction fill (B6,
-``ops.evict_fill``) against the reference's oracle and its Pallas kernels in
-interpret mode, ``ops.pad_window`` against its reference, and a replay of
+scatter/readout (B5, ``ops.stream_update``), the eviction fill (B6,
+``ops.evict_fill``) and the timeout sweep (B6's second entry,
+``ops.timeout_sweep``) against the reference's oracle, its Pallas kernels in
+interpret mode and its ``evict_cutoff`` / ``age_out``,
+``ops.pad_window`` against its reference, and a replay of
 the CUDA kernel's algorithm in numpy (a block per tile of bucket columns,
 its lanes listed in any order and folded by each column's threads, their
 partial folds merged by shuffles, the per-tile settle, each lane's row
@@ -17,11 +19,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.ref import stream_update_ref as jax_stream_update_ref  # noqa: E402
+from repro.netsim import stream as jstream  # noqa: E402
 from repro_torch.kernels import evict as tev  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import stream_update as tsu  # noqa: E402
+from repro_torch.netsim import stream as tstream  # noqa: E402
 from repro_torch.netsim.stream import EVICT_FILLS, OVERFLOW_LIMIT  # noqa: E402
-from test_torch_parity import assert_bit_equal  # noqa: E402
+from test_torch_parity import assert_bit_equal, port_flow_table  # noqa: E402
 
 
 def _regs(n, rng, occupied=0.3, base=0.0):
@@ -320,3 +324,92 @@ def test_pad_window_matches_reference(n, tile):
     assert isinstance(t_tup, tuple)
     assert_bit_equal(t_tup[1], t_cols["ts"])
     assert_bit_equal(t_valid2, t_valid)
+
+
+SWEEP_CASES = ["random", "no_valid", "nan_ts", "at_cutoff", "all", "none"]
+
+
+def _sweep_case(case, n=600, w=96):
+    """A register file and a window for one timeout-sweep case: occupied
+    columns last seen in [-20, 15] (one with a NaN t_max, which is never
+    evicted, one at -0.0 counts), the window's timestamps in [10, 12] and
+    an invalid lane holding NaN; then the case's change."""
+    rng = np.random.default_rng(SWEEP_CASES.index(case))
+    regs = _regs(n, rng, occupied=1.0 if case == "all" else 0.5)
+    occ = np.flatnonzero(regs[0] > 0)
+    regs[3, occ[0]] = np.nan
+    regs[[0, 1, 4, 5, 6, 7], occ[1]] = -0.0
+    ts = rng.uniform(10.0, 12.0, w).astype(np.float32)
+    valid = rng.random(w) > 0.2
+    valid[3] = False
+    ts[3] = np.nan
+    age = 5.0
+    if case == "no_valid":
+        valid[:] = False
+    elif case == "nan_ts":
+        valid[7], ts[7] = True, np.nan
+    elif case == "all":
+        regs[3, occ[0]] = 0.0
+        ts = ts + np.float32(90.0)
+    elif case == "none":
+        ts = ts - np.float32(60.0)
+    cut = np.float32(min(np.float32(ts[valid].max() - np.float32(age)),
+                         ts[valid].min())) if valid.any() else None
+    if case == "at_cutoff":
+        regs[3, occ[2:40]] = cut                  # not before it: survive
+        regs[3, occ[40:80]] = np.nextafter(cut, np.float32(-np.inf))
+    return regs, ts, valid, age
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_timeout_sweep_matches_reference(case):
+    """The timeout sweep's plain version (the composition the CUDA entry
+    does in one launch) against the reference's ``evict_cutoff`` then
+    ``age_out``, bit for bit: the register file and the count. A window
+    with no valid lane (cutoff -inf) and a NaN timestamp on a valid lane
+    (cutoff NaN) evict nothing, a column last seen exactly at the cutoff
+    survives, and a NaN t_max is never evicted."""
+    regs, ts, valid, age = _sweep_case(case)
+    fills = np.asarray(EVICT_FILLS, np.float32)
+    jcut = jstream.evict_cutoff(jnp.asarray(ts), jnp.asarray(valid), age)
+    jstate, jn = jstream.age_out(
+        jstream.FlowTableState(*[jnp.asarray(r) for r in regs]), jcut)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    before = tev.LAUNCHES["evict_fill"]
+    got, n_ev = tops.timeout_sweep(t(regs), t(ts), t(valid), age, t(fills))
+    assert tev.LAUNCHES["evict_fill"] == before      # CPU: plain version
+    assert n_ev.dtype == torch.int32 and n_ev.shape == ()
+    assert_bit_equal(port_flow_table(jstate).regs, got)
+    assert int(jn) == int(n_ev)
+    cut = tev.evict_cutoff(t(ts), t(valid), age)
+    assert_bit_equal(jcut, cut)
+    swept, n_age = tstream.age_out(tstream.FlowTableState(t(regs)), cut)
+    assert_bit_equal(swept.regs, got)
+    assert int(n_age) == int(n_ev)
+    n_occ = int((regs[0] > 0).sum())
+    expect = {"no_valid": 0, "nan_ts": 0, "none": 0, "all": n_occ}
+    if case in expect:
+        assert int(n_ev) == expect[case]
+    else:
+        assert 0 < int(n_ev) < n_occ
+    if case == "at_cutoff":
+        assert bool(np.isfinite(float(cut)))
+        assert (got.numpy()[0, np.flatnonzero(regs[3] == float(cut))] > 0).all()
+
+
+@pytest.mark.parametrize("n,sms,fill,sweep", [
+    (8192, 132, (64, 32), (256, 8)), (600, 132, (64, 3), (256, 1)),
+    (8209, 132, (64, 33), (256, 9)), (1 << 20, 132, (256, 1024), (256, 264)),
+    (1 << 16, 132, (128, 128), (256, 64)), (1, 8, (64, 1), (256, 1))])
+def test_evict_plans(n, sms, fill, sweep):
+    """B6's grids: evict_fill's quads over the SMs (blocks of 64-256
+    threads), the sweep's blocks of 256 at most two an SM."""
+    assert tuple(tev.fill_plan(n, sms).values()) == fill
+    assert tuple(tev.sweep_plan(n, sms).values()) == sweep
+
+
+def test_evict_fills_built_once_per_device():
+    """The fills are built once per device and shared by every step."""
+    a = tstream.evict_fills("cpu")
+    assert a is tstream.evict_fills(torch.device("cpu"))
+    assert_bit_equal(np.asarray(EVICT_FILLS, np.float32), a)
