@@ -59,7 +59,13 @@ Phases (any failure exits non-zero before the result line is printed):
      h2o-danube-1.8b's 4096-slot ring at its head dim of 80 (M=4), and M in
      {1, 4, 8} x hd in {16, 64, 80, 128}; each case prints the split B8
      chose (n_split, chunk, grid); after phase 4f, layers 0 and 35 of the
-     served int8 cache with a seeded q.
+     served int8 cache with a seeded q. Then this slice's shapes: B1 at the
+     chunk classify's 16,384 and 32,768 readout rows (the streaming
+     configuration's first 32 windows through the RF 4x3 switch, both
+     selects), B4 at the finance fit (16,000 x 130 rows against 130 x 63
+     edges), and the payload parse (``file_features_csv`` after
+     ``stitch_split_payload``) on the card against the CPU's, on 512
+     finance rows split at byte 700, all 130 columns.
   4. serve, each path with every launch count set to 0 just before it and
      read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
@@ -77,7 +83,8 @@ Phases (any failure exits non-zero before the result line is printed):
         repo's streaming configuration (``benchmarks/stream_bench.py``:
         ``synth_trace(n_flows=4000, seed=0)``, N=8192 buckets, windows of
         1024 packets, tau 0.9, capacity 64; RF 4x3 switch and RF 16x6
-        backend trained on the trace's batch flow features), twice: without
+        backend trained on the trace's batch flow features), window by
+        window on the eager route (``fuse=False``), twice: without
         eviction, and with ``evict_age=5.0`` under the timeout policy. Each
         step launches B5 and B1 once (and B6's timeout sweep once in the
         second run, in place, the cutoff and the count included); the
@@ -95,6 +102,26 @@ Phases (any failure exits non-zero before the result line is printed):
         RF switch in front of a smoke-size qwen3-4b scorer, ``fuse=None``):
         one switch launch per classify, classes equal to the plain path's,
         and the route the server took.
+     g. chunked streaming: the streaming configuration (phase c's models)
+        through ``serve_trace`` with ``chunk_windows`` in {1, 2, 8, 16,
+        "auto"}, without and with ``evict_age=5.0``, on the eager route
+        (B5 K times, B1 once and B6's sweep K times a chunk) and through
+        the chunk step's CUDA graph (the probe, warm-up and capture counted;
+        replays launch what was captured); each equal to the per-window
+        server on the card bit for bit (predictions, flow table, counters;
+        one flush a chunk; ``conf_sum`` at rtol 1e-5), the graph route to
+        the eager one, chunk by chunk too (evictions in every replay); no
+        host sync in a step_chunk; a syncing backend served eagerly; the
+        per-window step's graph against the eager step; windows and chunks
+        mixed on one server; ``reset()`` under the captured graphs.
+     h. ``repro_torch.launch.serve --use-case finance`` at its defaults
+        (Jane-Street-like data, 20,000 rows; RF 10x5 switch on the five
+        switch features, XGB 60x6 backend on all 130 through the index side
+        channel, ``fuse=False``): one B1 launch per classify (and one for the
+        launcher's recompute of the dispatch order), predictions equal to a
+        plain server's over the same models and side channel; then
+        ``repro_torch.examples.finance_lowlatency`` at its defaults, its
+        parse and classify on the card equal to the CPU's.
      f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
         params from ``init_model`` on the card, 17.65 GB) through
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
@@ -132,7 +159,14 @@ Phases (any failure exits non-zero before the result line is printed):
      the bound and the split it chose; B8 at h2o-danube-1.8b's shape
      (B=8, S=4096, G=8, M=4, hd=80) with its bound; the prefill, the decode
      step (eager, median), tokens/s and B8's share of a step; then two more
-     decode steps under ``torch.profiler``, kernels summed by name.
+     decode steps under ``torch.profiler``, kernels summed by name. This
+     slice's: one chunk step at K=16 with eviction (eager, device time by
+     graph replay, the server's own graph per call and its replay alone)
+     and its parts; the per-window step under its graph against eager;
+     packets per second of ``serve_trace`` per window (eager, graph)
+     against chunked (K=16 eager and graph, "auto"); B1 at 16,384 and
+     32,768 rows; B4 at the finance fit against ``torch.searchsorted``;
+     the finance classify (eager, device) and the example's parse.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -512,6 +546,10 @@ def main() -> int:
                          f"N={n} F={edges.shape[0]} U={edges.shape[1]}")
 
     _check_stream_kernels(torch, dev, su, ev)
+    stream_models = _stream_models(torch, np, dev)
+    shapes = _check_new_shapes(torch, np, dev, ek, bk, check_launch,
+                               stream_models,
+                               build_usecase("finance", n=20000))
     _check_loop_kernel(torch, np, dev, ek, check_launch, rf_art, xgb_art,
                        x_all, rng)
     b8_errs = [_check_decode_attention(torch, np, dev, da)]
@@ -647,7 +685,7 @@ def main() -> int:
           "torch.cuda.set_sync_debug_mode('error')")
 
     # -- 4c. serve: the streaming path ----------------------------------------
-    stream = _serve_stream(torch, np, dev)
+    stream = _serve_stream(torch, np, dev, stream_models)
 
     # -- 4d. serve: loop tiles, autotune, the fused step ------------------------
     tuned = _serve_tuned(torch, runs["auto"], x_all)
@@ -659,13 +697,21 @@ def main() -> int:
     lm = _serve_lm(torch, np, dev)
     b8_errs.append(_check_served_cache(torch, dev, da, lm))
 
+    # -- 4g. serve: chunked streaming and the streaming step graphs ----------
+    chunked = _serve_chunked(torch, np, dev, stream_models)
+
+    # -- 4h. serve: the finance use case and its example ----------------------
+    finance = _serve_finance(torch, np, dev, serve, check_vs_cpu)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
-    # B1/B2 launches: the launcher's run, both streaming runs and path d
+    # B1/B2 launches: the launcher's run, both streaming runs, path d, the
+    # chunked runs (4g) and the finance launcher (4h)
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
                + sum(p[k] for p in tuned["paths"].values())
+               + chunked["totals"].get(k, 0) + finance["path"][k]
                for k in ("matmul", "compare")}
     kernel_rows = []
     # B2 at both of its main-path shapes, each with its own launches: the
@@ -693,7 +739,8 @@ def main() -> int:
                for name in ("nb", "svm", "kmeans")}
     kernel_rows.append(dict(cl_rows["nb"], name="classical_lookup"))
     kernel_rows.append(_time_bucketize(torch, bk, fit_edges, xtr_dev,
-                                       path_b["bucketize"]))
+                                       path_b["bucketize"]
+                                       + finance["path"]["bucketize"]))
     kernel_rows.append(_time_loop(torch, ek, served, x2048,
                                   sum(p["loop"]
                                       for p in tuned["paths"].values())))
@@ -740,6 +787,8 @@ def main() -> int:
     _time_tuned(torch, tuned, xb, smi)
 
     stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
+    for row, key in zip(stream_rows, ("stream_update", "evict_fill")):
+        row["launches"] += chunked["totals"].get(key, 0)   # 4g's runs
     kernel_rows += stream_rows
     for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
@@ -750,6 +799,12 @@ def main() -> int:
               f"{row['plain_ms_eager']:.5f} ms (eager); library {lib}; bound "
               f"{row['bound_ms']:.6f} ms ({row['bound_by']}); "
               f"shape {row['shape']}; on {smi}")
+
+    chunk_rows, chunk_times = _time_chunked(torch, np, ek, bk, stream_models,
+                                            chunked, shapes, finance, smi)
+    kernel_rows += [chunk_rows[0], chunk_rows[2]]   # B1 at K=16, B4 at F=130
+    print("times (phase 5, chunked streaming and finance): "
+          + json.dumps(chunk_times))
 
     lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
     kernel_rows.append(lm_row)
@@ -1222,38 +1277,56 @@ STREAM_RUNS = (("no_eviction", {}),
                                   "evict_policy": "timeout"}))
 
 
-def _serve_stream(torch, np, dev):
-    """Phase 4c: the repo's streaming configuration served on the card by
-    ``StreamingHybridServer.serve_trace``, once per ``STREAM_RUNS`` entry,
-    each with every launch count set to 0 just before it and read just
-    after. Checks launches per step, equality with the same server on the
-    plain path, the flow table against the batch oracle (no eviction), that
-    eviction happened (timeout policy), and that a step does not sync."""
+def _stream_models(torch, np, dev):
+    """The repo's streaming configuration (``benchmarks/stream_bench.py``):
+    ``synth_trace(n_flows=4000, seed=0)``, 8192 buckets, windows of 1024;
+    an RF 4x3 switch and an RF 16x6 backend trained on the card on the
+    trace's batch flow features. -> dict(trace, table, art, backend)."""
     from repro_torch.core.mapping import map_tree_ensemble
-    from repro_torch.kernels import ensemble_lookup as ek
-    from repro_torch.ml.metrics import accuracy
     from repro_torch.ml.trees import fit_random_forest, predict_tree_ensemble
     from repro_torch.netsim.features import flow_features
     from repro_torch.netsim.packets import synth_trace
-    from repro_torch.netsim.stream import iter_windows
-    from repro_torch.serving.stream_serving import StreamingHybridServer
 
-    n_buckets, window = 8192, 1024
     trace = synth_trace(n_flows=4000, seed=0)
-    b, table = flow_features(trace, n_buckets=n_buckets)
+    b, table = flow_features(trace, n_buckets=STREAM_BUCKETS)
     first = np.unique(trace.flow_id, return_index=True)[1]
     rows = table[b[torch.as_tensor(first, device=dev)].long()]
     small = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=4,
                               max_depth=3, seed=0, device=dev)
     big = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=16,
                             max_depth=6, seed=1, device=dev)
-    art = map_tree_ensemble(small, rows.shape[1])
 
     def backend(r):
         return predict_tree_ensemble(big, r)
 
+    return dict(trace=trace, table=table, backend=backend,
+                art=map_tree_ensemble(small, rows.shape[1]))
+
+
+STREAM_BUCKETS, STREAM_WINDOW = 8192, 1024
+STREAM_KW = dict(n_buckets=STREAM_BUCKETS, window=STREAM_WINDOW,
+                 threshold=0.9, capacity=64)
+
+
+def _serve_stream(torch, np, dev, models):
+    """Phase 4c: the repo's streaming configuration (``_stream_models``)
+    served on the card by ``StreamingHybridServer.serve_trace`` window by
+    window on the eager route (``fuse=False``; the graph routes are phase
+    4g's), once per ``STREAM_RUNS`` entry, each with every launch count set
+    to 0 just before it and read just after. Checks launches per step,
+    equality with the same server on the plain path, the flow table
+    against the batch oracle (no eviction), that eviction happened (timeout
+    policy), and that a step does not sync."""
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.ml.metrics import accuracy
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    n_buckets, window = STREAM_BUCKETS, STREAM_WINDOW
+    trace, table = models["trace"], models["table"]
+    art, backend = models["art"], models["backend"]
     truth = trace.flow_label[trace.flow_id]
-    kw = dict(n_buckets=n_buckets, window=window, threshold=0.9, capacity=64)
+    kw = dict(STREAM_KW, fuse=False)
     out = {"trace": trace, "runs": {}}
     for name, extra in STREAM_RUNS:
         server = StreamingHybridServer(art, backend, **kw, **extra)
@@ -1571,6 +1644,519 @@ def _time_stream(torch, np, stream, smi):
               f"best {best * 1e3:.2f} ms ({trace.n_packets / best:.0f} "
               f"packets/s) on {smi}")
     return rows, [b1_stream]
+
+
+CHUNK_KS = (1, 2, 8, 16, "auto")
+
+
+def _check_new_shapes(torch, np, dev, ek, bk, check_launch, models, fin):
+    """Phase 3 for this slice's shapes: B1 at the chunk classify's row
+    counts (16 and 32 windows of 1024 readout rows from the served trace,
+    through the RF 4x3 stream switch, both selects and the resolved one),
+    B4 at the finance fit's shape (all 16,000 training rows x 130 features
+    against the fit's 64-bin quantile edges), and the payload parse on the
+    card against the CPU's on the finance example's 512 rows split at byte
+    700 (all 130 columns). Everything atol=0. -> the inputs phase 5 times
+    again."""
+    from repro_torch.core.artifact import finalize_artifact
+    from repro_torch.examples.finance_lowlatency import SPLIT_AT
+    from repro_torch.ml.trees import quantile_bin_edges
+    from repro_torch.netsim.features import (encode_csv_payload,
+                                             file_features_csv,
+                                             stitch_split_payload)
+    from repro_torch.netsim.stream import (chunk_update_readout,
+                                           init_flow_table, iter_chunks)
+    art = finalize_artifact(models["art"]).to(dev)
+    tabs = (art.edges, art.ftable_flat, art.dtable_flat, art.dtable_pad)
+    chunk = next(iter_chunks(models["trace"], STREAM_WINDOW, 32,
+                             STREAM_BUCKETS, device=dev))
+    _, xs, _, _ = chunk_update_readout(init_flow_table(STREAM_BUCKETS,
+                                                       device=dev),
+                                       chunk, evict_age=5.0)
+    x_chunk = xs.reshape(-1, xs.shape[2]).contiguous()
+    cout, t, s_pad = tabs[2].shape
+    for n in (16 * STREAM_WINDOW, 32 * STREAM_WINDOW):
+        x = x_chunk[:n].contiguous()
+        for select in ("auto", "matmul", "compare"):
+            resolved = ek.resolve_select(select, t, s_pad, cout)
+            check_launch(
+                resolved, "chunk_classify",
+                lambda: ek.ensemble_lookup_fused(x, *tabs, select=select),
+                lambda: ek.ensemble_lookup_fused_ref(x, *tabs, select=select),
+                f"N={n} F={x.shape[1]} T={t} Sp={s_pad} Co={cout} "
+                f"select={select}->{resolved}")
+    xtr, xte = fin[0], fin[2]
+    fin_x = torch.as_tensor(xtr, dtype=torch.float32, device=dev)
+    fin_edges = quantile_bin_edges(fin_x, 64)
+    for n in (1, 300, 2048, fin_x.shape[0]):
+        x = fin_x[:n].contiguous()
+        check_launch("bucketize", "bucketize:finance_fit",
+                     lambda: bk.bucketize(x, fin_edges),
+                     lambda: bk.bucketize_ref(x, fin_edges),
+                     f"N={n} F={fin_edges.shape[0]} U={fin_edges.shape[1]}")
+    payload = encode_csv_payload(xte[:512], width=8)
+    cols = list(range(payload.shape[1] // 8))
+    host = file_features_csv(payload, cols, device="cpu")
+    whole = stitch_split_payload(payload[:, :SPLIT_AT],
+                                 payload[:, SPLIT_AT:], device=dev)
+    card = file_features_csv(whole, cols)
+    err = _max_abs_err(card.cpu(), host)
+    print(f"case csv_parse rows=512 columns={len(cols)} split_at="
+          f"{SPLIT_AT} card_vs_cpu max_abs_diff={err}")
+    if not torch.equal(card.cpu(), host):
+        raise AssertionError("the payload parse on the card != the CPU's")
+    return dict(x_chunk=x_chunk, stream_art=art, fin_x=fin_x,
+                fin_edges=fin_edges, payload_whole=whole)
+
+
+def _same_stream_stats(got, ref, name, *, flushes=True):
+    g, r = got.as_dict(), ref.as_dict()
+    for key in g:
+        if key in ("conf_sum", "mean_conf"):
+            ok = abs(g[key] - r[key]) <= 1e-5 * abs(r[key])
+        elif key == "flushes" and not flushes:
+            continue
+        else:
+            ok = g[key] == r[key]
+        if not ok:
+            raise AssertionError(f"{name}: stats[{key}] {g[key]} != {r[key]}")
+
+
+def _serve_chunked(torch, np, dev, models):
+    """Phase 4g: the streaming configuration served by
+    ``StreamingHybridServer.serve_trace`` with ``chunk_windows`` in CHUNK_KS
+    ("auto": the measured sweep, its launches outside the counted run),
+    without and with ``evict_age=5.0``, each on the eager route
+    (``fuse=False``: every launch counted, B5 K times, B1 once and the
+    sweep K times a chunk) and through its CUDA graph (``fuse=None``: the
+    probe, the warm-up and the capture are counted, a replay launches what
+    was captured), each with every launch count set to 0 just before it
+    and read just after. Each run must equal the per-window server on the
+    card bit for bit (predictions, flow table, counters; ``flushes`` one a
+    chunk, ``conf_sum`` at rtol 1e-5), the graph route the eager one. Then,
+    with eviction: the launches of each eager step_chunk; the graph route
+    chunk by chunk against the eager one (evictions counted right in every
+    replay); no host sync in a step_chunk; a syncing backend served
+    eagerly; the per-window step's graph, and windows and chunks mixed on
+    one graph server; reset() under the captured graphs."""
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.netsim.stream import iter_chunks, iter_windows
+    from repro_torch.serving import stream_serving as ss
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    trace, art, backend = models["trace"], models["art"], models["backend"]
+    out = {"paths": {}, "servers": {}, "auto": {}}
+    totals = {}
+    for name, extra in STREAM_RUNS:
+        kw = dict(STREAM_KW, **extra)
+        ref = StreamingHybridServer(art, backend, fuse=False, **kw)
+        p_ref, s_ref = ref.serve_trace(trace)
+        n_win = s_ref.n_windows
+        select = ek.resolve_select("auto", ref.artifact.n_trees,
+                                   ref.artifact.dtable_flat.shape[2],
+                                   ref.artifact.dtable_flat.shape[0])
+        out["servers"][(name, "per_window", "eager")] = ref
+        for k in CHUNK_KS:
+            eager_pred = eager_stats = eager_k = None
+            for route, fuse in (("eager", False), ("graph", None)):
+                if k == "auto":
+                    ss.clear_chunk_tune_cache()
+                    _reset_counts()
+                    t0 = time.perf_counter()
+                srv = StreamingHybridServer(art, backend, chunk_windows=k,
+                                            fuse=fuse, **kw)
+                if k == "auto":
+                    torch.cuda.synchronize()
+                    sweep_s = time.perf_counter() - t0
+                    out["auto"][(name, route)] = srv.chunk_windows
+                    print(f"chunk autotune ({name}, {route}): K="
+                          f"{srv.chunk_windows} in {sweep_s:.2f} s; per "
+                          f"packet " + ", ".join(
+                              f"K={c} {t * 1e9:.1f} ns" for c, t in
+                              sorted(srv.chunk_sweep.items()))
+                          + f"; the sweep's launches {_counts()}")
+                kk = srv.chunk_windows
+                _reset_counts()
+                p, s = srv.serve_trace(trace)
+                torch.cuda.synchronize()
+                path = _counts()
+                n_chunks = -(-n_win // kk)
+                # the graph route launches one chunk eagerly (the probe),
+                # then once more for the warm-up and once for the capture
+                calls = n_chunks if route == "eager" else (
+                    3 if n_chunks >= 2 else 1)
+                want = {"stream_update": kk * calls, select: calls,
+                        "evict_fill": kk * calls if extra else 0}
+                print(f"main-path launches (g: chunked, {name}, K={k}->{kk}, "
+                      f"{route}, {n_chunks} chunks): {path}")
+                for key, count in path.items():
+                    if count != want.get(key, 0):
+                        raise AssertionError(
+                            f"chunked {name} K={kk} {route}: {key} launched "
+                            f"{count} times, want {want.get(key, 0)}")
+                for key, count in path.items():
+                    totals[key] = totals.get(key, 0) + count
+                if not torch.equal(p, p_ref):
+                    raise AssertionError(f"chunked {name} K={kk} {route}: "
+                                         f"preds != per-window preds")
+                if not torch.equal(srv.flow_table(), ref.flow_table()):
+                    raise AssertionError(f"chunked {name} K={kk} {route}: "
+                                         f"flow table != per-window")
+                _same_stream_stats(s, s_ref, f"chunked {name} K={kk} {route}",
+                                   flushes=False)
+                if s.n_flushes != n_chunks:
+                    raise AssertionError(f"{s.n_flushes} flushes for "
+                                         f"{n_chunks} chunks")
+                if route == "graph":
+                    if srv._fused_ok is not True or (
+                            n_chunks >= 2 and set(srv._step_graphs)
+                            != {("chunk", (kk, STREAM_WINDOW))}):
+                        raise AssertionError(f"K={kk}: the graph route did "
+                                             f"not capture its chunk step")
+                    if not torch.equal(p, eager_pred):
+                        raise AssertionError(f"K={kk}: graph != eager preds")
+                    # "auto" may pick another K for each route
+                    _same_stream_stats(s, eager_stats, f"K={kk} graph/eager",
+                                       flushes=kk == eager_k)
+                eager_pred, eager_stats, eager_k = p, s, kk
+                out["paths"][(name, k, route)] = path
+                out["servers"][(name, k, route)] = srv
+                print(f"serve_trace[chunked {name} K={kk} {route}] packets="
+                      f"{s.n_packets} windows={s.n_windows} chunks="
+                      f"{n_chunks} flushes={s.n_flushes} fraction_handled="
+                      f"{s.fraction_handled:.4f} backend_rows="
+                      f"{s.total_backend_rows} evicted={s.n_evicted} "
+                      f"overflow={s.n_overflow} preds_equal_per_window=True "
+                      f"flow_table_equal=True counters_equal=True")
+    out["totals"] = totals
+
+    # with eviction, K=16: per-step launches, graph against eager chunk by
+    # chunk, no sync, the syncing backend, the window graph, mixing, reset
+    kw = dict(STREAM_KW, **STREAM_RUNS[1][1])
+    eager = StreamingHybridServer(art, backend, chunk_windows=16, fuse=False,
+                                  **kw)
+    graph = StreamingHybridServer(art, backend, chunk_windows=16, **kw)
+    select = ek.resolve_select("auto", eager.artifact.n_trees,
+                               eager.artifact.dtable_flat.shape[2],
+                               eager.artifact.dtable_flat.shape[0])
+    chunks = list(iter_chunks(trace, STREAM_WINDOW, 16, STREAM_BUCKETS))
+    for c in chunks:
+        before = _counts()
+        pe, he = eager.step_chunk(c)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        want = {"stream_update": 16, select: 1, "evict_fill": 16}
+        if delta != {k: want.get(k, 0) for k in delta}:
+            raise AssertionError(f"one eager step_chunk launched {delta}")
+        pg, hg = graph.step_chunk(c)
+        if not (torch.equal(pe, pg)
+                and torch.equal(he.as_tensors()[1], hg.as_tensors()[1])):
+            raise AssertionError("graph step_chunk != eager step_chunk")
+        _same_stream_stats(graph.stats, eager.stats, "graph/eager per chunk")
+    print(f"step_chunk (K=16, evict_timeout): each eager call launched B5 "
+          f"16x, {select} once, the sweep 16x; the graph route equal to the "
+          f"eager one after each of {len(chunks)} chunks (evicted "
+          f"{graph.stats.n_evicted}: counted right in every replay)")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    graph.step_chunk(chunks[1])
+    eager.step_chunk(chunks[1])
+    torch.cuda.set_sync_debug_mode(0)
+    print("step_chunk (graph and eager): no host sync under "
+          "torch.cuda.set_sync_debug_mode('error')")
+
+    def np_backend(r):                        # a host round trip
+        return backend(r).cpu().numpy()
+
+    ref = out["servers"][("evict_timeout", "per_window", "eager")]
+    ref.reset()
+    p_ref, s_ref = ref.serve_trace(trace)
+    np_srv = StreamingHybridServer(art, np_backend, chunk_windows=16, **kw)
+    p_np, s_np = np_srv.serve_trace(trace)
+    if np_srv._fused_ok is not False or np_srv._step_graphs \
+            or not torch.equal(p_np, p_ref):
+        raise AssertionError("a syncing backend did not serve chunks eagerly")
+    _same_stream_stats(s_np, s_ref, "syncing backend", flushes=False)
+    win = StreamingHybridServer(art, backend, **kw)          # fuse=None
+    p_w, s_w = win.serve_trace(trace)
+    if set(win._step_graphs) != {("window", (STREAM_WINDOW,))} \
+            or not torch.equal(p_w, p_ref) \
+            or not torch.equal(win.flow_table(), ref.flow_table()):
+        raise AssertionError("the per-window graph != the eager step")
+    _same_stream_stats(s_w, s_ref, "per-window graph")
+    mixed = StreamingHybridServer(art, backend, chunk_windows=2, **kw)
+    preds = []
+    for i, c in enumerate(iter_chunks(trace, STREAM_WINDOW, 2,
+                                      STREAM_BUCKETS)):
+        if i % 2:
+            preds.append(mixed.step_chunk(c)[0].reshape(-1))
+        else:
+            preds += [mixed.step(c.window_at(j))[0] for j in range(2)
+                      if bool(c.valid[j].any())]
+    if not torch.equal(torch.cat(preds)[:trace.n_packets], p_ref):
+        raise AssertionError("step and step_chunk mixed != per-window")
+    _same_stream_stats(mixed.stats, s_ref, "mixed", flushes=False)
+    graphs = dict(graph._step_graphs)
+    graph.reset()
+    p_again, s_again = graph.serve_trace(trace)
+    if graph._step_graphs != graphs or not torch.equal(p_again, p_ref):
+        raise AssertionError("reset() under the captured graph")
+    _same_stream_stats(s_again, s_ref, "after reset", flushes=False)
+    print(f"serve_trace[evict_timeout]: numpy backend _fused_ok="
+          f"{np_srv._fused_ok} (eager, equal); per-window graph "
+          f"{sorted(win._step_graphs)} equal to the eager step; step and "
+          f"step_chunk mixed on one server equal; reset() under the "
+          f"captured graph serves the trace again, equal, no re-capture")
+    w = next(iter(iter_windows(trace, STREAM_WINDOW, STREAM_BUCKETS)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    win.step(w)
+    torch.cuda.set_sync_debug_mode(0)
+    out.update(eager16=eager, graph16=graph, window_graph=win,
+               window_eager=ref, chunks16=chunks)
+    return out
+
+
+def _serve_finance(torch, np, dev, serve, check_vs_cpu):
+    """Phase 4h: ``launch.serve --use-case finance`` at its defaults
+    (``make_janestreet_like(20000)``, RF 10x5 switch on the five switch
+    features, XGB 60x6 backend on all 130 through the index side channel,
+    tau 0.7, capacity 1024, batch 2048), every launch count set to 0 just
+    before it and read just after: B1 twice a batch (the launcher's
+    recompute of the dispatch order and the classify, one each), B4 in the
+    fits. The predictions must equal a plain server's (``use_kernel=False``)
+    over the same models and side channel. Then the finance example at its
+    defaults: the card's parse and classify against the CPU's."""
+    from repro_torch.core.inference import table_predict
+    from repro_torch.data.janestreet_like import SWITCH_FEATURES
+    from repro_torch.examples import finance_lowlatency
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.kernels.ops import fused_classify
+    from repro_torch.core.hybrid import dispatch
+    from repro_torch.netsim.features import file_features_csv
+    from repro_torch.serving.hybrid_serving import HybridServer
+
+    _reset_counts()
+    res = serve.main(["--device", "cuda", "--use-case", "finance"])
+    torch.cuda.synchronize()
+    path = _counts()
+    print(f"main-path launches (h: finance launcher): {path}")
+    srv = res["server"]
+    art = srv.artifact
+    select = ek.resolve_select("auto", art.n_trees, art.dtable_flat.shape[2],
+                               art.dtable_flat.shape[0])
+    batches = res["batches"]
+    if path[select] != 2 * batches or path["bucketize"] < 2:
+        raise AssertionError(f"finance: {path} for {batches} batches")
+    for key, count in path.items():
+        if key not in (select, "bucketize") and count:
+            raise AssertionError(f"finance launched {key} {count} times")
+    batch = res["pred"].shape[0] // batches
+    backend_fn = res["backend_fn"]
+    for i in range(batches):                  # one B1 launch per classify
+        rows = res["x_test"][i * batch:(i + 1) * batch]
+        backend_fn.full_rows = res["x_full"][i * batch:(i + 1) * batch]
+        _, conf = fused_classify(art, rows, tiles=srv.tiles)
+        backend_fn.idx = dispatch(rows, conf < srv.threshold,
+                                  srv.capacity)[1]
+        before = _counts()
+        pred, _ = srv.classify(rows)
+        delta = {k: v - before[k] for k, v in _counts().items()}
+        if delta != {k: int(k == select) for k in delta} or not \
+                torch.equal(pred, res["pred"][i * batch:(i + 1) * batch]):
+            raise AssertionError(f"finance classify launched {delta}")
+    plain = HybridServer(res["artifact"],
+                         serve.side_channel_backend(res["backend_model"]),
+                         threshold=srv.threshold, capacity=srv.capacity,
+                         use_kernel=False, fuse=False, device="cuda")
+    plain_preds, _ = serve.serve_batches(plain, res["x_test"], batch,
+                                         x_full=res["x_full"])
+    if not torch.equal(torch.cat(plain_preds), res["pred"]):
+        raise AssertionError("finance: served preds != plain preds")
+    check_vs_cpu(art, "finance_switch")
+    if not set(res["pred"].unique().tolist()) <= {0, 1}:
+        raise AssertionError("finance: predictions outside the classes")
+    for key in ("acc", "precision", "recall", "f1"):
+        if not np.isfinite(res[key]):
+            raise AssertionError(f"finance: {key} is not finite")
+    st = res["stats"]
+    print(f"serve[finance] acc={res['acc']:.4f} precision="
+          f"{res['precision']:.4f} recall={res['recall']:.4f} f1="
+          f"{res['f1']:.4f} handled_at_switch={st.fraction_handled:.4f} "
+          f"backend_rows={st.backend_rows} batches={batches} x {batch} "
+          f"(switch F={res['x_test'].shape[1]}, backend F="
+          f"{res['x_full'].shape[1]}) one {select} launch per classify, "
+          f"preds_equal_plain=True")
+
+    ex = finance_lowlatency.main(["--device", "cuda"])
+    host = file_features_csv(ex["payload"], SWITCH_FEATURES, device="cpu")
+    p_cpu, c_cpu = table_predict(ex["artifact"].to("cpu"), host)
+    if not (torch.equal(ex["feats"].cpu(), host)
+            and torch.equal(ex["pred"].cpu().long(), p_cpu.long())
+            and _ulp_ok(c_cpu.numpy(), ex["conf"].cpu().numpy())):
+        raise AssertionError("the finance example on the card != the CPU's")
+    if not (0.0 <= ex["tag_precision"] <= 1.0
+            and np.isfinite(ex["switch_acc"])):
+        raise AssertionError("the finance example's telemetry")
+    print(f"example[finance_lowlatency] rows={ex['pred'].shape[0]} parse + "
+          f"classify {ex['parse_classify_s'] * 1e3:.2f} ms (host clock to a "
+          f"sync) tagged={int(ex['tagged'].sum())} tag_precision="
+          f"{ex['tag_precision']:.3f} switch_acc={ex['switch_acc']:.4f} "
+          f"backend_acc={ex['backend_acc']:.4f} parse_and_preds_equal_cpu="
+          f"True")
+    return dict(res=res, path=path, select=select, example=ex)
+
+
+def _time_chunked(torch, np, ek, bk, models, chunked, shapes, finance,
+                  smi):
+    """Phase 5 for this slice: one chunk step at K=16 (eager, its device
+    time by graph replay, the server's own graph per call and its replay
+    alone) and its parts; the per-window step under its graph against
+    eager; packets per second of serve_trace per window against chunked;
+    B1 at the chunk classify's rows; B4 at the finance fit; the finance
+    classify and the payload parse. -> (JSON rows, extra JSON rows)."""
+    from repro_torch.netsim.stream import (FlowTableState,
+                                           chunk_update_readout)
+    from repro_torch.serving.stream_serving import chunk_classify_tail
+    from repro_torch.core.hybrid import backpatch_pending
+
+    trace = models["trace"]
+    eager, graph = chunked["eager16"], chunked["graph16"]
+    c = chunked["chunks16"][1]
+    w = c.window_at(0)
+    k = c.n_windows
+    e_call = _median_ms(torch, lambda: eager.step_chunk(c))
+    e_dev = _graph_ms(torch, lambda: eager.step_chunk(c), inner=2)
+    g_call = _median_ms(torch, lambda: graph.step_chunk(c))
+    g_graph = graph._step_graphs[("chunk", (k, STREAM_WINDOW))][0]
+    g_replay = _median_ms(torch, g_graph.replay)
+    print(f"time step_chunk[K={k}, W={STREAM_WINDOW}, evict_timeout] eager "
+          f"{e_call:.4f} ms a call ({e_call / k:.4f} a window), device "
+          f"{e_dev:.4f} ms (graph replay; {e_dev / k:.4f} a window); the "
+          f"server's graph {g_call:.4f} ms a call ({g_call / k:.4f} a "
+          f"window), its replay alone {g_replay:.4f} ms on {smi}")
+    regs = eager.state.regs.clone()
+    stats = eager.stats
+    tau = torch.full((), eager.threshold, device=regs.device)
+    kw = dict(evict_age=eager.evict_age, saturate=True)
+    _, xs, n_ev, n_ov = chunk_update_readout(FlowTableState(regs.clone()), c,
+                                             **kw)
+    _, dd, pending, _, _ = chunk_classify_tail(
+        eager.artifact, stats, c, xs, n_ev, n_ov, tau, eager.capacity,
+        tiles=eager.tiles, device=regs.device)
+    be = eager.backend_fn(dd.buf)
+    parts = {
+        f"register half (B5, sweep, guard x{k}; readout)":
+            lambda: chunk_update_readout(FlowTableState(regs), c, **kw),
+        f"classify tail (B1 over {k * STREAM_WINDOW} rows, dispatch, fold)":
+            lambda: chunk_classify_tail(eager.artifact, stats, c, xs, n_ev,
+                                        n_ov, tau, eager.capacity,
+                                        tiles=eager.tiles,
+                                        device=regs.device),
+        f"backend (RF 16x6 over {dd.buf.shape[0]} rows)":
+            lambda: eager.backend_fn(dd.buf),
+        "back-patch": lambda: backpatch_pending(pending, be, dd)}
+    print(f"time step_chunk[K={k}] parts: " + ", ".join(
+        f"{name} {_median_ms(torch, fn):.4f} ms (eager), "
+        f"{_graph_ms(torch, fn, inner=2):.4f} ms (graph)"
+        for name, fn in parts.items()) + f" on {smi}")
+    we, wg = chunked["window_eager"], chunked["window_graph"]
+    w_call = _median_ms(torch, lambda: we.step(w))
+    w_dev = _graph_ms(torch, lambda: we.step(w), inner=5)
+    wg_call = _median_ms(torch, lambda: wg.step(w))
+    wg_replay = _median_ms(
+        torch, wg._step_graphs[("window", (STREAM_WINDOW,))][0].replay)
+    print(f"time stream_step[evict_timeout, W={STREAM_WINDOW}] eager "
+          f"{w_call:.4f} ms a call, device {w_dev:.4f} ms (graph replay); "
+          f"the server's graph {wg_call:.4f} ms a call, its replay alone "
+          f"{wg_replay:.4f} ms on {smi}")
+
+    servers = chunked["servers"]
+    runs = [(f"{name} {label}", servers[key])
+            for name in ("no_eviction", "evict_timeout")
+            for label, key in (
+                ("per-window eager", (name, "per_window", "eager")),
+                ("per-window graph", None),
+                ("chunked K=16 eager", (name, 16, "eager")),
+                ("chunked K=16 graph", (name, 16, "graph")),
+                ("chunked auto graph", (name, "auto", "graph")))
+            if key is not None]
+    runs.append(("evict_timeout per-window graph", wg))
+    rates = {}
+    for label, srv in runs:
+        times = []
+        for _ in range(5):
+            srv.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve_trace(trace)            # ends with stats.check(): a sync
+            times.append(time.perf_counter() - t0)
+        med, best = statistics.median(times), min(times)
+        rates[label] = trace.n_packets / med
+        print(f"time serve_trace[{label}, K={srv.chunk_windows}] "
+              f"{trace.n_packets} packets: median {med * 1e3:.2f} ms "
+              f"({trace.n_packets / med:.0f} packets/s), best "
+              f"{best * 1e3:.2f} ms ({trace.n_packets / best:.0f} packets/s) "
+              f"on {smi}")
+
+    art = shapes["stream_art"]
+    tabs = (art.edges, art.ftable_flat, art.dtable_flat, art.dtable_pad)
+    select = ek.resolve_select("auto", art.n_trees, art.dtable_flat.shape[2],
+                               art.dtable_flat.shape[0])
+    b1_launches = chunked["totals"].get(select, 0)
+    extra = []
+    for kk in (16, 32):
+        row = _time_kernel(torch, ek, f"ensemble_lookup:{select}[chunk K={kk}]",
+                           tabs, shapes["x_chunk"][:kk * STREAM_WINDOW]
+                           .contiguous(), select,
+                           "src/repro/kernels/ensemble_lookup.py:112"
+                           if select == "matmul" else
+                           "src/repro/kernels/ensemble_lookup.py:132",
+                           b1_launches if kk == 16 else 0)
+        extra.append(row)
+    b4 = _time_bucketize(torch, bk, shapes["fin_edges"], shapes["fin_x"],
+                         finance["path"]["bucketize"])
+    b4["name"] = "bucketize[finance_fit]"
+    extra.append(b4)
+    for row in extra:
+        lib = ("none" if row["library_ms"] is None
+               else f"{row['library_ms']:.5f} ms")
+        print(f"time {row['name']}: kernel {row['ms']:.5f} ms (graph), "
+              f"{row['ms_eager']:.5f} ms (eager call); plain "
+              f"{row['plain_ms']:.5f} ms (graph); library {lib}; bound "
+              f"{row['bound_ms']:.6f} ms ({row['bound_by']}); shape "
+              f"{row['shape']}; on {smi}")
+
+    res = finance["res"]
+    srv, fn = res["server"], res["backend_fn"]
+    rows = res["x_test"][:2048]
+    fn.full_rows = res["x_full"][:2048]
+    from repro_torch.core.hybrid import dispatch
+    from repro_torch.kernels.ops import fused_classify
+    _, conf = fused_classify(srv.artifact, rows, tiles=srv.tiles)
+    fn.idx = dispatch(rows, conf < srv.threshold, srv.capacity)[1]
+    f_call = _median_ms(torch, lambda: srv.classify(rows))
+    f_dev = _graph_ms(torch, lambda: srv.classify(rows), inner=5)
+    ex = finance["example"]
+    from repro_torch.data.janestreet_like import SWITCH_FEATURES
+    from repro_torch.netsim.features import file_features_csv
+    whole = ex["whole"]
+    p_call = _median_ms(torch, lambda: file_features_csv(whole,
+                                                         SWITCH_FEATURES))
+    p_dev = _graph_ms(torch, lambda: file_features_csv(whole,
+                                                       SWITCH_FEATURES),
+                      inner=2)
+    print(f"time classify[finance](batch=2048, RF 10x5 on 5 features, XGB "
+          f"60x6 on 130, side channel set) median {f_call:.4f} ms per eager "
+          f"call, {f_dev:.4f} ms device time (graph replay); payload parse "
+          f"of the 5 switch columns over {whole.shape[0]} rows {p_call:.4f} "
+          f"ms eager, {p_dev:.4f} ms device on {smi}")
+    return extra, dict(step_chunk_eager_ms=e_call, step_chunk_device_ms=e_dev,
+                       step_chunk_graph_ms=g_call,
+                       step_chunk_replay_ms=g_replay, window_eager_ms=w_call,
+                       window_device_ms=w_dev, window_graph_ms=wg_call,
+                       window_replay_ms=wg_replay, packets_per_s=rates,
+                       finance_classify_ms=f_call,
+                       finance_classify_device_ms=f_dev)
 
 
 def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,

@@ -12,7 +12,10 @@ atol 2e-5), built with ``nvcc`` at first use.
 The LM side serves the dense GQA decoders (``models/``, ``configs/``,
 ``serving/engine.py``): prefill, then decode over a float or int8 KV cache
 whose attention core is B8 on the card; ``launch.serve --backend lm``
-puts a smoke-size qwen3-4b behind the switch.
+puts a smoke-size qwen3-4b behind the switch. ``launch.serve --use-case
+finance`` serves the paper's second use case, and
+``examples.finance_lowlatency`` parses its switch features from CSV
+payloads on the card.
 
 Routing rule (``device.py``): a CUDA tensor goes through the kernel, a CPU
 tensor through the plain version. Entry points (``HybridServer``,

@@ -4,8 +4,12 @@ Port of ``repro/core/hybrid.py`` (the batch forms). ``hybrid_predict`` is
 the dense form used by the paper's sweeps (Figs 10-11).
 ``dispatch``/``combine`` are the serving form: the low-confidence subset is
 *compacted* (MoE-dispatch style) so the expensive backend only sees the
-forwarded queries. The cross-window deferral and chunk functions wait for
-the streaming slices.
+forwarded queries. ``DeferredDispatch``, ``chunk_dispatch`` and
+``backpatch_pending`` are the chunked streaming path's: a chunk of K windows
+dispatches every window at once and the backend's answers are patched back
+into the chunk's pending predictions at their (window, lane) return
+addresses. ``defer_window`` (cross-window deferral, ``flush_every > 1``)
+waits for its slice.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch.core.artifact import TableArtifact
 from repro_torch.core.inference import table_predict
-from repro_torch.device import mean
+from repro_torch.device import mean, resolve_device
 
 
 @dataclasses.dataclass
@@ -66,6 +70,81 @@ def combine(switch_pred: torch.Tensor, backend_pred_subset: torch.Tensor,
     out = switch_pred.clone()
     out[idx] = upd
     return out
+
+
+# ---------------------------------------------------------------------------
+# chunk dispatch and back-patch
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DeferredDispatch:
+    """A buffer of dispatched rows, each with its *return address*:
+    ``window``, the pending row the row came from, and ``lane``, its lane in
+    that window, so a flush can patch the backend's answers into the
+    pending predictions (``backpatch_pending``)."""
+    buf: torch.Tensor       # (slots, F) rows
+    lane: torch.Tensor      # (slots,) i32 lane within the source window
+    window: torch.Tensor    # (slots,) i32 pending row of the source window
+    valid: torch.Tensor     # (slots,) bool: the slot holds a live row
+
+    @property
+    def slots(self) -> int:
+        return self.lane.shape[0]
+
+
+def init_deferred(flush_every: int, capacity: int, n_features: int, *,
+                  device=None) -> DeferredDispatch:
+    """An empty buffer for ``flush_every`` windows of ``capacity`` rows, on
+    ``device`` (None: CUDA); every slot dead."""
+    dev = resolve_device(device)
+    n = flush_every * capacity
+    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=dev)
+    return DeferredDispatch(buf=zeros((n, n_features), torch.float32),
+                            lane=zeros((n,), torch.int32),
+                            window=zeros((n,), torch.int32),
+                            valid=zeros((n,), torch.bool))
+
+
+def chunk_dispatch(xs: torch.Tensor, fwd: torch.Tensor,
+                   capacity: int) -> DeferredDispatch:
+    """``dispatch`` over every window of a chunk at once.
+
+    xs (K, W, F) feature rows, fwd (K, W) forward masks -> one
+    ``DeferredDispatch`` covering the chunk: each window capacity-bounded
+    exactly as the per-window path bounds it (a stable argsort along the
+    lane axis, forwarded lanes first in lane order), the return addresses
+    laid out row-major, so slot ``k*capacity + i`` is window k's i-th
+    dispatched row.
+    """
+    k, w, f = xs.shape
+    order = torch.argsort((~fwd).to(torch.int32), dim=1, stable=True)
+    idx = order[:, :capacity]                               # (K, cap)
+    cap = idx.shape[1]
+    buf = torch.gather(xs, 1, idx[:, :, None].expand(k, cap, f))
+    return DeferredDispatch(
+        buf=buf.reshape(k * cap, f),
+        lane=idx.reshape(-1).to(torch.int32),
+        window=torch.arange(k, dtype=torch.int32,
+                            device=xs.device).repeat_interleave(cap),
+        valid=torch.gather(fwd, 1, idx).reshape(-1))
+
+
+def backpatch_pending(pending: torch.Tensor, backend_pred: torch.Tensor,
+                      dd: DeferredDispatch) -> torch.Tensor:
+    """Scatter the backend's answers into the pending predictions.
+
+    ``pending`` (P, W) holds each pending window's switch answers; every
+    live slot overwrites its (window, lane) address with the backend's
+    answer. Dead slots write into a scratch row past the P pending rows,
+    which is dropped (the reference's ``mode="drop"``), so a partly filled
+    buffer patches exactly its live rows. Live addresses are unique, so the
+    scatter is deterministic. Returns a new tensor.
+    """
+    p, w = pending.shape
+    out = torch.cat([pending, pending.new_empty((1, w))])
+    row = torch.where(dd.valid, dd.window, p).long()
+    out[row, dd.lane.long()] = backend_pred.to(pending.dtype)
+    return out[:p]
 
 
 def hybrid_serve(art: TableArtifact, backend_fn: Callable, x,

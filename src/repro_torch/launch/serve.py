@@ -2,20 +2,24 @@
 
 ``python -m repro_torch.launch.serve --use-case anomaly --threshold 0.7``
 trains the small switch model (random forest) and the large backend
-(XGBoost) on the synthetic UNSW-like data, maps the switch model to tables,
+(XGBoost) on the synthetic use-case data, maps the switch model to tables,
 stands up the HybridServer, runs batched requests through it and prints the
 paper's telemetry (fraction handled, accuracy, P/R/F1). Port of
-``repro/launch/serve.py`` for ``--use-case anomaly`` with both backends.
+``repro/launch/serve.py``.
 
-For the anomaly use case the switch sees the full 5-feature vector, so the
-backend scores the dispatched rows directly. ``--backend lm`` scores them
-with a smoke-size qwen3-4b instead (``lm_backend``): each forwarded row is
-re-encoded as 8 tokens and the class read from the last position's logits,
-as the reference does; the server probes whether that backend can be
-captured into its fused step (``fuse=None``, as the reference passes it)
-and the launcher prints the route taken. The ``finance`` use case (whose
-backend needs 130 features through a side channel) waits for a later
-slice.
+For the anomaly use case (UNSW-like) the switch sees the full 5-feature
+vector, so the backend scores the dispatched rows directly. For the
+finance use case (Jane-Street-like, §7.1.2) the switch sees the five
+``SWITCH_FEATURES`` and the XGB backend all 130 features: a forwarded
+request carries its full payload, which the launcher emulates by a side
+channel set per batch (``backend_fn.full_rows`` and ``backend_fn.idx``, the
+dispatch order recomputed with the server's own switch realization and
+tiles). ``--backend lm`` scores the forwarded rows with a smoke-size
+qwen3-4b instead (``lm_backend``): each row is re-encoded as 8 tokens and
+the class read from the last position's logits, as the reference does; the
+server probes whether that backend can be captured into its fused step
+(``fuse=None``, as the reference passes it) and the launcher prints the
+route taken.
 
 Runs on CUDA unless ``--device cpu`` is given. ``main`` returns what it
 served (predictions, stats, server, models) for callers that check it.
@@ -30,8 +34,10 @@ import torch
 
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.mapping import map_tree_ensemble
-from repro_torch.data.unsw_like import make_unsw_like, train_test_split
+from repro_torch.core.hybrid import dispatch
+from repro_torch.data import janestreet_like, unsw_like
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import fused_classify
 from repro_torch.kernels.tuning import TileConfig
 from repro_torch.ml.metrics import accuracy, precision_recall_f1
 from repro_torch.ml.trees import (fit_random_forest, fit_xgboost,
@@ -40,11 +46,32 @@ from repro_torch.models import model as M
 from repro_torch.serving.hybrid_serving import HybridServer
 
 
+USE_CASES = ("anomaly", "finance")
+
+
 def build_usecase(name: str = "anomaly", n=20000, seed=0):
-    if name != "anomaly":
-        raise NotImplementedError(f"use case {name!r} is not ported yet")
-    x, y = make_unsw_like(n, seed=seed, n_features=5)
-    return train_test_split(x, y)
+    """(x_train, y_train, x_test, y_test) numpy arrays of a use case: the
+    UNSW-like anomaly data (5 features) or the Jane-Street-like finance
+    data (130 features; the switch sees ``SWITCH_FEATURES``)."""
+    if name == "anomaly":
+        x, y = unsw_like.make_unsw_like(n, seed=seed, n_features=5)
+        return unsw_like.train_test_split(x, y)
+    if name == "finance":
+        x, y = janestreet_like.make_janestreet_like(n, seed=seed)
+        return janestreet_like.train_test_split(x, y)
+    raise ValueError(f"use case must be one of {USE_CASES}, got {name!r}")
+
+
+def side_channel_backend(model):
+    """The finance backend: it scores the full 130-feature rows of the
+    forwarded requests, ``backend_fn.full_rows[backend_fn.idx]``, whatever
+    switch-feature rows the server hands it. The caller sets both
+    attributes per batch before ``classify``."""
+    def backend_fn(rows_sw):
+        rows = backend_fn.full_rows[backend_fn.idx]
+        return (predict_margin_xgboost(model, rows) > 0).to(torch.int32)
+
+    return backend_fn
 
 
 def lm_backend(cfg, params):
@@ -60,9 +87,37 @@ def lm_backend(cfg, params):
     return backend_fn
 
 
+def serve_batches(server: HybridServer, x_test: torch.Tensor, batch: int, *,
+                  x_full: torch.Tensor = None) -> tuple:
+    """The launcher's serving loop: every whole batch of ``x_test`` through
+    ``server.classify``. -> (list of per-batch preds, last HybridStats).
+
+    With ``x_full`` (the finance use case) the server's backend is a
+    ``side_channel_backend``: before each classify the loop sets its
+    ``full_rows`` to the batch's full-feature rows and its ``idx`` to the
+    dispatch order, recomputed here with the SAME switch realization and
+    tiles the server uses so that it matches bit for bit (another
+    realization could order the dispatch differently and score the wrong
+    full-feature rows)."""
+    backend_fn = server.backend_fn
+    preds, stats = [], None
+    for lo in range(0, x_test.shape[0] - batch + 1, batch):
+        rows = x_test[lo:lo + batch]
+        if x_full is not None:
+            backend_fn.full_rows = x_full[lo:lo + batch]
+            _, conf = fused_classify(server.artifact, rows,
+                                     tiles=server.tiles,
+                                     device=server.device)
+            backend_fn.idx = dispatch(rows, conf < server.threshold,
+                                      server.capacity)[1]
+        pred, stats = server.classify(rows)
+        preds.append(pred)
+    return preds, stats
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--use-case", default="anomaly", choices=["anomaly"])
+    ap.add_argument("--use-case", default="anomaly", choices=USE_CASES)
     ap.add_argument("--threshold", type=float, default=0.7)
     ap.add_argument("--capacity", type=int, default=1024)
     ap.add_argument("--switch-trees", type=int, default=10)
@@ -86,18 +141,23 @@ def main(argv=None) -> dict:
     xtr, ytr, xte, yte = build_usecase(args.use_case, n=args.n_samples)
     if args.batch > len(xte):
         raise ValueError(f"--batch {args.batch} exceeds the {len(xte)} test rows")
+    finance = args.use_case == "finance"
+    sw = janestreet_like.SWITCH_FEATURES if finance else slice(None)
+    xsw_tr, xsw_te = xtr[:, sw], xte[:, sw]
 
     # small switch model (paper Table 3 "Medium") + big backend
-    small = fit_random_forest(xtr, ytr, n_classes=2,
+    small = fit_random_forest(xsw_tr, ytr, n_classes=2,
                               n_trees=args.switch_trees,
                               max_depth=args.switch_depth, seed=0, device=dev)
-    art = map_tree_ensemble(small, xtr.shape[1])
+    art = map_tree_ensemble(small, xsw_tr.shape[1])
     if args.backend == "ensemble":
         big = fit_xgboost(xtr, ytr, n_trees=args.backend_trees,
                           max_depth=args.backend_depth, device=dev)
-
-        def backend_fn(rows):
-            return (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
+        if finance:
+            backend_fn = side_channel_backend(big)
+        else:
+            def backend_fn(rows):
+                return (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
     else:
         cfg = get_smoke_config("qwen3-4b")
         big = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -105,20 +165,21 @@ def main(argv=None) -> dict:
         backend_fn = lm_backend(cfg, big)
 
     # the ensemble backend is served eagerly (fuse=False) and the LM backend
-    # probed for the fused step (fuse=None), as the reference's launcher does
+    # probed for the fused step (fuse=None), as the reference's launcher
+    # does. The finance backend reads per-batch side channels (idx and
+    # full_rows on the function object): it must never be captured into
+    # the fused step, which would replay the first batch's rows.
     server = HybridServer(art, backend_fn, threshold=args.threshold,
                           capacity=args.capacity,
                           tiles=TileConfig(select=args.select),
                           fuse=False if args.backend == "ensemble" else None,
                           device=dev)
 
-    x_test = torch.as_tensor(xte, device=dev)
-    n = x_test.shape[0]
-    preds = []
+    x_test = torch.as_tensor(xsw_te, device=dev)
+    x_full = (torch.as_tensor(xte, device=dev)
+              if finance and args.backend == "ensemble" else None)
     t0 = time.perf_counter()
-    for lo in range(0, n - args.batch + 1, args.batch):
-        pred, stats = server.classify(x_test[lo:lo + args.batch])
-        preds.append(pred)
+    preds, stats = serve_batches(server, x_test, args.batch, x_full=x_full)
     pred = torch.cat(preds)
     m = pred.shape[0]
     acc = accuracy(yte[:m], pred)          # reads the preds: syncs
@@ -134,7 +195,7 @@ def main(argv=None) -> dict:
           f"fused_ok={server._fused_ok}")
     return dict(pred=pred, stats=stats, server=server, switch_model=small,
                 backend_model=big, backend_fn=backend_fn, artifact=art,
-                x_test=x_test, y_test=yte,
+                x_test=x_test, x_full=x_full, y_test=yte,
                 batches=len(preds), acc=acc, precision=p, recall=r, f1=f1)
 
 

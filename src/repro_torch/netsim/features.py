@@ -1,17 +1,18 @@
 """Packet- and flow-level feature extraction (§5 of the paper), in PyTorch.
 
-Port of ``repro/netsim/features.py`` (the parts the streaming slice
-needs). Switch mechanism -> realization:
+Port of ``repro/netsim/features.py``. Switch mechanism -> realization:
   parser header extraction   -> elementwise maps over packet columns
   hash(flow 5-tuple)         -> vectorized FNV-1a integer hash
   per-flow registers         -> ``index_add_`` / ``scatter_reduce_`` keyed
                                 by hash bucket
+  payload parsing (§5.3)     -> digit accumulation over the bytes of a
+                                fixed-width field, one column at a time
 
 Hash-bucket collisions are real (they are on the switch too): features of
 colliding flows merge, exactly like two flows sharing a register slot.
 
-The aggregate-level and file-level (CSV payload) features are not ported
-yet.
+The payload parse runs where its input lies: on a CUDA tensor it is the
+switch's parse on the card, on a CPU tensor the same ops on the CPU.
 """
 
 from __future__ import annotations
@@ -151,3 +152,125 @@ def flow_features(trace, n_buckets=4096, *, device=None):
         segment_max(ts, b, n_buckets), seg(fwd), seg(1.0 - fwd),
         seg(ln * fwd), seg(ln * (1.0 - fwd)))
     return b, table
+
+
+def aggregate_features(trace, *, key: str = "dport", n_buckets=1024,
+                       device=None):
+    """Aggregate-level features over a traffic group (§5.2).
+
+    Groups packets by a coarse key (e.g. destination port = "traffic toward
+    application X") and reduces volume/rate statistics per group. Returns
+    (group_ids (P,) int32, agg_table (n_buckets, 3): pkts, bytes, rate) on
+    ``device`` (None: CUDA). Timestamps are rebased in float64 before the
+    f32 cast, as ``flow_features`` does; a group with no duration has rate 0.
+    """
+    dev = resolve_device(device)
+    col = torch.as_tensor(np.asarray(getattr(trace, key)), device=dev)
+    g = (col.to(torch.int32) % n_buckets).to(torch.int32)
+    ln = torch.as_tensor(np.asarray(trace.length, np.float32), device=dev)
+    ts = rebase_ts(trace.ts, device=dev)
+    cnt = segment_sum(torch.ones_like(ln), g, n_buckets)
+    byt = segment_sum(ln, g, n_buckets)
+    dur = torch.where(cnt > 0, segment_max(ts, g, n_buckets)
+                      - segment_min(ts, g, n_buckets), 0.0)
+    rate = torch.where(dur > 0, byt / torch.clamp(dur, min=1e-6), 0.0)
+    return g, torch.stack([cnt, byt, rate], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# file-level (§5.3): fixed-width csv payloads, fields split across packets
+# ---------------------------------------------------------------------------
+
+def _format_fixed(v: float, width: int) -> str:
+    """Format ``v`` into exactly ``width`` ASCII chars, dropping fractional
+    digits to fit, so every retained digit is a correctly rounded one (a
+    right-truncated rendering would be a different number)."""
+    for prec in range(3, -1, -1):
+        s = f"{v:.{prec}f}"
+        if len(s) <= width:
+            return s.rjust(width)
+    raise ValueError(f"value {v!r} does not fit in {width} ASCII chars")
+
+
+def encode_csv_payload(values, width=8) -> np.ndarray:
+    """Encode float rows as fixed-width ASCII columns (the paper's
+    reformatted Jane Street file: "columns of eight characters"). Host-side.
+
+    values (R, C) -> uint8 bytes (R, C*width) numpy.
+    """
+    values = np.asarray(values)
+    r, c = values.shape
+    out = np.zeros((r, c * width), np.uint8)
+    for i in range(r):
+        row = "".join(_format_fixed(float(v), width) for v in values[i])
+        out[i] = np.frombuffer(row.encode("ascii"), np.uint8)
+    return out
+
+
+def _ascii_to_float(field: torch.Tensor) -> torch.Tensor:
+    """Parse fixed-width ASCII numeric fields (N, W) uint8 -> (N,) float32.
+
+    Switch-feasible parsing: digit accumulation with sign and decimal
+    point, no branches, each byte contributing by a masked multiply-add.
+    The reference scans the W byte columns; this loops over them, with the
+    reference's roundings: ``val * 10 + d`` and ``frac_scale * 0.1`` are
+    separate f32 ops, while ``val + d * frac_scale`` rounds once, as the
+    reference's compiled scan gives it (XLA contracts it into a fused
+    multiply-add). That step runs in float64, where the product and the
+    sum are exact for fields of up to 9 characters, and is rounded to f32
+    once; the card and the CPU then agree bit for bit.
+    """
+    dev = field.device
+    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
+    ten, tenth = f32(10.0), f32(0.1)
+    is_digit = (field >= 48) & (field <= 57)
+    digit = torch.where(is_digit, field.to(torch.int32) - 48,
+                        0).to(torch.float32)
+    is_dot = field == 46
+    n, w = field.shape
+    val = torch.zeros(n, dtype=torch.float32, device=dev)
+    frac_scale = torch.ones(n, dtype=torch.float32, device=dev)
+    seen_dot = torch.zeros(n, dtype=torch.bool, device=dev)
+    for j in range(w):
+        d, dot, dig = digit[:, j], is_dot[:, j], is_digit[:, j]
+        val = torch.where(dig & ~seen_dot, val * ten + d, val)
+        frac_scale = torch.where(dig & seen_dot, frac_scale * tenth,
+                                 frac_scale)
+        frac = (val.to(torch.float64)
+                + d.to(torch.float64) * frac_scale.to(torch.float64))
+        val = torch.where(dig & seen_dot, frac.to(torch.float32), val)
+        seen_dot = seen_dot | dot
+    sign = torch.where((field == 45).any(dim=1), -1.0, 1.0)
+    return sign * val
+
+
+def _as_payload(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(np.asarray(a, np.uint8),
+                           device=resolve_device(device))
+
+
+def stitch_split_payload(first_pkt, second_pkt, *, device=None):
+    """Re-stitch a record split across two packets (§5.3).
+
+    Models the switch mechanism: the tail bytes of packet k are saved in a
+    register and prepended to packet k+1 before parsing. first_pkt (R, A),
+    second_pkt (R, B) uint8 -> (R, A+B), on the first tensor's device (host
+    arrays go to ``device``, None: CUDA).
+    """
+    first = _as_payload(first_pkt, device)
+    second = _as_payload(second_pkt, first.device).to(first.device)
+    return torch.cat([first, second], dim=1)
+
+
+def file_features_csv(payload, feature_cols, width=8, *, device=None):
+    """Extract selected fixed-width columns from csv payload bytes.
+
+    payload (R, C*width) uint8 (use ``stitch_split_payload`` first when a
+    row spans packets) -> (R, len(feature_cols)) float32, parsed where the
+    payload lies (host arrays go to ``device``, None: CUDA).
+    """
+    payload = _as_payload(payload, device)
+    return torch.stack([_ascii_to_float(payload[:, c * width:(c + 1) * width])
+                        for c in feature_cols], dim=1)

@@ -1,8 +1,8 @@
 """Streaming flow-table tier: per-flow registers updated window by window.
 
-Port of ``repro/netsim/stream.py`` (the per-window path). The paper's
-challenge (ii) is extracting features *on the data plane*, where packets
-arrive continuously and per-flow registers are updated incrementally:
+Port of ``repro/netsim/stream.py``. The paper's challenge (ii) is
+extracting features *on the data plane*, where packets arrive continuously
+and per-flow registers are updated incrementally:
 
   register file   -> ``FlowTableState``: the stacked (8, N) register file
                      (pkt/byte counts, first/last ts, fwd/rev splits), one
@@ -19,7 +19,9 @@ arrive continuously and per-flow registers are updated incrementally:
   register readout-> ``flow_table_readout``: the same 8 feature columns as
                      the one-shot ``features.flow_features``
   recirculation   -> ``iter_windows``: fixed-size packet windows, the final
-                     one padded with invalid lanes
+                     one padded with invalid lanes; ``iter_chunks``: K
+                     windows stacked into one (K, W) ``PacketChunk``, which
+                     ``chunk_update_readout`` folds in order
 
 Bit-consistency contract (the reference's, held by the tests): streaming
 over W windows reproduces the batch ``flow_features`` table bit for bit,
@@ -33,8 +35,7 @@ to the trace's minimum timestamp.
 The register file lives in one (8, N) tensor so the kernel can update it
 in place: on the card ``window_update_readout`` consumes the state it is
 given, and callers keep only the state it returns (the reference's
-donation contract). The chunked megastep (``PacketChunk``,
-``chunk_update_readout``, ``iter_chunks``) is not ported yet.
+donation contract).
 """
 
 from __future__ import annotations
@@ -412,14 +413,25 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
         from their rows before the update and the kernel's rows after it,
         with no copy of the register file.
     """
-    kw = dict(evict_policy=evict_policy, lru_occupancy=lru_occupancy,
-              use_kernel=use_kernel)
     if use_kernel is False:
         prev = state
         state = update_flow_table(state, w)
-        state, n_ev, n_ov = lifecycle_sweep(state, w, evict_age, saturate,
-                                            prev=prev, **kw)
+        state, n_ev, n_ov = lifecycle_sweep(
+            state, w, evict_age, saturate, prev=prev,
+            evict_policy=evict_policy, lru_occupancy=lru_occupancy,
+            use_kernel=False)
         return state, flow_table_readout(state, w.bucket), n_ev, n_ov
+    state, rows, n_ev, n_ov = _register_half(
+        state, w, evict_age=evict_age, saturate=saturate,
+        evict_policy=evict_policy, lru_occupancy=lru_occupancy)
+    return state, table_from_registers(*rows), n_ev, n_ov
+
+
+def _register_half(state: FlowTableState, w: PacketWindow, *, evict_age,
+                   saturate, evict_policy, lru_occupancy) -> tuple:
+    """``window_update_readout``'s kernel route up to the raw rows: B5, the
+    sweep, the overflow guard. -> (state, rows (8, W) register rows at the
+    window's lanes, n_evicted, n_overflow)."""
     if saturate:
         # gathered before the kernel writes the register file in place
         bucket = w.bucket.long()
@@ -433,13 +445,105 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
                                    evict_fills(regs.device))
         state, n_ov = FlowTableState(regs), None
     else:
-        state, n_ev, n_ov = lifecycle_sweep(FlowTableState(regs), w,
-                                            evict_age, False, **kw)
+        state, n_ev, n_ov = lifecycle_sweep(
+            FlowTableState(regs), w, evict_age, False,
+            evict_policy=evict_policy, lru_occupancy=lru_occupancy)
     if saturate:
         n_ov = _newly_saturated(before, rows, bucket, state.n_buckets)
     elif n_ov is None:
         n_ov = torch.zeros((), dtype=torch.int32, device=regs.device)
-    return state, table_from_registers(*rows), n_ev, n_ov
+    return state, rows, n_ev, n_ov
+
+
+@dataclasses.dataclass
+class PacketChunk:
+    """K windows stacked into one (K, W) transfer.
+
+    Row k is exactly the ``PacketWindow`` the per-window path would have
+    seen (the bit-equality contract of chunked serving depends on it). A
+    ragged final chunk is padded with *dead* windows, every lane invalid,
+    which fold nothing into the registers, dispatch nothing and report -1
+    on every lane.
+    """
+    bucket: torch.Tensor    # (K, W) int32 flow-hash bucket ids
+    ts: torch.Tensor        # (K, W) f32 rebased seconds
+    length: torch.Tensor    # (K, W) f32 packet bytes
+    is_fwd: torch.Tensor    # (K, W) f32 1.0 = forward
+    valid: torch.Tensor     # (K, W) bool (an all-False row: a dead window)
+
+    @property
+    def n_windows(self) -> int:
+        return self.bucket.shape[0]
+
+    @property
+    def window(self) -> int:
+        return self.bucket.shape[1]
+
+    def window_at(self, k: int) -> PacketWindow:
+        """Row k as a ``PacketWindow`` (views of the chunk's rows)."""
+        return PacketWindow(bucket=self.bucket[k], ts=self.ts[k],
+                            length=self.length[k], is_fwd=self.is_fwd[k],
+                            valid=self.valid[k])
+
+
+def packet_chunk_from_arrays(bucket, ts, length, is_fwd, valid, *,
+                             device=None) -> PacketChunk:
+    """A chunk from host (K, W) arrays (how the reference's ``PacketChunk``
+    crosses over). device=None: CUDA."""
+    w = packet_window_from_arrays(bucket, ts, length, is_fwd, valid,
+                                  device=device)
+    return PacketChunk(bucket=w.bucket, ts=w.ts, length=w.length,
+                       is_fwd=w.is_fwd, valid=w.valid)
+
+
+def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
+                         evict_age: Optional[float] = None,
+                         saturate: bool = True,
+                         evict_policy: str = "timeout",
+                         lru_occupancy: float = 0.75,
+                         use_kernel: Optional[bool] = None) -> tuple:
+    """Whole-chunk register half: fold the chunk's K windows in order.
+
+    Returns ``(state, xs (K, W, 8), n_evicted, n_overflow)``, bit-identical
+    to K ``window_update_readout`` steps: each window's readout rows as
+    they stood after its own fold and sweep, and the counts summed over the
+    chunk. Everything row-wise (classify, dispatch) runs on the stacked rows
+    after this returns.
+
+    By default each window is the kernel route of ``window_update_readout``
+    (the counterpart of the reference's Pallas branch): B5 in place, B6's
+    timeout sweep in place when ``evict_age`` is set, and the overflow guard
+    on the window's columns, which gathers their rows before that window's
+    B5 writes them; the feature derivation runs once over the stacked
+    (8, K*W) raw rows. On a CUDA tensor that is K launches of B5 (and K of
+    the sweep), in place on ``state.regs``: keep only the returned state.
+    use_kernel=False loops the plain window step instead. The reference's
+    plain route packs the registers into (N, 6)/(N, 2) arrays for its scan;
+    this register file stays the stacked (8, N) one, which binds the result
+    no more than the TPU layout does.
+    """
+    k, w_lanes = chunk.bucket.shape
+    dev = state.regs.device
+    n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+    n_ov = torch.zeros((), dtype=torch.int32, device=dev)
+    kw = dict(evict_age=evict_age, saturate=saturate,
+              evict_policy=evict_policy, lru_occupancy=lru_occupancy)
+    if use_kernel is False:
+        xs = []
+        for i in range(k):
+            state, x, ev, ov = window_update_readout(
+                state, chunk.window_at(i), use_kernel=False, **kw)
+            xs.append(x)
+            n_ev, n_ov = n_ev + ev, n_ov + ov
+        return state, torch.stack(xs), n_ev, n_ov
+    rows = []
+    for i in range(k):
+        state, r, ev, ov = _register_half(state, chunk.window_at(i), **kw)
+        rows.append(r)
+        n_ev, n_ov = n_ev + ev, n_ov + ov
+    raw = torch.stack(rows, dim=1).reshape(len(REGISTER_FIELDS), k * w_lanes)
+    xs = table_from_registers(*raw).reshape(k, w_lanes, FLOW_FEATURES)
+    return state, xs, n_ev, n_ov
 
 
 def trace_columns(trace, n_buckets: int, *, t0: Optional[float] = None,
@@ -503,6 +607,60 @@ def iter_windows(trace, window: int, n_buckets: int, *,
         sl = slice(s, s + window)
         yield PacketWindow(valid=valid[sl],
                            **{k: v[sl] for k, v in on_dev.items()})
+
+
+def pack_chunk_columns(cols: dict, n: int, window: int, rows: int) -> tuple:
+    """Pack ``n`` packets of host columns into ``rows`` windows of
+    ``window`` lanes. -> (full_cols, valid) as flat (rows*window,) numpy
+    arrays.
+
+    The single padding rule of the chunk iterators: the ragged final *live*
+    window replicates the last packet (valid=False on the pad lanes), and
+    every window beyond the live ones is *dead*: all-zero columns, every
+    lane invalid, so it folds nothing into the registers, dispatches
+    nothing and reports -1 on every lane.
+    """
+    n_win = -(-n // window) if n else 0
+    if n_win > rows:
+        raise ValueError(f"{n} packets need {n_win} windows of {window} "
+                         f"lanes, only {rows} rows available")
+    live = _pad_columns(cols, n, n_win * window)
+    full = {k: np.zeros((rows * window,), v.dtype) for k, v in live.items()}
+    for k, v in live.items():
+        full[k][:n_win * window] = v
+    valid = np.zeros((rows * window,), bool)
+    valid[:n_win * window] = np.arange(n_win * window) < n
+    return full, valid
+
+
+def iter_chunks(trace, window: int, chunk_windows: int, n_buckets: int, *,
+                t0: Optional[float] = None, bucket=None,
+                device=None) -> Iterator[PacketChunk]:
+    """Stack the trace's windows K at a time into (K, W) PacketChunks on
+    ``device`` (None: CUDA).
+
+    Each column crosses to the device once for the whole trace, and a chunk
+    is a row-range slice of it. Row k of a chunk equals the k-th
+    ``iter_windows`` window bit for bit (the same padding, the same rebase
+    against ``t0``, default the trace minimum); the final chunk is padded
+    to K rows with dead windows (``pack_chunk_columns``).
+    """
+    dev = resolve_device(device)
+    cols, _ = trace_columns(trace, n_buckets, t0=t0, bucket=bucket)
+    n = len(cols["ts"])
+    if not n:
+        return
+    n_win = -(-n // window)
+    n_chunks = -(-n_win // chunk_windows)
+    rows = n_chunks * chunk_windows
+    full, valid = pack_chunk_columns(cols, n, window, rows)
+    on_dev = {k: torch.as_tensor(v.reshape(rows, window), device=dev)
+              for k, v in full.items()}
+    valid = torch.as_tensor(valid.reshape(rows, window), device=dev)
+    for c in range(n_chunks):
+        sl = slice(c * chunk_windows, (c + 1) * chunk_windows)
+        yield PacketChunk(valid=valid[sl],
+                          **{k: v[sl] for k, v in on_dev.items()})
 
 
 def stream_flow_features(trace, n_buckets=4096, window=1024, *,

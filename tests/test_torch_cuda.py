@@ -812,8 +812,10 @@ def test_streaming_server_on_card_equals_cpu(cuda, evict_policy):
     if evict_policy is not None:
         kw.update(evict_age=2.0, evict_policy=evict_policy)
     big_dev = big.to(cuda)
+    # the eager route, whose launches are counted step by step (the graph
+    # routes are held to it in test_chunked_server_on_card_equals_cpu)
     card = StreamingHybridServer(
-        art, lambda r: predict_tree_ensemble(big_dev, r), **kw)
+        art, lambda r: predict_tree_ensemble(big_dev, r), fuse=False, **kw)
     host = StreamingHybridServer(
         art, lambda r: predict_tree_ensemble(big, r), device="cpu", **kw)
     su_before, ev_before = su.LAUNCHES["stream_update"], ev.LAUNCHES["evict_fill"]
@@ -838,6 +840,226 @@ def test_streaming_server_on_card_equals_cpu(cuda, evict_policy):
         card.step(w)
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# -- chunked streaming and the step graphs on the card ---------------------------
+
+@pytest.fixture(scope="module")
+def stream_served():
+    """A 400-flow trace, a 4x3 RF switch and a 12x5 RF backend trained on
+    the CPU (the backend also on the card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.ml.trees import fit_random_forest
+    from repro_torch.netsim.features import flow_features
+    from repro_torch.netsim.packets import synth_trace
+    trace = synth_trace(n_flows=400, seed=3)
+    b, table = flow_features(trace, n_buckets=4096, device="cpu")
+    first = np.unique(trace.flow_id, return_index=True)[1]
+    rows = table[b[first].long()]
+    small = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=4,
+                              max_depth=3, seed=0, device="cpu")
+    big = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=12,
+                            max_depth=5, seed=1, device="cpu")
+    return trace, map_tree_ensemble(small, 8), big, big.to("cuda")
+
+
+def _stream_kw(evict):
+    kw = dict(n_buckets=4096, window=256, threshold=0.9, capacity=32)
+    if evict:
+        kw["evict_age"] = 1.0
+    return kw
+
+
+def _rf_backend(big):
+    from repro_torch.ml.trees import predict_tree_ensemble
+    return lambda r: predict_tree_ensemble(big, r)
+
+
+def _same_stats(a, b, *, flushes=True):
+    da_, db_ = a.as_dict(), b.as_dict()
+    for k in da_:
+        if k in ("conf_sum", "mean_conf") or (k == "flushes" and not flushes):
+            continue
+        assert da_[k] == db_[k], k
+    np.testing.assert_allclose(da_["conf_sum"], db_["conf_sum"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("evict", [False, True])
+@pytest.mark.parametrize("k", [1, 8])
+def test_chunked_server_on_card_equals_cpu(stream_served, k, evict):
+    """Chunked serving on the card, eager (launches counted: K B5, one B1
+    and K sweeps a chunk) and through its CUDA graph, against the CPU's
+    chunked and per-window servers: predictions, flow table, counters."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, big, big_dev = stream_served
+    kw = _stream_kw(evict)
+    host = StreamingHybridServer(art, _rf_backend(big), chunk_windows=k,
+                                 device="cpu", **kw)
+    p_host, s_host = host.serve_trace(trace)
+    per_window = StreamingHybridServer(art, _rf_backend(big), device="cpu",
+                                       **kw)
+    p_win, s_win = per_window.serve_trace(trace)
+    eager = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=k,
+                                  fuse=False, **kw)
+    select = ek.resolve_select("auto", eager.artifact.n_trees,
+                               eager.artifact.dtable_flat.shape[2],
+                               eager.artifact.dtable_flat.shape[0])
+    before = (su.LAUNCHES["stream_update"], ek.LAUNCHES[select],
+              ev.LAUNCHES["evict_fill"])
+    p_eager, s_eager = eager.serve_trace(trace)
+    n_chunks = s_eager.n_flushes
+    assert n_chunks == -(-s_eager.n_windows // k)
+    assert (su.LAUNCHES["stream_update"] - before[0],
+            ek.LAUNCHES[select] - before[1],
+            ev.LAUNCHES["evict_fill"] - before[2]) == (
+        k * n_chunks, n_chunks, k * n_chunks if evict else 0)
+    graph = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=k,
+                                  **kw)
+    p_graph, s_graph = graph.serve_trace(trace)
+    assert graph._fused_ok is True
+    assert set(graph._step_graphs) == {("chunk", (k, 256))}
+    for p, s, srv in ((p_eager, s_eager, eager), (p_graph, s_graph, graph)):
+        assert torch.equal(p.cpu(), p_host) and torch.equal(p.cpu(), p_win)
+        assert torch.equal(srv.flow_table().cpu(), host.flow_table())
+        _same_stats(s, s_host)
+        _same_stats(s, s_win, flushes=False)
+    if evict:
+        assert s_graph.n_evicted > 0
+
+
+@pytest.mark.parametrize("k", [1, 8])
+def test_chunk_graph_counts_evictions_in_every_replay(stream_served, k):
+    """Chunk by chunk with eviction, the graph route's running counters
+    (evictions included, from B6's sweep replayed K times a chunk) and
+    predictions equal the eager route's after every chunk; one replayed
+    step_chunk does not sync the host."""
+    from repro_torch.netsim.stream import iter_chunks
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = _stream_kw(True)
+    eager = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=k,
+                                  fuse=False, **kw)
+    graph = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=k,
+                                  **kw)
+    for c in iter_chunks(trace, 256, k, 4096):
+        pe, he = eager.step_chunk(c)
+        pg, hg = graph.step_chunk(c)
+        assert torch.equal(pe, pg)
+        assert torch.equal(he.as_tensors()[1], hg.as_tensors()[1])
+        _same_stats(eager.stats, graph.stats)
+    assert graph.stats.n_evicted > 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.step_chunk(c)
+        eager.step_chunk(c)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_reset_under_captured_graphs(stream_served):
+    """``reset`` refills the carries in place: the captured graphs stay
+    valid and serve the trace again to the same answers, no re-capture."""
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    srv = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=8,
+                                **_stream_kw(True))
+    p1, s1 = srv.serve_trace(trace)
+    graphs = dict(srv._step_graphs)
+    ptrs = (srv.state.regs.data_ptr(), srv._stats.windows.data_ptr())
+    srv.reset()
+    assert srv.stats.n_windows == 0 and float(srv.state.regs[0].sum()) == 0
+    p2, s2 = srv.serve_trace(trace)
+    assert srv._step_graphs == graphs
+    assert (srv.state.regs.data_ptr(), srv._stats.windows.data_ptr()) == ptrs
+    assert torch.equal(p1, p2)
+    _same_stats(s1, s2)
+
+
+def test_window_graph_equals_eager_and_mixes_with_chunks(stream_served):
+    """The per-window step as a CUDA graph equals the eager step; windows
+    and chunks served in turns on one graph server give the per-window
+    answers (both graphs share the carries)."""
+    from repro_torch.netsim.stream import iter_chunks
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = _stream_kw(True)
+    eager = StreamingHybridServer(art, _rf_backend(big_dev), fuse=False, **kw)
+    p_ref, s_ref = eager.serve_trace(trace)
+    graph = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    p_g, s_g = graph.serve_trace(trace)
+    assert set(graph._step_graphs) == {("window", (256,))}
+    assert torch.equal(p_ref, p_g)
+    _same_stats(s_ref, s_g)
+    assert torch.equal(eager.flow_table(), graph.flow_table())
+    mixed = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=2,
+                                  **kw)
+    preds = []
+    for i, c in enumerate(iter_chunks(trace, 256, 2, 4096)):
+        if i % 2:
+            preds.append(mixed.step_chunk(c)[0].reshape(-1))
+        else:
+            preds += [mixed.step(c.window_at(j))[0] for j in range(2)
+                      if bool(c.valid[j].any())]
+    assert set(mixed._step_graphs) == {("window", (256,)),
+                                       ("chunk", (2, 256))}
+    assert torch.equal(p_ref, torch.cat(preds)[:trace.n_packets])
+    _same_stats(s_ref, mixed.stats, flushes=False)
+    assert torch.equal(eager.flow_table(), mixed.flow_table())
+
+
+def test_syncing_backend_serves_chunks_eagerly(stream_served):
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = _stream_kw(True)
+
+    def np_backend(r):                         # a host round trip
+        return predict_tree_ensemble(big_dev, r).cpu().numpy()
+
+    ref = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=8,
+                                fuse=False, **kw)
+    p_ref, s_ref = ref.serve_trace(trace)
+    srv = StreamingHybridServer(art, np_backend, chunk_windows=8, **kw)
+    p, s = srv.serve_trace(trace)
+    assert srv._fused_ok is False and not srv._step_graphs
+    assert torch.equal(p_ref, p)
+    _same_stats(s_ref, s)
+
+
+def test_csv_parse_on_card_equals_cpu(cuda):
+    from repro_torch.data.janestreet_like import make_janestreet_like
+    from repro_torch.netsim.features import (encode_csv_payload,
+                                             file_features_csv,
+                                             stitch_split_payload)
+    x, _ = make_janestreet_like(600, seed=0)
+    payload = encode_csv_payload(x[:512], width=8)
+    host = file_features_csv(payload, list(range(130)), device="cpu")
+    whole = stitch_split_payload(payload[:, :700], payload[:, 700:],
+                                 device=cuda)
+    assert whole.device.type == "cuda"
+    card = file_features_csv(whole, list(range(130)))
+    assert torch.equal(card.cpu(), host)
+
+
+def test_finance_launcher_on_card_equals_plain(cuda):
+    """``--use-case finance`` on the card at a reduced size, against a
+    plain server over the same models and the same side channel."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.hybrid_serving import HybridServer
+    res = serve.main(["--use-case", "finance", "--device", "cuda",
+                      "--n-samples", "4000", "--backend-trees", "8",
+                      "--batch", "256", "--capacity", "64"])
+    plain = HybridServer(res["artifact"],
+                         serve.side_channel_backend(res["backend_model"]),
+                         capacity=64, use_kernel=False, fuse=False)
+    preds, _ = serve.serve_batches(plain, res["x_test"], 256,
+                                   x_full=res["x_full"])
+    assert torch.equal(res["pred"], torch.cat(preds))
 
 
 # -- B7: the per-feature-loop lookup ------------------------------------------------
