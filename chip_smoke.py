@@ -65,7 +65,10 @@ Phases (any failure exits non-zero before the result line is printed):
      selects), B4 at the finance fit (16,000 x 130 rows against 130 x 63
      edges), and the payload parse (``file_features_csv`` after
      ``stitch_split_payload``) on the card against the CPU's, on 512
-     finance rows split at byte 700, all 130 columns.
+     finance rows split at byte 700, all 130 columns, and on 4096 fields
+     whose integer parts lie in [2^24, 1e8) against their nearest f32; B1
+     also at 256 and 512 rows, and B5 and B6's sweep at (N=8192, W=512) and
+     (N=4096, W=256), the deferral and scenario phases' shapes.
   4. serve, each path with every launch count set to 0 just before it and
      read just after:
      a. ``repro_torch.launch.serve`` at its full default widths (RF 10x5
@@ -122,6 +125,29 @@ Phases (any failure exits non-zero before the result line is printed):
         plain server's over the same models and side channel; then
         ``repro_torch.examples.finance_lowlatency`` at its defaults, its
         parse and classify on the card equal to the CPU's.
+     i. cross-window deferral at the reference's deferral configuration
+        (``benchmarks/batch_bench.py:39-41``: phase c's trace and models at
+        windows of 512, capacity 64) through ``serve_trace`` with
+        ``flush_every`` in {1, 2, 4, 8}, without and with ``evict_age=5.0``,
+        through the deferred step's and the flush's CUDA graphs (warm-up and
+        capture counted; at k=1 the window step's graph and its probe) and
+        eagerly (B5, B1 and the sweep once a window): predictions and
+        backend rows equal k=1's bit for bit, ceil(windows / k) backend
+        calls (2x fewer at k >= 4), the graph route equal to the eager one
+        and both to the CPU port on the same models (every counter, the flow
+        table); at k=8 the occupancy (0.5) and deadline (2.0 s) flushes: the
+        same predictions with more flushes.
+     j. the four adversarial scenarios at the reference scenario bench's
+        configuration (``benchmarks/scenario_bench.py:75-91``, scale 1.0:
+        4096 buckets, windows of 256, capacity 64, tau 0.9, ``evict_age=
+        5.0``; an RF 4x3 switch and an RF 16x6 backend trained on the card
+        per trace) under its fault policy, with the profiles none, flaky20
+        and outage (eager, the guard's route: B5, B1 and the sweep once a
+        window): the clean profile equal to the unguarded server (its
+        graphs) with no failed flush; under faults the guard retried, a
+        failed flush degraded rows (always under the outage), the
+        accounting balances; each run equal to the CPU port under the same
+        seeded ``FaultyBackend``.
      f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
         params from ``init_model`` on the card, 17.65 GB) through
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
@@ -166,7 +192,13 @@ Phases (any failure exits non-zero before the result line is printed):
      packets per second of ``serve_trace`` per window (eager, graph)
      against chunked (K=16 eager and graph, "auto"); B1 at 16,384 and
      32,768 rows; B4 at the finance fit against ``torch.searchsorted``;
-     the finance classify (eager, device) and the example's parse.
+     the finance classify (eager, device) and the example's parse. Then
+     deferral: one deferred step and one flush by replaying each server's
+     own graph (k = 2, 4, 8, with eviction), a window's device time at each
+     k against the window step's graph at k=1 (W=512), the deferred step's
+     parts (the switch half, the deferral tail), a call of each route, and
+     ``serve_trace``'s ms and packets/s per k and route; each scenario's
+     guarded ``serve_trace``.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -703,15 +735,26 @@ def main() -> int:
     # -- 4h. serve: the finance use case and its example ----------------------
     finance = _serve_finance(torch, np, dev, serve, check_vs_cpu)
 
+    # -- 4i. serve: cross-window deferral through its graphs -------------------
+    deferred = _serve_deferred(torch, np, dev, stream_models)
+
+    # -- 4j. serve: the adversarial scenarios under the fault guard -----------
+    scenarios = _serve_scenarios(torch, np, dev)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
     # B1/B2 launches: the launcher's run, both streaming runs, path d, the
-    # chunked runs (4g) and the finance launcher (4h)
+    # chunked runs (4g), the finance launcher (4h), the deferral (4i) and
+    # scenario (4j) runs
+    slice_totals = {}
+    for totals in (chunked["totals"], deferred["totals"],
+                   scenarios["totals"]):
+        _add(slice_totals, totals)
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
                + sum(p[k] for p in tuned["paths"].values())
-               + chunked["totals"].get(k, 0) + finance["path"][k]
+               + slice_totals.get(k, 0) + finance["path"][k]
                for k in ("matmul", "compare")}
     kernel_rows = []
     # B2 at both of its main-path shapes, each with its own launches: the
@@ -788,7 +831,7 @@ def main() -> int:
 
     stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
     for row, key in zip(stream_rows, ("stream_update", "evict_fill")):
-        row["launches"] += chunked["totals"].get(key, 0)   # 4g's runs
+        row["launches"] += slice_totals.get(key, 0)     # 4g, 4i, 4j
     kernel_rows += stream_rows
     for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
@@ -805,6 +848,9 @@ def main() -> int:
     kernel_rows += [chunk_rows[0], chunk_rows[2]]   # B1 at K=16, B4 at F=130
     print("times (phase 5, chunked streaming and finance): "
           + json.dumps(chunk_times))
+    defer_times = _time_deferred(torch, np, deferred, scenarios, smi)
+    print("times (phase 5, deferral and scenarios): "
+          + json.dumps(defer_times))
 
     lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
     kernel_rows.append(lm_row)
@@ -1299,7 +1345,7 @@ def _stream_models(torch, np, dev):
     def backend(r):
         return predict_tree_ensemble(big, r)
 
-    return dict(trace=trace, table=table, backend=backend,
+    return dict(trace=trace, table=table, backend=backend, big=big,
                 art=map_tree_ensemble(small, rows.shape[1]))
 
 
@@ -1675,7 +1721,10 @@ def _check_new_shapes(torch, np, dev, ek, bk, check_launch, models, fin):
                                        chunk, evict_age=5.0)
     x_chunk = xs.reshape(-1, xs.shape[2]).contiguous()
     cout, t, s_pad = tabs[2].shape
-    for n in (16 * STREAM_WINDOW, 32 * STREAM_WINDOW):
+    # B1 at the chunk classify's rows, and at the deferral phase's (512)
+    # and the scenario phase's (256) window rows
+    for n in (SCENARIO_WINDOW, DEFER_WINDOW, 16 * STREAM_WINDOW,
+              32 * STREAM_WINDOW):
         x = x_chunk[:n].contiguous()
         for select in ("auto", "matmul", "compare"):
             resolved = ek.resolve_select(select, t, s_pad, cout)
@@ -1705,6 +1754,18 @@ def _check_new_shapes(torch, np, dev, ek, bk, check_launch, models, fin):
           f"{SPLIT_AT} card_vs_cpu max_abs_diff={err}")
     if not torch.equal(card.cpu(), host):
         raise AssertionError("the payload parse on the card != the CPU's")
+    # integer parts past 2^24 (the integer step rounds once): each field
+    # parses to its own nearest f32, on the card as on the CPU
+    ints = np.random.default_rng(0).integers(1 << 24, 10 ** 8, (4096, 3))
+    big = encode_csv_payload(ints.astype(np.float64), width=8)
+    card = file_features_csv(torch.as_tensor(big, device=dev), [0, 1, 2])
+    want = torch.from_numpy(ints.astype(np.float32))
+    print(f"case csv_parse integer parts in [2^24, 1e8) rows=4096 width=8 "
+          f"card_vs_exact max_abs_diff={_max_abs_err(card.cpu(), want)}")
+    if not (torch.equal(card.cpu(), want) and torch.equal(
+            file_features_csv(big, [0, 1, 2], device="cpu"), want)):
+        raise AssertionError("the parse past 2^24 != the nearest f32")
+    _check_slice_stream_shapes(torch, dev)
     return dict(x_chunk=x_chunk, stream_art=art, fin_x=fin_x,
                 fin_edges=fin_edges, payload_whole=whole)
 
@@ -2157,6 +2218,415 @@ def _time_chunked(torch, np, ek, bk, models, chunked, shapes, finance,
                        window_replay_ms=wg_replay, packets_per_s=rates,
                        finance_classify_ms=f_call,
                        finance_classify_device_ms=f_dev)
+
+
+# -- cross-window deferral and the adversarial scenarios (phases 4i, 4j) -------
+
+# the reference's deferral configuration (benchmarks/batch_bench.py:39-41):
+# the streaming trace and models at windows of 512
+DEFER_WINDOW = 512
+DEFER_KS = (1, 2, 4, 8)
+DEFER_KW = dict(n_buckets=STREAM_BUCKETS, window=DEFER_WINDOW, threshold=0.9,
+                capacity=64)
+DEFER_TRIGGERS = (("occupancy", {"flush_occupancy": 0.5}),
+                  ("deadline", {"flush_deadline": 2.0}))
+# the reference's scenario configuration (benchmarks/scenario_bench.py:
+# 75-91) at scale 1.0, its fault profiles and its policy
+SCENARIO_WINDOW, SCENARIO_BUCKETS = 256, 4096
+SCENARIO_KW = dict(n_buckets=SCENARIO_BUCKETS, window=SCENARIO_WINDOW,
+                   capacity=64, threshold=0.9, evict_age=5.0)
+SCENARIO_ARGS = {
+    "ddos_flood": dict(n_background=400, n_attack=3000),
+    "collision_storm": dict(n_background=400, n_attack=2000,
+                            n_buckets=SCENARIO_BUCKETS, n_target_buckets=4),
+    "slow_loris": dict(n_background=400, n_slow=64, n_probes=6,
+                       idle_gap=4 * 5.0),
+    "elephant_mice": dict(n_mice=1000, n_elephants=8, elephant_pkts=2000)}
+FAULT_PROFILES = {"none": None, "flaky20": dict(error_rate=0.2, seed=42),
+                  "outage": dict(outages=range(2, 6), seed=7)}
+
+
+def _scenario_policy():
+    from repro_torch.serving.faults import FaultPolicy
+    return FaultPolicy(max_retries=1, backoff_base_s=0.0,
+                       breaker_threshold=3, breaker_cooldown=4)
+
+
+def _check_slice_stream_shapes(torch, dev):
+    """Phase 3 at the deferral and scenario phases' register shapes: B5 and
+    B6's timeout sweep at (N=8192, W=512) and (N=4096, W=256) against their
+    plain versions, atol=0, one launch a call."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.netsim.stream import OVERFLOW_LIMIT, evict_fills
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    fills = evict_fills(dev)
+    for n, w in ((STREAM_BUCKETS, DEFER_WINDOW),
+                 (SCENARIO_BUCKETS, SCENARIO_WINDOW)):
+        for limit in (None, OVERFLOW_LIMIT):
+            base = OVERFLOW_LIMIT - 60000.0 if limit else 0.0
+            regs, cols = _stream_inputs(torch, dev, n, w, base=base, gen=gen)
+            want = su.stream_update_ref(regs, *cols, limit=limit)
+            before = su.LAUNCHES["stream_update"]
+            got = su.stream_update(regs.clone(), *cols, limit=limit)
+            torch.cuda.synchronize()
+            launched = su.LAUNCHES["stream_update"] - before
+            err = max(_max_abs_err(got[0], want[0]),
+                      _max_abs_err(got[1], want[1]))
+            print(f"case stream_update N={n} W={w} limit={limit} "
+                  f"launches={launched} max_abs_diff={err}")
+            if launched != 1 or not (torch.equal(got[0], want[0])
+                                     and torch.equal(got[1], want[1])):
+                raise AssertionError(f"stream_update != plain at N={n} W={w}")
+        for case in SWEEP_CASES:
+            regs, ts, valid = _sweep_inputs(torch, dev, n, w, case, 5.0, gen)
+            want, want_n = ev.timeout_sweep_ref(regs, ts, valid, 5.0, fills)
+            before = ev.LAUNCHES["evict_fill"]
+            got, got_n = ev.timeout_sweep(regs.clone(), ts, valid, 5.0, fills)
+            torch.cuda.synchronize()
+            launched = ev.LAUNCHES["evict_fill"] - before
+            print(f"case evict_fill:timeout_sweep N={n} W={w} {case} "
+                  f"launches={launched} evicted={int(got_n)} max_abs_diff="
+                  f"{_max_abs_err(got, want)}")
+            if launched != 1 or not torch.equal(got, want) \
+                    or int(got_n) != int(want_n):
+                raise AssertionError(f"timeout sweep != plain at N={n} W={w}")
+
+
+def _want_launches(select, calls, evict):
+    return {"stream_update": calls, select: calls,
+            "evict_fill": calls if evict else 0}
+
+
+def _check_launches(path, want, name):
+    for key, count in path.items():
+        if count != want.get(key, 0):
+            raise AssertionError(f"{name}: {key} launched {count} times, "
+                                 f"want {want.get(key, 0)}")
+
+
+def _add(totals, path):
+    for key, count in path.items():
+        totals[key] = totals.get(key, 0) + count
+
+
+def _serve_deferred(torch, np, dev, models):
+    """Phase 4i: cross-window deferral at the reference's deferral
+    configuration (``DEFER_KW``: the streaming trace and models, windows of
+    512) through ``StreamingHybridServer.serve_trace`` with ``flush_every``
+    in DEFER_KS, without and with ``evict_age=5.0``, each through its CUDA
+    graphs (``fuse=None``: the deferred step's graph and the flush graph;
+    at k=1 the window step's) and eagerly (``fuse=False``), each with every
+    launch count set to 0 just before it and read just after (eager: B5, B1
+    and the sweep once a window; graph: the warm-up and the capture, and at
+    k=1 the probe). Checks: predictions and ``backend_rows`` equal k=1's
+    bit for bit (batch_bench's oracle 1), ceil(windows / k) backend calls
+    and at k >= 4 at least 2x fewer than k=1's (oracle 2), the graph route
+    equal to the eager one, and both to the CPU port on the same trace and
+    models (every counter; ``conf_sum`` at rtol 1e-5); then at k=8 the
+    occupancy (0.5) and deadline (2.0 s) flushes: the same predictions with
+    more flushes, through the graphs."""
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    trace, art, backend = models["trace"], models["art"], models["backend"]
+    big_cpu = models["big"].to("cpu")
+
+    def cpu_backend(r):
+        return predict_tree_ensemble(big_cpu, r)
+
+    out = {"totals": {}, "servers": {}, "trace": trace}
+    for name, extra in STREAM_RUNS:
+        kw = dict(DEFER_KW, **extra)
+        cpu = {}
+        for k in DEFER_KS:
+            host = StreamingHybridServer(art, cpu_backend, flush_every=k,
+                                         device="cpu", **kw)
+            cpu[k] = (host, *host.serve_trace(trace))
+        base = None
+        for k in DEFER_KS:
+            eager_pred = eager_stats = None
+            for route, fuse in (("graph", None), ("eager", False)):
+                srv = StreamingHybridServer(art, backend, flush_every=k,
+                                            fuse=fuse, **kw)
+                select = ek.resolve_select(
+                    "auto", srv.artifact.n_trees,
+                    srv.artifact.dtable_flat.shape[2],
+                    srv.artifact.dtable_flat.shape[0])
+                _reset_counts()
+                p, s = srv.serve_trace(trace)
+                torch.cuda.synchronize()
+                path = _counts()
+                n_win = s.n_windows
+                calls = n_win if route == "eager" else (3 if k == 1 else 2)
+                label = f"deferred {name} k={k} {route}"
+                print(f"main-path launches (i: {label}, {n_win} windows): "
+                      f"{path}")
+                _check_launches(path, _want_launches(select, calls, extra),
+                                label)
+                _add(out["totals"], path)
+                if base is None:
+                    base = (p, s)
+                p1, s1 = base
+                if not torch.equal(p, p1) \
+                        or s.total_backend_rows != s1.total_backend_rows \
+                        or s.n_deferred != s1.n_deferred:
+                    raise AssertionError(f"{label}: != flush_every=1")
+                if s.n_flushes != -(-n_win // k) or (
+                        k >= 4 and 2 * s.n_flushes > s1.n_flushes):
+                    raise AssertionError(f"{label}: {s.n_flushes} flushes")
+                host, p_cpu, s_cpu = cpu[k]
+                if not torch.equal(p.cpu(), p_cpu) or not torch.equal(
+                        srv.flow_table().cpu(), host.flow_table()):
+                    raise AssertionError(f"{label}: != the CPU port")
+                _same_stream_stats(s, s_cpu, f"{label} vs CPU")
+                if route == "graph":
+                    want_graphs = ({("window", (DEFER_WINDOW,))} if k == 1
+                                   else {("defer", (DEFER_WINDOW,)),
+                                         ("flush", (k * 64, 8))})
+                    if srv._fused_ok is not True \
+                            or set(srv._step_graphs) != want_graphs:
+                        raise AssertionError(f"{label}: graphs "
+                                             f"{sorted(srv._step_graphs)}")
+                else:
+                    if not torch.equal(p, eager_pred):
+                        raise AssertionError(f"{label}: != the graph route")
+                    _same_stream_stats(s, eager_stats, f"{label} vs graph")
+                eager_pred, eager_stats = p, s
+                out["servers"][(name, k, route)] = srv
+                print(f"serve_trace[{label}] packets={s.n_packets} windows="
+                      f"{n_win} flushes={s.n_flushes} backend_rows="
+                      f"{s.total_backend_rows} deferred={s.n_deferred} "
+                      f"evicted={s.n_evicted} fraction_handled="
+                      f"{s.fraction_handled:.4f} preds_equal_k1=True "
+                      f"equal_cpu=True" + (" equal_graph=True"
+                                           if route == "eager" else ""))
+        fixed = out["servers"][(name, 8, "graph")].stats.n_flushes
+        for trig, tkw in DEFER_TRIGGERS:
+            srv = StreamingHybridServer(art, backend, flush_every=8, **kw,
+                                        **tkw)
+            _reset_counts()
+            p, s = srv.serve_trace(trace)
+            torch.cuda.synchronize()
+            path = _counts()
+            label = f"deferred {name} k=8 {trig} graph"
+            print(f"main-path launches (i: {label}): {path}")
+            _check_launches(path, _want_launches(select, 2, extra), label)
+            _add(out["totals"], path)
+            if not torch.equal(p, base[0]) or s.n_flushes <= fixed \
+                    or s.total_backend_rows != base[1].total_backend_rows:
+                raise AssertionError(f"{label}: {s.n_flushes} flushes "
+                                     f"against {fixed}, or other answers")
+            print(f"serve_trace[{label}] flushes={s.n_flushes} (fixed "
+                  f"cadence {fixed}) preds_equal_k1=True")
+    return out
+
+
+def _trace_models(torch, np, dev, trace, n_buckets):
+    """The reference scenario bench's model recipe (``benchmarks/
+    common.py:108``): an RF 4x3 switch and an RF 16x6 backend trained on the
+    card on the trace's batch flow features. -> (artifact, backend, the
+    backend model)."""
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.ml.trees import fit_random_forest, predict_tree_ensemble
+    from repro_torch.netsim.features import flow_features
+    b, table = flow_features(trace, n_buckets=n_buckets)
+    first = np.unique(trace.flow_id, return_index=True)[1]
+    rows = table[b[torch.as_tensor(first, device=dev)].long()]
+    small = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=4,
+                              max_depth=3, seed=0, device=dev)
+    big = fit_random_forest(rows, trace.flow_label, n_classes=2, n_trees=16,
+                            max_depth=6, seed=1, device=dev)
+    return (map_tree_ensemble(small, rows.shape[1]),
+            lambda r: predict_tree_ensemble(big, r), big)
+
+
+def _serve_scenarios(torch, np, dev):
+    """Phase 4j: the four adversarial scenarios at the reference scenario
+    bench's configuration (``SCENARIO_ARGS`` at scale 1.0, ``SCENARIO_KW``)
+    served per window under its fault policy (the guard forces the eager
+    route: B5, B1 and the sweep once a window, counted from 0 per run) with
+    each fault profile. Checks: the clean profile equals the unguarded
+    server (its graphs) bit for bit with no failed flush; under a fault
+    profile the guard saw the faults (retries), a failed flush degrades
+    rows (``degraded > 0`` exactly when a flush failed, always under the
+    outage) and ``stats.check()`` holds; every run equals the CPU port under
+    the same seeded ``FaultyBackend`` (predictions, counters, the guard's
+    telemetry)."""
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.netsim.scenarios import make_scenario
+    from repro_torch.serving.faults import FaultyBackend
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    policy = _scenario_policy()
+    out = {"totals": {}, "runs": {}}
+    flaky_degraded = 0
+    for name, skw in SCENARIO_ARGS.items():
+        t0 = time.perf_counter()
+        trace = make_scenario(name, seed=0, **skw)
+        gen_s = time.perf_counter() - t0
+        truth = torch.as_tensor(trace.flow_label[trace.flow_id])
+        art, backend, big = _trace_models(torch, np, dev, trace,
+                                          SCENARIO_BUCKETS)
+        big_cpu = big.to("cpu")
+        cpu_backend = lambda r, m=big_cpu: predict_tree_ensemble(m, r)
+        ref = StreamingHybridServer(art, backend, **SCENARIO_KW)
+        p_ref, s_ref = ref.serve_trace(trace)
+        select = ek.resolve_select("auto", ref.artifact.n_trees,
+                                   ref.artifact.dtable_flat.shape[2],
+                                   ref.artifact.dtable_flat.shape[0])
+        print(f"scenario {name}: {trace.n_packets} packets, {trace.n_flows} "
+              f"flows, generated in {gen_s:.2f} s; unguarded (graphs) "
+              f"{s_ref!r}")
+        for profile, fkw in FAULT_PROFILES.items():
+            be = backend if fkw is None else FaultyBackend(backend, **fkw)
+            srv = StreamingHybridServer(art, be, fault_policy=policy,
+                                        **SCENARIO_KW)
+            _reset_counts()
+            p, s = srv.serve_trace(trace)       # check() inside
+            torch.cuda.synchronize()
+            path = _counts()
+            label = f"scenario {name} {profile}"
+            print(f"main-path launches (j: {label}, {s.n_windows} windows): "
+                  f"{path}")
+            _check_launches(path, _want_launches(select, s.n_windows, True),
+                            label)
+            _add(out["totals"], path)
+            g = srv.fault_stats
+            if fkw is None:
+                if not torch.equal(p, p_ref) or g.flushes_failed or \
+                        s.n_degraded:
+                    raise AssertionError(f"{label}: the guard is not "
+                                         f"invisible")
+                _same_stream_stats(s, s_ref, label)
+            else:
+                if (s.n_degraded > 0) != (g.flushes_failed > 0) or \
+                        not (g.retries or g.flushes_failed):
+                    raise AssertionError(f"{label}: {g}, degraded "
+                                         f"{s.n_degraded}")
+                if profile == "outage" and s.n_degraded == 0:
+                    raise AssertionError(f"{label}: nothing degraded")
+                if profile == "flaky20":
+                    flaky_degraded += s.n_degraded
+            cbe = (cpu_backend if fkw is None
+                   else FaultyBackend(cpu_backend, **fkw))
+            host = StreamingHybridServer(art, cbe, fault_policy=policy,
+                                         device="cpu", **SCENARIO_KW)
+            p_cpu, s_cpu = host.serve_trace(trace)
+            if not torch.equal(p.cpu(), p_cpu) \
+                    or g.as_dict() != host.fault_stats.as_dict():
+                raise AssertionError(f"{label}: != the CPU port")
+            _same_stream_stats(s, s_cpu, f"{label} vs CPU")
+            acc = float((p.cpu() == truth).float().mean())
+            out["runs"][(name, profile)] = dict(server=srv, trace=trace,
+                                                backend=be)
+            print(f"serve_trace[{label}] acc={acc:.4f} fraction_handled="
+                  f"{s.fraction_handled:.4f} backend_rows="
+                  f"{s.total_backend_rows} deferred={s.n_deferred} degraded="
+                  f"{s.n_degraded} evicted={s.n_evicted} overflow="
+                  f"{s.n_overflow} flushes={s.n_flushes} guard={g.as_dict()} "
+                  f"equal_cpu=True" + (" equal_unguarded=True"
+                                       if fkw is None else ""))
+    if flaky_degraded == 0:
+        raise AssertionError("flaky20 degraded nothing in any scenario")
+    return out
+
+
+def _time_deferred(torch, np, deferred, scenarios, smi):
+    """Phase 5 for the deferral and scenario phases: the device time of one
+    deferred step and of one flush by replaying each server's own graph
+    (k = 2, 4, 8, with eviction), the per-window device time at each k
+    against the window step's graph at k=1, a call of each route, and
+    ``serve_trace``'s ms and packets/s per k and route (median of 5), then
+    each scenario's serve_trace under the guard. -> a dict of the times."""
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import defer_tail
+    servers = deferred["servers"]
+    out = {"device_ms": {}, "serve_trace": {}, "scenarios": {}}
+    name = "evict_timeout"
+    k1 = servers[(name, 1, "graph")]
+    w1 = k1._step_graphs[("window", (DEFER_WINDOW,))][0]
+    window_ms = _median_ms(torch, w1.replay)
+    out["device_ms"]["window_step_k1"] = window_ms
+    for k in DEFER_KS[1:]:
+        srv = servers[(name, k, "graph")]
+        d_ms = _median_ms(torch, srv._step_graphs[("defer",
+                                                   (DEFER_WINDOW,))][0].replay)
+        f_ms = _median_ms(torch, srv._step_graphs[("flush",
+                                                   (k * 64, 8))][0].replay)
+        per = (k * d_ms + f_ms) / k
+        out["device_ms"][f"k{k}"] = dict(defer_step=d_ms, flush=f_ms,
+                                         per_window=per)
+        print(f"time deferred[{name}, W={DEFER_WINDOW}, k={k}] device by "
+              f"graph replay: deferred step {d_ms:.4f} ms, flush ({k * 64} "
+              f"rows) {f_ms:.4f} ms, a window {per:.4f} ms against the "
+              f"window step's {window_ms:.4f} ms at k=1 on {smi}")
+    trace = deferred["trace"]
+    ws = list(iter_windows(trace, DEFER_WINDOW, STREAM_BUCKETS))
+    w = ws[len(ws) // 2]
+    # a deferred step's parts (device, graph of 5) on copies of the k=8
+    # carries: the switch half it shares with the window step, and the
+    # deferral tail that replaces the backend and the combine
+    srv = servers[(name, 8, "eager")]
+    c = srv._carries().clone()
+    tau = torch.full((), srv.threshold, device=c.regs.device)
+    buf, ctx = srv._window_switch(c, w, tau)
+    sw_pred, idx, valid, fwd, conf, n_ev, n_ov = ctx
+    parts = {
+        "switch half (B5, sweep, guard, readout, B1, dispatch)":
+            lambda: srv._window_switch(c, w, tau),
+        "deferral tail (defer_window, pending write, stats fold)":
+            lambda: defer_tail(c.stats, c.dd, c.pending, w, sw_pred, fwd,
+                               buf, idx, valid, conf, (n_ev, n_ov), srv._pos)}
+    part_ms = {k: _graph_ms(torch, fn, inner=5) for k, fn in parts.items()}
+    out["device_ms"]["k8_parts"] = part_ms
+    print("time deferred step[k=8] parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in part_ms.items()) + f" (device, graph "
+        f"of 5) on {smi}")
+    for route in ("graph", "eager"):
+        srv = servers[(name, 8, route)]
+        srv.reset()
+        call = _median_ms(torch, lambda: (srv.step(w), srv.consume_flush()))
+        out["device_ms"][f"k8_{route}_call"] = call
+        print(f"time deferred step[{name}, k=8, {route}] {call:.4f} ms a call "
+              f"(median; the flush every 8th call included) on {smi}")
+    for (run, k, route), srv in sorted(servers.items(),
+                                       key=lambda kv: str(kv[0])):
+        times = []
+        for _ in range(5):
+            srv.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve_trace(trace)             # ends with stats.check()
+            times.append(time.perf_counter() - t0)
+        med, best = statistics.median(times), min(times)
+        out["serve_trace"][f"{run} k={k} {route}"] = dict(
+            ms=med * 1e3, packets_per_s=trace.n_packets / med)
+        print(f"time serve_trace[deferred {run} k={k} {route}] "
+              f"{trace.n_packets} packets: median {med * 1e3:.2f} ms "
+              f"({trace.n_packets / med:.0f} packets/s), best "
+              f"{best * 1e3:.2f} ms on {smi}")
+    for (name, profile), run in scenarios["runs"].items():
+        srv, tr, be = run["server"], run["trace"], run["backend"]
+        times = []
+        for _ in range(3):
+            srv.reset()
+            if hasattr(be, "reset"):
+                be.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.serve_trace(tr)
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        out["scenarios"][f"{name} {profile}"] = dict(
+            ms=med * 1e3, packets_per_s=tr.n_packets / med)
+        print(f"time serve_trace[scenario {name} {profile}, guarded, eager] "
+              f"{tr.n_packets} packets: median {med * 1e3:.2f} ms "
+              f"({tr.n_packets / med:.0f} packets/s) on {smi}")
+    return out
 
 
 def _serve_families(torch, np, dev, xtr, ytr, x_all, yte, big,

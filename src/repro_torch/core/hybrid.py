@@ -8,8 +8,10 @@ forwarded queries. ``DeferredDispatch``, ``chunk_dispatch`` and
 ``backpatch_pending`` are the chunked streaming path's: a chunk of K windows
 dispatches every window at once and the backend's answers are patched back
 into the chunk's pending predictions at their (window, lane) return
-addresses. ``defer_window`` (cross-window deferral, ``flush_every > 1``)
-waits for its slice.
+addresses. ``defer_window`` is cross-window deferral's (``flush_every >
+1``): it writes one window's dispatched rows into a cycle's buffer in
+place, at a slot given as a device scalar, so a captured step never
+freezes the slot.
 """
 
 from __future__ import annotations
@@ -103,6 +105,39 @@ def init_deferred(flush_every: int, capacity: int, n_features: int, *,
                             lane=zeros((n,), torch.int32),
                             window=zeros((n,), torch.int32),
                             valid=zeros((n,), torch.bool))
+
+
+def defer_window(dd: DeferredDispatch, buf: torch.Tensor, idx: torch.Tensor,
+                 valid: torch.Tensor, pos) -> DeferredDispatch:
+    """Write one window's dispatched rows at pending-cycle slot ``pos``.
+
+    ``buf``/``idx``/``valid`` are ``dispatch``'s outputs for the window;
+    slot ``pos`` occupies rows ``[pos*cap, (pos+1)*cap)``, cap the rows
+    ``dispatch`` gave. ``pos`` is a 0-dim integer tensor on ``dd``'s
+    device (the reference traces it, so stepping through the cycle never
+    recompiles; here a CUDA graph reads it from its buffer on every
+    replay), or a Python int from a CPU caller. The row index is computed
+    on the device and every field of ``dd`` is written in place with
+    ``index_copy_``. Returns ``dd``.
+    """
+    cap = idx.shape[0]
+    dev = dd.buf.device
+    pos = torch.as_tensor(pos, device=dev).reshape(())
+    rows = pos.long() * cap + torch.arange(cap, device=dev)
+    dd.buf.index_copy_(0, rows, buf)
+    dd.lane.index_copy_(0, rows, idx.to(torch.int32))
+    dd.window.index_copy_(0, rows, pos.to(torch.int32).expand(cap))
+    dd.valid.index_copy_(0, rows, valid)
+    return dd
+
+
+def zero_deferred_(dd: DeferredDispatch) -> DeferredDispatch:
+    """Empty ``dd`` in place (every slot dead, as ``init_deferred`` makes
+    it), so a captured flush keeps reading the same buffers. Returns
+    ``dd``."""
+    for t in (dd.buf, dd.lane, dd.window, dd.valid):
+        t.zero_()
+    return dd
 
 
 def chunk_dispatch(xs: torch.Tensor, fwd: torch.Tensor,

@@ -105,3 +105,17 @@ def table_predict_per_tree(art: TableArtifact, x: torch.Tensor) -> torch.Tensor:
     keys = tree_keys(x, art.edges, art.ftable, art.strides)
     t_idx = torch.arange(art.n_trees, device=x.device)[None, :]
     return art.dtable_class[t_idx, keys]
+
+
+def tree_vote_predict(ens, x):
+    """Direct (non-table) per-tree majority vote: the baseline the table
+    pipeline is held to (the paper's per-tree "classification results of
+    all trees"). -> (pred (N,), confidence (N,))."""
+    from repro_torch.ml.trees import tree_leaf_indices
+    leaf_idx = tree_leaf_indices(ens, x)                     # (T, N)
+    counts = torch.take_along_dim(ens.leaf, leaf_idx[:, :, None], dim=1)
+    cls = torch.argmax(counts, dim=2)                        # (T, N)
+    votes = torch.nn.functional.one_hot(cls.t(), ens.n_classes).to(
+        torch.float32).sum(dim=1)
+    return (torch.argmax(votes, dim=1),
+            true_div(votes.max(dim=1).values, ens.n_trees))

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import mean
+
 
 @dataclasses.dataclass
 class FixedPoint:
@@ -44,3 +46,11 @@ def quantize_fixed(v, bits: int) -> FixedPoint:
 
 def dequantize(fp: FixedPoint) -> torch.Tensor:
     return fp.q.to(torch.float32) / fp.scale
+
+
+def relative_error(fp: FixedPoint, v) -> float:
+    """Mean relative calc error of the quantized representation (Fig 9)."""
+    d = dequantize(fp)
+    v = torch.as_tensor(np.asarray(v, np.float32), device=d.device)
+    denom = torch.clamp(torch.abs(v), min=1e-9)
+    return float(mean(torch.abs(d - v) / denom))

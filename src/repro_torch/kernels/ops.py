@@ -221,6 +221,16 @@ def _tree_epilogue(art: TableArtifact, out: torch.Tensor):
     raise ValueError(art.agg)
 
 
+def pred_dtype(art: TableArtifact) -> torch.dtype:
+    """The dtype of ``fused_classify``'s predictions for this artifact:
+    int32 where the epilogue thresholds a score (sum ensembles, the
+    isolation forest), int64 where it takes an arg max or min (votes and
+    the classical families). The reference's are int32 throughout
+    (ROADMAP C3)."""
+    return torch.int32 if art.agg in ("wsum_sigmoid", "iforest") \
+        else torch.int64
+
+
 def _classical_epilogue(art: TableArtifact, out: torch.Tensor):
     return classical_aggregate(art, out / art.vtable.scale)
 

@@ -213,16 +213,19 @@ def _ascii_to_float(field: torch.Tensor) -> torch.Tensor:
     Switch-feasible parsing: digit accumulation with sign and decimal
     point, no branches, each byte contributing by a masked multiply-add.
     The reference scans the W byte columns; this loops over them, with the
-    reference's roundings: ``val * 10 + d`` and ``frac_scale * 0.1`` are
-    separate f32 ops, while ``val + d * frac_scale`` rounds once, as the
-    reference's compiled scan gives it (XLA contracts it into a fused
-    multiply-add). That step runs in float64, where the product and the
-    sum are exact for fields of up to 9 characters, and is rounded to f32
-    once; the card and the CPU then agree bit for bit.
+    reference's roundings. Its compiled scan contracts both ``val * 10 + d``
+    and ``val + d * frac_scale`` into fused multiply-adds, which round
+    once; here each runs in float64 and is rounded to f32 once.
+    ``val * 10 + d`` is exact in float64 for an f32 ``val`` and a digit, so
+    its one rounding is the FMA's at any width (integer parts past 2^24
+    included). In ``val + d * frac_scale`` the float64 product is exact,
+    but the sum may round before the cast, so that step equals the FMA on
+    the fields the tests hold it to, not by construction.
+    ``frac_scale * 0.1`` stays a separate f32 op. The card and the CPU
+    agree bit for bit.
     """
     dev = field.device
-    f32 = lambda v: torch.full((), v, dtype=torch.float32, device=dev)
-    ten, tenth = f32(10.0), f32(0.1)
+    tenth = torch.full((), 0.1, dtype=torch.float32, device=dev)
     is_digit = (field >= 48) & (field <= 57)
     digit = torch.where(is_digit, field.to(torch.int32) - 48,
                         0).to(torch.float32)
@@ -233,7 +236,9 @@ def _ascii_to_float(field: torch.Tensor) -> torch.Tensor:
     seen_dot = torch.zeros(n, dtype=torch.bool, device=dev)
     for j in range(w):
         d, dot, dig = digit[:, j], is_dot[:, j], is_digit[:, j]
-        val = torch.where(dig & ~seen_dot, val * ten + d, val)
+        whole = (val.to(torch.float64) * 10.0
+                 + d.to(torch.float64)).to(torch.float32)
+        val = torch.where(dig & ~seen_dot, whole, val)
         frac_scale = torch.where(dig & seen_dot, frac_scale * tenth,
                                  frac_scale)
         frac = (val.to(torch.float64)

@@ -75,6 +75,8 @@ class HybridStats:
         """(fraction_handled, backend_rows) as device tensors — no sync."""
         return self._fraction_handled, self._backend_rows
 
+    as_arrays = as_tensors          # the reference's name
+
     def __repr__(self):
         return (f"HybridStats(fraction_handled={self.fraction_handled:.3f}, "
                 f"backend_rows={self.backend_rows}, "

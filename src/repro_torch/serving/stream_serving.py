@@ -28,36 +28,62 @@ backend call a chunk; ``conf_sum`` sums in another order). ``"auto"``
 picks K by a measured sweep that never picks a K slower than
 ``DEFAULT_CHUNK_WINDOWS``.
 
-Carries and graphs. The register file and the ``StreamStats`` tensors are
-the server's carries: every step writes them in place (B5 and B6's sweep
-already do; the stats fold copies into them), so ``state`` reads the live
-register file (read it, don't keep it) and ``stats`` a snapshot. On the
-card (``fuse=None``, as in ``HybridServer``) the first step probes whether
-the backend syncs the host; if it does not, each step shape is captured
-once as a CUDA graph that owns static input buffers and updates the
-carries in place, and every later call copies its window or chunk in and
-replays it: the counterpart of the reference's jitted, donating
-``_stream_step`` and ``_chunk_step``. A backend that syncs is served
-eagerly in two phases (switch half, backend, then the fold or the
-back-patch), as the reference's ``_stream_switch`` / ``_chunk_switch``
-routes do. ``step`` and ``step_chunk`` may be mixed on one stream: both
-graphs read and write the same carries, and ``reset()`` refills them in
-place. Nothing in a step waits on the device.
+Cross-window deferral (``flush_every=k``, DESIGN.md §7): ``step`` runs the
+switch half and writes the window's dispatched rows into a
+``DeferredDispatch`` buffer of k*capacity rows (``defer_window``) and its
+provisional predictions into a (k, W) pending set; the backend runs once
+per flush over the whole buffer and its answers are back-patched into the
+pending windows. A flush comes when the cycle is full, or earlier on
+``flush_occupancy`` or ``flush_deadline`` (each costs one host sync a
+step, as in the reference), or on ``flush()``; its result waits in a FIFO
+for ``consume_flush()``. ``flush_every=1`` is the per-window path, the
+equivalence oracle: final predictions equal it bit for bit.
 
-Left out until their slices: ``flush_every`` and the cross-window deferral,
-``flush_occupancy``, ``flush_deadline`` and ``fault_policy`` (A-iv),
-``serve_stream`` with the ingest ring (A-v), and ``obs`` (A-vi).
-``serve_trace`` drives ``iter_chunks`` through ``step_chunk`` when
-``chunk_windows`` is set and ``iter_windows`` through ``step`` otherwise,
-the two loops the reference documents as equal to its ring route. As in
-``HybridServer``, ``use_kernel`` picks the kernels or their plain versions
-(the reference's ``use_pallas``).
+Faults (``fault_policy``): the backend call goes through a
+``serving.faults.GuardedBackend`` (timeout, retries with backoff, circuit
+breaker), which forces the eager two-phase route. When a flush ultimately
+fails the tier degrades: the dispatched rows keep their switch answers
+and are counted in ``StreamStats.degraded`` (per window, per deferral
+cycle, or per chunk, whose optimistic backend fold is retracted).
+
+Carries and graphs. The register file, the ``StreamStats`` tensors, the
+deferral buffer and the pending set are the server's carries: every step
+writes them in place (B5 and B6's sweep already do; the stats fold copies
+into them; ``defer_window`` and the pending write use ``index_copy_`` at a
+row index computed on the device; a flush zeroes the buffer and refills
+the pending set with -1), so ``state`` reads the live register file (read
+it, don't keep it) and ``stats`` a snapshot. On the card (``fuse=None``,
+as in ``HybridServer``) the first call of the backend probes whether it
+syncs the host; if it does not, each step shape is captured once as a
+CUDA graph that owns static input buffers and updates the carries in
+place, and every later call copies its window or chunk in and replays it:
+the counterpart of the reference's jitted, donating ``_stream_step``,
+``_chunk_step`` and ``_flush_fused``. The deferred step calls no backend,
+so with ``fuse`` not False it is always a graph (one a window shape); the
+cycle slot it writes is a device scalar filled before each replay, as the
+threshold is. The flush is a second graph, keyed by the buffer's shape;
+the first flush is usually the backend's first call, so the probe runs
+there. The warm-up before each capture runs on copies of the carries, so
+it advances nothing. A backend that syncs is served eagerly in two phases
+(switch half, backend, then the fold or the back-patch), as the
+reference's ``_stream_switch`` / ``_chunk_switch`` / ``_flush_patch``
+routes do. ``step``, ``step_chunk`` and ``flush`` may be mixed: the graphs
+read and write the same carries, and ``reset()`` refills them in place.
+Nothing in a step waits on the device unless a flush trigger asks for it.
+
+Left out until their slices: ``serve_stream`` with the ingest ring (A-v),
+``obs`` (A-vi; ``flush``'s ``trigger`` labels nothing yet). ``serve_trace``
+drives ``iter_chunks`` through ``step_chunk`` when ``chunk_windows`` is set
+and ``iter_windows`` through ``step`` otherwise, the two loops the
+reference documents as equal to its ring route. As in ``HybridServer``,
+``use_kernel`` picks the kernels or their plain versions (the reference's
+``use_pallas``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -65,17 +91,19 @@ import torch
 from repro_torch.core.artifact import TableArtifact
 from repro_torch.device import resolve_device
 from repro_torch.core.hybrid import (DeferredDispatch, backpatch_pending,
-                                     chunk_dispatch, combine, dispatch)
-from repro_torch.kernels.ops import fused_classify
+                                     chunk_dispatch, combine, defer_window,
+                                     dispatch, init_deferred, zero_deferred_)
+from repro_torch.kernels.ops import fused_classify, pred_dtype
 from repro_torch.kernels.tuning import (TileConfig, _artifact_key,
                                         measure_min, sweep_best)
-from repro_torch.netsim.stream import (EVICT_POLICIES, FlowTableState,
-                                       PacketChunk, PacketWindow,
-                                       chunk_update_readout,
+from repro_torch.netsim.stream import (EVICT_POLICIES, FLOW_FEATURES,
+                                       FlowTableState, PacketChunk,
+                                       PacketWindow, chunk_update_readout,
                                        flow_table_readout, init_flow_table,
                                        iter_chunks, iter_windows,
                                        packet_chunk_from_arrays,
                                        window_update_readout)
+from repro_torch.serving.faults import FaultPolicy, FaultStats, GuardedBackend
 from repro_torch.serving.hybrid_serving import HybridServer, HybridStats
 
 _COUNTERS = ("windows", "packets", "handled", "backend_rows", "deferred",
@@ -97,9 +125,11 @@ class StreamStats:
                                  #      never reached the backend (switch
                                  #      answer kept)
     degraded: torch.Tensor       # i32: dispatched rows whose backend flush
-                                 #      failed (always 0 until the fault
-                                 #      policy is ported)
-    flushes: torch.Tensor        # i32: backend invocations (== windows here)
+                                 #      ultimately failed under a fault
+                                 #      policy (switch answer kept)
+    flushes: torch.Tensor        # i32: successful backend invocations (one
+                                 #      a window at flush_every=1, one a
+                                 #      flush or a chunk otherwise)
     evicted: torch.Tensor        # i32: buckets recycled by the aging sweep
     overflow: torch.Tensor       # i32: register slots newly saturated at 2^24
     conf_sum: torch.Tensor       # f32: switch confidence summed over valid
@@ -238,6 +268,41 @@ def _fold_conf(conf, valid) -> torch.Tensor:
     return torch.where(valid, conf, 0.0).to(torch.float32).sum()
 
 
+def accumulate_deferred_stats(stats: StreamStats, w: PacketWindow, fwd,
+                              valid, conf, n_evicted, n_overflow):
+    """The window fold without the backend accounting: everything but
+    ``backend_rows``/``degraded`` and ``flushes``, which fold when the
+    backend runs (or fails). Forwarded rows past capacity land in
+    ``deferred``. Returns (stats, frac_handled, rows), rows the window's
+    dispatched rows."""
+    n_valid = _count(w.valid)
+    n_handled = _count(w.valid & ~fwd)
+    rows = _count(valid)
+    frac = (n_handled.to(torch.float32)
+            / torch.clamp(n_valid, min=1).to(torch.float32))
+    stats = dataclasses.replace(
+        stats, windows=stats.windows + 1,
+        packets=stats.packets + n_valid,
+        handled=stats.handled + n_handled,
+        deferred=stats.deferred + (_count(fwd) - rows),
+        evicted=stats.evicted + n_evicted,
+        overflow=stats.overflow + n_overflow,
+        conf_sum=stats.conf_sum + _fold_conf(conf, w.valid))
+    return stats, frac, rows
+
+
+def _served(stats: StreamStats, rows) -> StreamStats:
+    """One successful backend call served ``rows`` rows."""
+    return dataclasses.replace(stats, backend_rows=stats.backend_rows + rows,
+                               flushes=stats.flushes + 1)
+
+
+def _degraded(stats: StreamStats, rows) -> StreamStats:
+    """A failed backend call: its ``rows`` rows keep the switch's answers;
+    ``flushes`` counts successful calls only."""
+    return dataclasses.replace(stats, degraded=stats.degraded + rows)
+
+
 def accumulate_stream_stats(stats: StreamStats, w: PacketWindow, sw_pred,
                             be_pred, idx, valid, fwd, conf, n_evicted,
                             n_overflow):
@@ -248,23 +313,64 @@ def accumulate_stream_stats(stats: StreamStats, w: PacketWindow, sw_pred,
     backend_rows), all device tensors."""
     pred = combine(sw_pred, be_pred, idx, valid)
     pred = torch.where(w.valid, pred, -1)                # pad lanes
-    n_valid = _count(w.valid)
-    n_handled = _count(w.valid & ~fwd)
-    n_fwd = _count(fwd)
-    rows = _count(valid)
-    frac = (n_handled.to(torch.float32)
-            / torch.clamp(n_valid, min=1).to(torch.float32))
-    stats = dataclasses.replace(
-        stats, windows=stats.windows + 1,
-        packets=stats.packets + n_valid,
-        handled=stats.handled + n_handled,
-        backend_rows=stats.backend_rows + rows,
-        deferred=stats.deferred + (n_fwd - rows),
-        flushes=stats.flushes + 1,
-        evicted=stats.evicted + n_evicted,
-        overflow=stats.overflow + n_overflow,
-        conf_sum=stats.conf_sum + _fold_conf(conf, w.valid))
-    return stats, pred, frac, rows
+    stats, frac, rows = accumulate_deferred_stats(stats, w, fwd, valid, conf,
+                                                  n_evicted, n_overflow)
+    return _served(stats, rows), pred, frac, rows
+
+
+def degrade_window_stats(stats: StreamStats, w: PacketWindow, sw_pred, fwd,
+                         valid, conf, n_evicted, n_overflow):
+    """The per-window epilogue when the window's guarded backend call
+    ultimately failed: every dispatched row keeps its switch prediction
+    and is counted in ``degraded``, not ``backend_rows``; ``flushes`` does
+    not advance. Returns (stats, pred, frac_handled, rows_degraded)."""
+    pred = torch.where(w.valid, sw_pred, -1)             # pad lanes
+    stats, frac, rows = accumulate_deferred_stats(stats, w, fwd, valid, conf,
+                                                  n_evicted, n_overflow)
+    return _degraded(stats, rows), pred, frac, rows
+
+
+def fold_flush_stats(stats: StreamStats, dd: DeferredDispatch) -> StreamStats:
+    """One backend flush served every live slot of the deferral buffer."""
+    return _served(stats, _count(dd.valid))
+
+
+def fold_degraded_flush(stats: StreamStats,
+                        dd: DeferredDispatch) -> StreamStats:
+    """The flush fold when the backend ultimately failed: the cycle's rows
+    keep their provisional switch predictions (no back-patch) and land in
+    ``degraded``."""
+    return _degraded(stats, _count(dd.valid))
+
+
+def degrade_chunk_stats(stats: StreamStats,
+                        dd: DeferredDispatch) -> StreamStats:
+    """The corrective fold of a failed chunk flush: ``accumulate_chunk_
+    stats`` folds the chunk's backend accounting in the switch half,
+    before the backend runs; when the guarded call then fails, move its
+    rows to ``degraded`` and retract the optimistic flush."""
+    rows = _count(dd.valid)
+    return dataclasses.replace(
+        stats, backend_rows=stats.backend_rows - rows,
+        degraded=stats.degraded + rows, flushes=stats.flushes - 1)
+
+
+def defer_tail(stats, dd, pending, w: PacketWindow, sw_pred, fwd, buf, idx,
+               valid, conf, counts, pos):
+    """The deferred step's tail: mark pad lanes -1, write the window's
+    dispatched rows into the deferral buffer at cycle slot ``pos``
+    (``defer_window``) and its provisional predictions into row ``pos`` of
+    the pending set, and fold the stats without the backend accounting.
+    ``dd`` and ``pending`` are written in place; ``pos`` is a 0-dim device
+    tensor (or a Python int from a CPU caller).
+    Returns (stats, dd, pending, pred, frac, rows)."""
+    pred = torch.where(w.valid, sw_pred, -1)             # pad lanes
+    defer_window(dd, buf, idx, valid, pos)
+    slot = torch.as_tensor(pos, device=pending.device).reshape(1).long()
+    pending.index_copy_(0, slot, pred[None].to(pending.dtype))
+    stats, frac, rows = accumulate_deferred_stats(stats, w, fwd, valid, conf,
+                                                  *counts)
+    return stats, dd, pending, pred, frac, rows
 
 
 def accumulate_chunk_stats(stats: StreamStats, chunk: PacketChunk, fwd,
@@ -411,7 +517,8 @@ def chunk_sweep_timings(cache_key):
 
 
 def _clone_input(inp):
-    """A window or chunk with its own copies of the columns."""
+    """A window, chunk or deferral buffer with its own copies of the
+    tensors."""
     return type(inp)(**{f.name: getattr(inp, f.name).clone()
                         for f in dataclasses.fields(inp)})
 
@@ -419,6 +526,22 @@ def _clone_input(inp):
 def _copy_input(dst, src) -> None:
     for f in dataclasses.fields(dst):
         getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
+class _Carries(NamedTuple):
+    """What a step reads and writes in place: the register file, the stats
+    tensors, and on the deferred path the deferral buffer and the pending
+    set (None at flush_every=1)."""
+    regs: torch.Tensor
+    stats: StreamStats
+    dd: Optional[DeferredDispatch]
+    pending: Optional[torch.Tensor]
+
+    def clone(self) -> "_Carries":
+        return _Carries(self.regs.clone(), self.stats.clone(),
+                        None if self.dd is None else _clone_input(self.dd),
+                        None if self.pending is None
+                        else self.pending.clone())
 
 
 class StreamingHybridServer(HybridServer):
@@ -432,9 +555,13 @@ class StreamingHybridServer(HybridServer):
     def __init__(self, artifact: TableArtifact, backend_fn: Callable, *,
                  n_buckets: int = 4096, window: int = 512,
                  threshold: float = 0.7, capacity: int = 64,
+                 flush_every: int = 1,
                  chunk_windows: Optional[Union[int, str]] = None,
+                 flush_occupancy: Optional[float] = None,
+                 flush_deadline: Optional[float] = None,
                  evict_age: Optional[float] = None, saturate: bool = True,
                  evict_policy: str = "timeout", lru_occupancy: float = 0.75,
+                 fault_policy: Optional[FaultPolicy] = None,
                  use_kernel: Optional[bool] = None, autotune: bool = False,
                  tiles: Optional[TileConfig] = None,
                  fuse: Optional[bool] = None, device=None):
@@ -449,18 +576,45 @@ class StreamingHybridServer(HybridServer):
         ``netsim.stream.approx_lru_sweep``), evicting only while occupancy
         exceeds ``lru_occupancy``; both need evict_age.
 
+        flush_every: defer the backend across this many windows (the module
+        docstring). 1 keeps one backend call a window. k > 1 makes ``step``
+        return *provisional* (switch-tier) predictions; the backend's
+        answers come back per flush from ``consume_flush()`` (``serve_trace``
+        consumes them and ends with a guaranteed flush, so its predictions
+        are final and equal flush_every=1's for a row-wise backend).
+
         chunk_windows: serve ``serve_trace`` K windows at a time through
         ``step_chunk`` (see the module docstring); every chunk must then
         have exactly K rows. ``"auto"`` picks K by a measured sweep at init
         (``autotune_chunk_windows``, cached per artifact shape, backend and
         geometry; never slower than ``DEFAULT_CHUNK_WINDOWS`` on the tuned
-        shape). None serves window by window.
+        shape). None serves window by window. The chunk is its own flush
+        cycle, so it needs flush_every=1.
+
+        flush_occupancy: with flush_every > 1, flush the cycle as soon as
+        the buffer holds at least this fraction of its flush_every *
+        capacity slots. flush_deadline: with flush_every > 1, flush as soon
+        as a window's newest timestamp is this many (rebased) seconds past
+        the earliest timestamp of the cycle's first window. Each splits a
+        cycle early without changing a final prediction, and each costs one
+        host sync a step (reading a count, or the window's timestamps), so
+        both are opt-in.
+
+        fault_policy: guard the backend with a ``serving.faults.
+        GuardedBackend`` (per-flush timeout, bounded retries with
+        exponential backoff, circuit breaker). It forces fuse=False (the
+        guard runs on the host); with no fault injected the predictions
+        equal an unguarded server's bit for bit. A flush that ultimately
+        fails degrades its rows to the switch's answers
+        (``StreamStats.degraded``).
 
         autotune, tiles: the switch kernel's launch configuration, passed
         to ``HybridServer`` as they are. fuse (CUDA only; a CPU server
-        ignores it): None probes on the first step whether backend_fn syncs
-        the host and serves each step shape as a CUDA graph if it does not;
-        True captures without probing; False serves eagerly. A backend that
+        ignores it): None probes at the backend's first call whether
+        backend_fn syncs the host and serves each step shape (and the
+        flush) as a CUDA graph if it does not; True captures without
+        probing; False serves eagerly. The deferred step, which calls no
+        backend, is a graph whenever fuse is not False. A backend that
         reads mutable side channels must pass fuse=False.
 
         device=None serves on CUDA and raises without a card; pass
@@ -468,6 +622,43 @@ class StreamingHybridServer(HybridServer):
         for CUDA tensors"; False runs every kernel's plain version on the
         server's device.
         """
+        if flush_every < 1:
+            raise ValueError(f"flush_every must be >= 1, got {flush_every}")
+        sweep = None
+        if chunk_windows == "auto":
+            # resolved before the checks below, so they see an int
+            chunk_windows, sweep = self._resolve_auto_chunk_windows(
+                artifact, backend_fn, n_buckets=n_buckets, window=window,
+                threshold=threshold, capacity=capacity, evict_age=evict_age,
+                saturate=saturate, evict_policy=evict_policy,
+                lru_occupancy=lru_occupancy, use_kernel=use_kernel,
+                autotune=autotune, tiles=tiles, fuse=fuse, device=device)
+        if chunk_windows is not None:
+            if chunk_windows < 1:
+                raise ValueError(
+                    f"chunk_windows must be >= 1, got {chunk_windows}")
+            if flush_every != 1:
+                raise ValueError(
+                    "chunked streaming aligns backend flushes to chunk "
+                    "boundaries (one flush per chunk_windows windows); "
+                    "combine it with flush_every=1, not "
+                    f"flush_every={flush_every}")
+        if flush_occupancy is not None:
+            if not 0.0 < flush_occupancy <= 1.0:
+                raise ValueError(f"flush_occupancy must be in (0, 1], "
+                                 f"got {flush_occupancy}")
+            if flush_every == 1:
+                raise ValueError("flush_occupancy needs flush_every > 1 "
+                                 "(there is no deferral cycle to flush "
+                                 "early at flush_every=1)")
+        if flush_deadline is not None:
+            if flush_deadline <= 0:
+                raise ValueError(f"flush_deadline must be > 0, "
+                                 f"got {flush_deadline}")
+            if flush_every == 1:
+                raise ValueError("flush_deadline needs flush_every > 1 "
+                                 "(there is no deferral cycle to flush "
+                                 "early at flush_every=1)")
         if evict_policy not in EVICT_POLICIES:
             raise ValueError(f"evict_policy must be one of "
                              f"{EVICT_POLICIES}, got {evict_policy!r}")
@@ -479,39 +670,54 @@ class StreamingHybridServer(HybridServer):
             if not 0.0 < lru_occupancy < 1.0:
                 raise ValueError(f"lru_occupancy must be in (0, 1), "
                                  f"got {lru_occupancy}")
-        sweep = None
-        if chunk_windows == "auto":
-            # resolved before the check below, so it sees an int
-            chunk_windows, sweep = self._resolve_auto_chunk_windows(
-                artifact, backend_fn, n_buckets=n_buckets, window=window,
-                threshold=threshold, capacity=capacity, evict_age=evict_age,
-                saturate=saturate, evict_policy=evict_policy,
-                lru_occupancy=lru_occupancy, use_kernel=use_kernel,
-                autotune=autotune, tiles=tiles, fuse=fuse, device=device)
-        if chunk_windows is not None and chunk_windows < 1:
-            raise ValueError(f"chunk_windows must be >= 1, got {chunk_windows}")
+        if fault_policy is not None:
+            if fuse:
+                raise ValueError("fault_policy guards the host backend "
+                                 "call and therefore needs the two-phase "
+                                 "serving path; it cannot be combined "
+                                 "with fuse=True")
+            fuse = False
         super().__init__(artifact, backend_fn, threshold=threshold,
                          capacity=capacity, use_kernel=use_kernel,
                          autotune=autotune, tiles=tiles, fuse=fuse,
                          device=device)
         self.n_buckets = n_buckets
         self.window = window
+        self.flush_every = flush_every
         self.chunk_windows = chunk_windows
         self.chunk_sweep = sweep   # {K: s per packet} of "auto"'s sweep
+        self.flush_occupancy = flush_occupancy
+        self.flush_deadline = flush_deadline
         self.evict_age = evict_age
         self.saturate = saturate
         self.evict_policy = evict_policy
         self.lru_occupancy = lru_occupancy
+        self.fault_policy = fault_policy
+        self._guard = (GuardedBackend(backend_fn, fault_policy)
+                       if fault_policy is not None else None)
         # the carries: written in place by every step, read by the graphs
         self._regs = init_flow_table(n_buckets, device=self.device).regs
         self._stats = StreamStats.zero(self.device)
+        self._dd = self._pending = None
+        if flush_every > 1:
+            self._dd = init_deferred(flush_every, capacity, FLOW_FEATURES,
+                                     device=self.device)
+            self._pending = torch.full((flush_every, window), -1,
+                                       dtype=pred_dtype(self.artifact),
+                                       device=self.device)
+        self._pos = torch.zeros((), dtype=torch.int32, device=self.device)
+        self._reset_deferred()
+        # the deferred step calls no backend: a graph whenever fuse allows
+        self._defer_graphs = self.device.type == "cuda" and fuse is not False
         self._step_graphs = {}     # (kind, shape) -> (graph, input, outputs)
 
     # -- the chunk-size autotune -------------------------------------------
 
     def _resolve_auto_chunk_windows(self, artifact, backend_fn, *, n_buckets,
                                     window, capacity, device, **kw):
-        """-> (K, {K: seconds per packet} the sweep measured)."""
+        """-> (K, {K: seconds per packet} the sweep measured). The
+        throwaway servers get no fault policy: the sweep times the serving
+        path, not retries."""
         dev = resolve_device(device)
         card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
@@ -528,6 +734,22 @@ class StreamingHybridServer(HybridServer):
 
     # -- the carries ---------------------------------------------------------
 
+    def _carries(self) -> _Carries:
+        return _Carries(self._regs, self._stats, self._dd, self._pending)
+
+    def _reset_deferred(self):
+        """Empty pending cycle: the deferral buffer zeroed and the pending
+        set refilled with -1 in place (the graphs read them), the host-side
+        cycle position, occupancy count and deadline latch cleared, and the
+        flush queue emptied."""
+        self._pending_n = 0
+        self._occ_rows = 0
+        self._cycle_born = None
+        self._flush_queue = []
+        if self._dd is not None:
+            zero_deferred_(self._dd)
+            self._pending.fill_(-1)
+
     @property
     def state(self) -> FlowTableState:
         """The live register file, written in place by every step: read it,
@@ -539,16 +761,33 @@ class StreamingHybridServer(HybridServer):
         """A snapshot of the running telemetry (device tensors, no sync)."""
         return self._stats.clone()
 
+    @property
+    def pending_windows(self) -> int:
+        """Windows deferred in the current (unflushed) cycle."""
+        return self._pending_n
+
+    @property
+    def fault_stats(self) -> Optional[FaultStats]:
+        """The fault-policy guard's host-side telemetry (attempts, retries,
+        timeouts, breaker transitions; ``serving.faults.FaultStats``), or
+        None without a ``fault_policy``."""
+        return self._guard.stats if self._guard is not None else None
+
     def flow_table(self) -> torch.Tensor:
         """(n_buckets, 8) feature table from the current registers."""
         return flow_table_readout(self.state)
 
     def reset(self):
         """Fresh register file + telemetry (a new stream epoch), refilled in
-        place, so captured graphs stay valid."""
+        place, so captured graphs stay valid. Pending deferred windows are
+        dropped unflushed (flush() first if their answers matter), and the
+        fault guard starts a fresh epoch."""
         self._regs.copy_(init_flow_table(self.n_buckets,
                                          device=self.device).regs)
         self._stats.zero_()
+        self._reset_deferred()
+        if self._guard is not None:
+            self._guard.reset()
 
     def release_graphs(self):
         """Drop every captured step graph (and ``classify``'s); the next
@@ -562,42 +801,51 @@ class StreamingHybridServer(HybridServer):
         if state.regs is not regs:
             regs.copy_(state.regs)
 
-    # -- the two step kinds: switch half, then what follows the backend ------
+    # -- the step kinds: switch half, then what follows the backend ----------
 
-    def _window_switch(self, regs, stats, w: PacketWindow, tau):
+    def _window_switch(self, c: _Carries, w: PacketWindow, tau):
         state, x, n_ev, n_ov = window_update_readout(
-            FlowTableState(regs), w, evict_age=self.evict_age,
+            FlowTableState(c.regs), w, evict_age=self.evict_age,
             saturate=self.saturate, evict_policy=self.evict_policy,
             lru_occupancy=self.lru_occupancy,
             use_kernel=False if self.use_kernel is False else None)
-        self._store_regs(regs, state)
+        self._store_regs(c.regs, state)
         sw_pred, conf = fused_classify(self.artifact, x, tiles=self.tiles,
                                        device=self.device)
         fwd = (conf < tau) & w.valid
         buf, idx, valid = dispatch(x, fwd, self.capacity)
         return buf, (sw_pred, idx, valid, fwd, conf, n_ev, n_ov)
 
-    def _window_finish(self, regs, stats, w: PacketWindow, ctx, be_pred):
-        new, pred, frac, rows = accumulate_stream_stats(stats, w, ctx[0],
-                                                        be_pred, *ctx[1:])
-        stats.copy_(new)
+    def _window_finish(self, c: _Carries, w: PacketWindow, ctx, be_pred):
+        sw_pred, idx, valid, fwd, conf, n_ev, n_ov = ctx
+        if be_pred is None:        # the guarded call failed: switch answers
+            new, pred, frac, rows = degrade_window_stats(
+                c.stats, w, sw_pred, fwd, valid, conf, n_ev, n_ov)
+        else:
+            new, pred, frac, rows = accumulate_stream_stats(
+                c.stats, w, sw_pred, be_pred, idx, valid, fwd, conf, n_ev,
+                n_ov)
+        c.stats.copy_(new)
         return pred, frac, rows
 
-    def _chunk_switch(self, regs, stats, chunk: PacketChunk, tau):
+    def _chunk_switch(self, c: _Carries, chunk: PacketChunk, tau):
         state, xs, n_ev, n_ov = chunk_update_readout(
-            FlowTableState(regs), chunk, evict_age=self.evict_age,
+            FlowTableState(c.regs), chunk, evict_age=self.evict_age,
             saturate=self.saturate, evict_policy=self.evict_policy,
             lru_occupancy=self.lru_occupancy,
             use_kernel=False if self.use_kernel is False else None)
-        self._store_regs(regs, state)
+        self._store_regs(c.regs, state)
         new, dd, pending, frac, rows = chunk_classify_tail(
-            self.artifact, stats, chunk, xs, n_ev, n_ov, tau, self.capacity,
-            tiles=self.tiles, device=self.device)
-        stats.copy_(new)          # the backend accounting folds here too
+            self.artifact, c.stats, chunk, xs, n_ev, n_ov, tau,
+            self.capacity, tiles=self.tiles, device=self.device)
+        c.stats.copy_(new)        # the backend accounting folds here too
         return dd.buf, (dd, pending, frac, rows)
 
-    def _chunk_finish(self, regs, stats, chunk, ctx, be_pred):
+    def _chunk_finish(self, c: _Carries, chunk, ctx, be_pred):
         dd, pending, frac, rows = ctx
+        if be_pred is None:        # failed: retract the fold, no patch
+            c.stats.copy_(degrade_chunk_stats(c.stats, dd))
+            return pending, frac, rows
         return backpatch_pending(pending, be_pred, dd), frac, rows
 
     def _halves(self, kind: str):
@@ -605,68 +853,100 @@ class StreamingHybridServer(HybridServer):
             return self._window_switch, self._window_finish
         return self._chunk_switch, self._chunk_finish
 
-    def _backend(self, buf) -> torch.Tensor:
-        return torch.as_tensor(self._backend_fn(buf), device=self.device)
+    def _defer_body(self, c: _Carries, w: PacketWindow, tau, pos):
+        """One deferred window: the switch half, then the rows into the
+        buffer and the provisional predictions into the pending set at
+        slot ``pos``; no backend. -> (pred, frac, rows)."""
+        buf, ctx = self._window_switch(c, w, tau)
+        sw_pred, idx, valid, fwd, conf, n_ev, n_ov = ctx
+        new, _, _, pred, frac, rows = defer_tail(
+            c.stats, c.dd, c.pending, w, sw_pred, fwd, buf, idx, valid, conf,
+            (n_ev, n_ov), pos)
+        c.stats.copy_(new)
+        return pred, frac, rows
 
-    def _body(self, kind, regs, stats, inp, tau):
-        """One whole step on the given carries -> (pred, frac, rows)."""
-        switch, finish = self._halves(kind)
-        buf, ctx = switch(regs, stats, inp, tau)
-        return finish(regs, stats, inp, ctx, self._backend(buf))
+    def _flush_finish(self, c: _Carries, be_pred) -> torch.Tensor:
+        """Patch the backend's answers into the pending set (or, when the
+        guarded call failed, keep its provisional answers), fold the
+        flush, then empty the cycle in place. -> the (flush_every, W)
+        predictions, a new tensor."""
+        if be_pred is None:
+            c.stats.copy_(fold_degraded_flush(c.stats, c.dd))
+            patched = c.pending.clone()
+        else:
+            patched = backpatch_pending(c.pending, be_pred, c.dd)
+            c.stats.copy_(fold_flush_stats(c.stats, c.dd))
+        zero_deferred_(c.dd)
+        c.pending.fill_(-1)
+        return patched
+
+    def _host_backend(self, rows) -> Optional[torch.Tensor]:
+        """The backend's answers for ``rows`` on the server's device; with
+        a fault policy through the guard, and None when the guarded call
+        ultimately failed (the caller degrades)."""
+        out = self._backend_fn(rows) if self._guard is None \
+            else self._guard(rows)
+        return None if out is None else torch.as_tensor(out,
+                                                        device=self.device)
 
     def _probe_backend(self, buf) -> torch.Tensor:
         """The backend's first call, with host syncs turned into errors: a
         backend that syncs cannot be captured, so it is called again
-        normally and served eagerly from now on. The switch half has
-        already run (the carries have advanced), so only the backend is
-        retried, never the step."""
+        normally and served eagerly from now on. The switch half (or the
+        deferred steps) already ran and the carries have advanced, so only
+        the backend is retried, never the step."""
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            be = self._backend(buf)
+            be = self._host_backend(buf)
             self._fused_ok = True
         except RuntimeError:
             self._fused_ok = False
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        return be if self._fused_ok else self._backend(buf)
+        return be if self._fused_ok else self._host_backend(buf)
 
-    def _replay_step(self, kind: str, inp):
-        """The step for ``inp``'s shape as a CUDA graph (captured at its
-        first call), replayed on ``inp``; outputs cloned out of the graph's
-        buffers. The warm-up before the capture runs on copies of the
-        carries, so it advances nothing."""
-        key = (kind, tuple(inp.bucket.shape))
+    def _replay_step(self, key, body, inp):
+        """``body(carries, inp)`` as a CUDA graph under ``key`` (captured at
+        its first call), replayed on ``inp`` (None: the body reads only the
+        carries); its output tensors cloned out of the graph's buffers. The
+        warm-up before the capture runs on copies of the carries, so it
+        advances nothing."""
         entry = self._step_graphs.get(key)
-        self._tau.fill_(self.threshold)
         if entry is None:
-            static = _clone_input(inp)
+            static = None if inp is None else _clone_input(inp)
             main = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(main)
             with torch.cuda.stream(side):
-                self._body(kind, self._regs.clone(), self._stats.clone(),
-                           static, self._tau)
+                body(self._carries().clone(), static)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                outs = self._body(kind, self._regs, self._stats, static,
-                                  self._tau)
+                outs = body(self._carries(), static)
             entry = self._step_graphs[key] = (graph, static, outs)
         graph, static, outs = entry
-        _copy_input(static, inp)
+        if inp is not None:
+            _copy_input(static, inp)
         graph.replay()
         return tuple(o.clone() for o in outs)
 
     def _serve(self, kind: str, inp):
+        switch, finish = self._halves(kind)
         if self._fused_ok:
-            pred, frac, rows = self._replay_step(kind, inp)
+            def body(c, i):
+                buf, ctx = switch(c, i, self._tau)
+                return finish(c, i, ctx, self._host_backend(buf))
+
+            self._tau.fill_(self.threshold)
+            pred, frac, rows = self._replay_step(
+                (kind, tuple(inp.bucket.shape)), body, inp)
         else:
-            switch, finish = self._halves(kind)
-            buf, ctx = switch(self._regs, self._stats, inp, self.threshold)
+            c = self._carries()
+            buf, ctx = switch(c, inp, self.threshold)
             be = (self._probe_backend(buf) if self._fused_ok is None
-                  else self._backend(buf))
-            pred, frac, rows = finish(self._regs, self._stats, inp, ctx, be)
+                  else self._host_backend(buf))
+            pred, frac, rows = finish(c, inp, ctx, be)
         return pred, HybridStats(frac, rows, self.capacity)
 
     # -- serving ---------------------------------------------------------------
@@ -677,12 +957,104 @@ class StreamingHybridServer(HybridServer):
         Pad lanes report -1. Nothing here waits on the device (the first
         call may, to probe the backend; the second captures its graph).
 
+        With flush_every > 1 the predictions are *provisional*: deferred
+        rows carry the switch's answer until their cycle flushes (when it
+        fills, on an occupancy or deadline trigger, or on ``flush()``), and
+        the back-patched predictions of the cycle then wait in
+        ``consume_flush()``. ``HybridStats.backend_rows`` reports the rows
+        deferred this window.
+
         NOT retry-safe: the register file advances before the backend runs,
         so a backend exception leaves the window folded in — calling
         step(w) again double-counts it. Recover by reset() or by skipping
         the failed window, never by replaying it.
         """
-        return self._serve("window", w)
+        if self.flush_every == 1:
+            return self._serve("window", w)
+        self._pos.fill_(self._pending_n)
+        if self._defer_graphs:
+            self._tau.fill_(self.threshold)
+            pred, frac, rows = self._replay_step(
+                ("defer", tuple(w.bucket.shape)),
+                lambda c, i: self._defer_body(c, i, self._tau, self._pos), w)
+        else:
+            pred, frac, rows = self._defer_body(self._carries(), w,
+                                                self.threshold, self._pos)
+        self._pending_n += 1
+        full = self._pending_n >= self.flush_every
+        trigger = "cycle_full"
+        if self.flush_occupancy is not None and not full:
+            # reading the deferred-row count is one host sync (opt-in)
+            self._occ_rows += int(rows)
+            if self._occ_rows >= self.flush_occupancy * self._dd.slots:
+                full, trigger = True, "occupancy"
+        if self.flush_deadline is not None:
+            # age the cycle's first window (its earliest timestamp latched
+            # at cycle start) against this window's newest: one host sync
+            ts = w.ts.cpu()[w.valid.cpu()]
+            if ts.numel():
+                if self._cycle_born is None:
+                    self._cycle_born = float(ts.min())
+                if (not full and float(ts.max()) - self._cycle_born
+                        >= self.flush_deadline):
+                    full, trigger = True, "deadline"
+        if full:
+            # queued, not overwritten: a caller who steps through several
+            # cycles without consuming loses nothing
+            self._flush_queue.append(self.flush(trigger=trigger))
+        return pred, HybridStats(frac, rows, self.capacity)
+
+    # -- deferred-dispatch flushing ------------------------------------------
+
+    def _flush_rows_host(self) -> torch.Tensor:
+        """The deferred rows a two-phase backend call serves: the whole
+        buffer (the reference's sharded tier sums its per-shard partial
+        rows here; the port has no sharded tier yet)."""
+        return self._dd.buf
+
+    def flush(self, *, trigger: str = "manual"):
+        """Run the backend on the pending deferral cycle and back-patch.
+
+        -> (n_windows_flushed, patched (flush_every, W) predictions) with
+        the flushed windows at rows [0, n); None when nothing is pending
+        (or flush_every == 1, where every step already ran the backend).
+        ``serve_trace`` calls this at its end, the guaranteed flush; drive
+        it yourself when stepping manually. The buffer is zeroed and the
+        pending set refilled in place. Fused, the backend, the patch, the
+        fold and the emptying are one CUDA graph; two-phase, the backend
+        runs on the host's call, then the patch; degraded (the guard gave
+        up), the provisional answers come back unpatched and the cycle's
+        rows fold into ``degraded``. ``trigger`` names what asked for the
+        flush ("cycle_full", "occupancy", "deadline", "end_of_stream",
+        "manual"); the reference hands it to its observability, which the
+        port has not yet, and it changes nothing.
+        """
+        if self.flush_every == 1 or self._pending_n == 0:
+            return None
+        n = self._pending_n
+        if self._fused_ok:
+            (patched,) = self._replay_step(
+                ("flush", tuple(self._dd.buf.shape)),
+                lambda c, _: (self._flush_finish(
+                    c, self._host_backend(c.dd.buf)),), None)
+        else:
+            rows = self._flush_rows_host()
+            be = (self._probe_backend(rows) if self._fused_ok is None
+                  else self._host_backend(rows))
+            patched = self._flush_finish(self._carries(), be)
+        self._pending_n = 0
+        self._occ_rows = 0
+        self._cycle_born = None
+        return n, patched
+
+    def consume_flush(self):
+        """Pop the oldest unconsumed flush result (or None): the
+        (n_windows, patched predictions) pair ``step`` queued when a cycle
+        flushed. FIFO, so stepping through several cycles before consuming
+        loses nothing."""
+        return self._flush_queue.pop(0) if self._flush_queue else None
+
+    # -- chunked serving -----------------------------------------------------
 
     def step_chunk(self, chunk: PacketChunk):
         """Serve K stacked windows as one step.
@@ -691,8 +1063,9 @@ class StreamingHybridServer(HybridServer):
         The register half folds the chunk's windows in order, then one
         classify, one dispatch of every window, ONE backend call over the
         chunk's K*capacity rows and the back-patch: the predictions are
-        final, pad and dead lanes at -1. Needs ``chunk_windows`` set, and a
-        chunk of exactly that many windows of ``window`` lanes
+        final, pad and dead lanes at -1 (under a fault policy, a failed
+        call leaves the switch's answers). Needs ``chunk_windows`` set, and
+        a chunk of exactly that many windows of ``window`` lanes
         (``iter_chunks`` pads the ragged final chunk with dead windows).
         Same retry discipline as ``step``.
         """
@@ -710,21 +1083,38 @@ class StreamingHybridServer(HybridServer):
         """Stream a whole PacketTrace. -> (pred (P,) on the server's device,
         stats).
 
-        With ``chunk_windows`` the trace is cut by ``iter_chunks`` and every
-        chunk goes through ``step_chunk``; otherwise ``iter_windows`` and
-        ``step``. t0 defaults to the trace minimum. Per-packet predictions
-        come back in arrival order with pad lanes stripped, equal on both
-        routes. Ends with ``stats.check()``, the only sync.
+        Windows pending from manual ``step`` calls belong to another
+        prediction stream: they are flushed first and their patches
+        dropped. With ``chunk_windows`` the trace is cut by ``iter_chunks``
+        and every chunk goes through ``step_chunk``; otherwise
+        ``iter_windows`` and ``step``, each flush's patches written over
+        the provisional predictions of its windows, and a guaranteed flush
+        at the end. t0 defaults to the trace minimum. Per-packet
+        predictions come back in arrival order with pad lanes stripped,
+        final and equal on every route. Ends with ``stats.check()``.
         """
+        self.flush()
+        self._flush_queue = []
         if self.chunk_windows is not None:
             preds = [self.step_chunk(c)[0].reshape(-1) for c in iter_chunks(
                 trace, self.window, self.chunk_windows, self.n_buckets,
                 t0=t0, device=self.device)]
         else:
-            preds = [self.step(w)[0] for w in iter_windows(
-                trace, self.window, self.n_buckets, t0=t0,
-                device=self.device)]
+            preds = []
+            for w in iter_windows(trace, self.window, self.n_buckets, t0=t0,
+                                  device=self.device):
+                preds.append(self.step(w)[0])
+                _patch(preds, self.consume_flush())
+            _patch(preds, self.flush(trigger="end_of_stream"))
         n = len(trace.ts)
         flat = (torch.cat(preds)[:n] if preds
                 else torch.zeros((0,), dtype=torch.int64, device=self.device))
         return flat, self.stats.check()
+
+
+def _patch(preds: list, flushed) -> None:
+    """Write a flush's (n, patched) predictions over the last n windows'
+    provisional ones."""
+    if flushed is not None:
+        k, patched = flushed
+        preds[-k:] = list(patched[:k])

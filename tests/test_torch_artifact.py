@@ -97,3 +97,23 @@ def test_table_predict_parity_all_aggs(model, anomaly_data):
         from repro.core.inference import table_predict_per_tree as jax_per_tree
         assert_bit_equal(jax_per_tree(ja, xte[:50]),
                          table_predict_per_tree(port_artifact(ja), xte[:50]))
+
+
+def test_relative_error_matches_reference_and_falls_with_bits():
+    """The mean relative calc error of a quantized table (Fig 9) against the
+    reference (an f32 mean summed in another order: rtol 1e-6), falling as
+    the action bits grow (the reference's ``test_action_bits_monotone``),
+    and zero-safe (a zero value divides by 1e-9)."""
+    from repro.core.quantize import relative_error as jax_rel
+    from repro_torch.core.quantize import relative_error
+    v = np.random.default_rng(1).normal(0, 3, (64, 64)).astype(np.float32)
+    v[0, :4] = 0.0
+    errs = []
+    for bits in (8, 12, 16, 24):
+        got = relative_error(quantize_fixed(v, bits), v)
+        assert isinstance(got, float)
+        np.testing.assert_allclose(got, jax_rel(jax_quantize(v, bits), v),
+                                   rtol=1e-6)
+        errs.append(got)
+    assert all(errs[i] >= errs[i + 1] for i in range(len(errs) - 1))
+

@@ -1031,6 +1031,171 @@ def test_syncing_backend_serves_chunks_eagerly(stream_served):
     _same_stats(s_ref, s)
 
 
+# -- cross-window deferral and the fault guard on the card ---------------------------
+
+@pytest.mark.parametrize("evict", [False, True])
+@pytest.mark.parametrize("k", [2, 8])
+def test_deferred_graphs_equal_eager_and_cpu(stream_served, k, evict):
+    """flush_every=k on the card through the deferred step's graph and the
+    flush graph (fuse=None), and eagerly (fuse=False: B5, B1 and the sweep
+    once a window), against the CPU's deferred and per-window servers:
+    predictions, flow table, counters. The cycle slot advances across
+    replays of one captured graph (two graphs for the whole trace)."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, big, big_dev = stream_served
+    kw = dict(_stream_kw(evict), flush_every=k)
+    host = StreamingHybridServer(art, _rf_backend(big), device="cpu", **kw)
+    p_host, s_host = host.serve_trace(trace)
+    p_win, s_win = StreamingHybridServer(
+        art, _rf_backend(big), device="cpu",
+        **_stream_kw(evict)).serve_trace(trace)
+    eager = StreamingHybridServer(art, _rf_backend(big_dev), fuse=False, **kw)
+    select = ek.resolve_select("auto", eager.artifact.n_trees,
+                               eager.artifact.dtable_flat.shape[2],
+                               eager.artifact.dtable_flat.shape[0])
+    before = (su.LAUNCHES["stream_update"], ek.LAUNCHES[select],
+              ev.LAUNCHES["evict_fill"])
+    p_eager, s_eager = eager.serve_trace(trace)
+    n_win = s_eager.n_windows
+    assert (su.LAUNCHES["stream_update"] - before[0],
+            ek.LAUNCHES[select] - before[1],
+            ev.LAUNCHES["evict_fill"] - before[2]) == (
+        n_win, n_win, n_win if evict else 0)
+    graph = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    before = su.LAUNCHES["stream_update"]
+    p_graph, s_graph = graph.serve_trace(trace)
+    assert su.LAUNCHES["stream_update"] - before == 2   # warm-up + capture
+    assert graph._fused_ok is True
+    assert set(graph._step_graphs) == {("defer", (256,)),
+                                       ("flush", (k * 32, 8))}
+    for p, s, srv in ((p_eager, s_eager, eager), (p_graph, s_graph, graph)):
+        assert torch.equal(p.cpu(), p_host) and torch.equal(p.cpu(), p_win)
+        assert torch.equal(srv.flow_table().cpu(), host.flow_table())
+        _same_stats(s, s_host)
+        _same_stats(s, s_win, flushes=False)
+    assert s_graph.n_flushes == -(-n_win // k)
+    if evict:
+        assert s_graph.n_evicted > 0
+
+
+def test_deferred_graph_steps_provisional_and_flush_patches(stream_served):
+    """Manual stepping through the graphs: each replay writes its own cycle
+    slot (the provisional predictions and the patched flush equal the
+    eager route's), a partial cycle flushes by hand, one step does not
+    sync the host, and reset() mid-cycle leaves the graphs valid."""
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(True), flush_every=4)
+    eager = StreamingHybridServer(art, _rf_backend(big_dev), fuse=False, **kw)
+    graph = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    ws = list(iter_windows(trace, 256, 4096))[:7]
+    for w in ws:
+        pe, he = eager.step(w)
+        pg, hg = graph.step(w)
+        assert torch.equal(pe, pg)
+        assert torch.equal(he.as_tensors()[1], hg.as_tensors()[1])
+        assert graph.pending_windows == eager.pending_windows
+        fe, fg = eager.consume_flush(), graph.consume_flush()
+        assert (fe is None) == (fg is None)
+        if fe is not None:
+            assert fe[0] == fg[0] == 4 and torch.equal(fe[1], fg[1])
+    ne, fe = eager.flush()
+    ng, fg = graph.flush()
+    assert ne == ng == 3 and torch.equal(fe, fg)
+    _same_stats(eager.stats, graph.stats)
+    graphs = dict(graph._step_graphs)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graph.step(ws[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph.step(ws[1])
+    graph.reset()                                 # mid-cycle
+    assert graph.pending_windows == 0 and graph.flush() is None
+    eager.reset()
+    p_e, s_e = eager.serve_trace(trace)
+    p_g, s_g = graph.serve_trace(trace)
+    assert graph._step_graphs == graphs
+    assert torch.equal(p_e, p_g)
+    _same_stats(s_e, s_g)
+
+
+def test_syncing_backend_flushes_two_phase(stream_served):
+    """A backend that syncs the host is found at the first flush (the
+    backend's first call): the deferred step stays a graph, the flush runs
+    two-phase from then on, and the answers equal the eager route's."""
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(True), flush_every=4)
+
+    def np_backend(r):                         # a host round trip
+        return predict_tree_ensemble(big_dev, r).cpu().numpy()
+
+    ref = StreamingHybridServer(art, _rf_backend(big_dev), fuse=False, **kw)
+    p_ref, s_ref = ref.serve_trace(trace)
+    srv = StreamingHybridServer(art, np_backend, **kw)
+    p, s = srv.serve_trace(trace)
+    assert srv._fused_ok is False
+    assert set(srv._step_graphs) == {("defer", (256,))}
+    assert torch.equal(p_ref, p)
+    _same_stats(s_ref, s)
+
+
+@pytest.mark.parametrize("path_kw", [dict(), dict(flush_every=4),
+                                     dict(chunk_windows=4)],
+                         ids=["per_window", "deferred", "chunked"])
+def test_guarded_server_on_card_equals_cpu(stream_served, path_kw):
+    """Under a fault policy (eager on the card) and the same seeded
+    FaultyBackend, the card's predictions, counters and guard telemetry
+    equal the CPU's; degraded rows exist and the accounting balances."""
+    from repro_torch.serving.faults import FaultPolicy, FaultyBackend
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, big, big_dev = stream_served
+    policy = FaultPolicy(max_retries=1, backoff_base_s=0.0,
+                         breaker_threshold=3, breaker_cooldown=2)
+    kw = dict(_stream_kw(True), fault_policy=policy, **path_kw)
+    fkw = dict(error_rate=0.4, seed=9, outages=range(0, 4))
+    card = StreamingHybridServer(art, FaultyBackend(_rf_backend(big_dev),
+                                                    **fkw), **kw)
+    host = StreamingHybridServer(art, FaultyBackend(_rf_backend(big), **fkw),
+                                 device="cpu", **kw)
+    p_card, s_card = card.serve_trace(trace)
+    p_host, s_host = host.serve_trace(trace)
+    assert card._fused_ok is False and not card._step_graphs
+    assert s_card.n_degraded > 0
+    assert torch.equal(p_card.cpu(), p_host)
+    _same_stats(s_card, s_host)
+    assert card.fault_stats.as_dict() == host.fault_stats.as_dict()
+
+
+def test_guard_worker_runs_on_the_callers_stream(cuda):
+    """Under a timeout the backend runs on a worker thread, on the stream
+    that was current where the guard was called, so its kernels follow the
+    rows' producer and precede the patch without a host sync."""
+    from repro_torch.serving.faults import FaultPolicy, GuardedBackend
+    seen = []
+
+    def backend(rows):
+        seen.append(torch.cuda.current_stream(rows.device).cuda_stream)
+        return rows.sum(dim=1)
+
+    g = GuardedBackend(backend, FaultPolicy(timeout_s=30.0, max_retries=0,
+                                            breaker_threshold=0))
+    side = torch.cuda.Stream(cuda)
+    rows = torch.ones((64, 8), device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        out = g(rows * 2.0)
+        got = (out + 1.0).cpu()
+    assert seen == [side.cuda_stream]
+    assert torch.equal(got, torch.full((64,), 17.0))
+
+
 def test_csv_parse_on_card_equals_cpu(cuda):
     from repro_torch.data.janestreet_like import make_janestreet_like
     from repro_torch.netsim.features import (encode_csv_payload,
@@ -1044,6 +1209,11 @@ def test_csv_parse_on_card_equals_cpu(cuda):
     assert whole.device.type == "cuda"
     card = file_features_csv(whole, list(range(130)))
     assert torch.equal(card.cpu(), host)
+    rng = np.random.default_rng(0)
+    ints = rng.integers(1 << 24, 10 ** 8, (4096, 3)).astype(np.float64)
+    big = encode_csv_payload(ints, width=8)       # integer parts past 2^24
+    card = file_features_csv(torch.as_tensor(big, device=cuda), [0, 1, 2])
+    assert torch.equal(card.cpu(), torch.from_numpy(ints.astype(np.float32)))
 
 
 def test_finance_launcher_on_card_equals_plain(cuda):

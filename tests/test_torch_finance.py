@@ -7,8 +7,8 @@ reference package (``tests/test_features_netsim.py`` and the reference's
 launcher).
 
 Tolerances: every comparison with the reference is bit for bit (the CSV
-parse included: the port rounds ``val + d * frac_scale`` once, as the
-reference's compiled scan does). The round trips through the ASCII format
+parse included: the port rounds ``val * 10 + d`` and ``val + d *
+frac_scale`` once each, as the reference's compiled scan does). The round trips through the ASCII format
 hold the reference's own tolerances (the format keeps 3 decimals).
 """
 
@@ -153,6 +153,29 @@ def test_csv_parse_bit_equals_reference_on_finance_rows(finance_rows, width):
             * 10.0 ** rng.integers(-3, 4, (600, 12))).astype(np.float32)
     _parse_both(tfeat.encode_csv_payload(wide, width=width), list(range(12)),
                 width=width)
+
+
+@pytest.mark.parametrize("width", [8, 9, 12, 16])
+def test_csv_parse_integer_parts_past_2_24_bit_equal_reference(width):
+    """Integer parts drawn from [2^24, 10^8): the integer step rounds once,
+    as the reference's fused multiply-add does, so every field parses to
+    the reference's bits, and a pure integer to its own nearest f32 (two
+    roundings missed about 18% of such fields). Negative at widths past 8
+    (the sign needs the ninth character); at widths 12 and 16 with a
+    3-digit fraction."""
+    rng = np.random.default_rng(width)
+    ints = rng.integers(1 << 24, 10 ** 8, (2000, 3)).astype(np.float64)
+    if width > 8:
+        ints *= np.where(rng.random(ints.shape) < 0.3, -1.0, 1.0)
+    vals = ints
+    if width >= 12:
+        vals = ints + np.sign(ints) * rng.integers(0, 1000, ints.shape) / 1e3
+    payload = tfeat.encode_csv_payload(vals, width=width)
+    np.testing.assert_array_equal(payload,
+                                  jfeat.encode_csv_payload(vals, width=width))
+    out = _parse_both(payload, [0, 1, 2], width=width)
+    if width < 12:
+        np.testing.assert_array_equal(out, ints.astype(np.float32))
 
 
 def test_split_payload_stitch():

@@ -84,6 +84,7 @@ def test_hybrid_stats_are_lazy_tensors(setup):
     _, stats = server.classify(torch.from_numpy(xte[:100]))
     frac, rows = stats.as_tensors()
     assert isinstance(frac, torch.Tensor) and isinstance(rows, torch.Tensor)
+    assert all(a is b for a, b in zip(stats.as_arrays(), (frac, rows)))
     assert isinstance(stats.fraction_handled, float)
     assert 0 <= stats.backend_rows <= 32
     assert "HybridStats(" in repr(stats)

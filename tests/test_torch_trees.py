@@ -157,3 +157,25 @@ def test_metrics_match_reference(data):
         jmetrics.precision_recall_f1(yte, pred)
     assert tmetrics.accuracy(torch.from_numpy(yte), torch.from_numpy(pred)) \
         == jmetrics.accuracy(yte, pred)
+
+
+@pytest.mark.parametrize("n_trees,max_depth", [(6, 4), (7, 3)])
+def test_tree_vote_predict_matches_reference_and_table(data, n_trees,
+                                                       max_depth):
+    """The direct per-tree vote (``core.inference.tree_vote_predict``)
+    equals the reference's bit for bit and the mapped table's predictions
+    (the reference's ``test_rf_vote_equivalence``)."""
+    from repro.core.inference import tree_vote_predict as jax_vote
+    from repro_torch.core.inference import table_predict, tree_vote_predict
+    xtr, ytr, xte, _ = data
+    jens = jtrees.fit_random_forest(xtr, ytr, n_classes=2, n_trees=n_trees,
+                                    max_depth=max_depth)
+    tens = port_ensemble(jens)
+    pj, cj = jax_vote(jens, xte)
+    pt, ct = tree_vote_predict(tens, torch.from_numpy(xte))
+    assert_bit_equal(pj, pt)
+    assert_bit_equal(cj, ct)
+    p_tab, _ = table_predict(map_tree_ensemble(tens, xtr.shape[1]),
+                             torch.from_numpy(xte))
+    assert torch.equal(p_tab, pt)
+
