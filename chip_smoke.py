@@ -148,6 +148,30 @@ Phases (any failure exits non-zero before the result line is printed):
         failed flush degraded rows (always under the outage), the
         accounting balances; each run equal to the CPU port under the same
         seeded ``FaultyBackend``.
+     k. open-ended ingest and observability: ``serve_stream`` through the
+        packet ring (``netsim/ingest.py``; on the chunked path the prefetch
+        thread packs each cut into pinned buffers and copies it on a side
+        stream), each run's B5, B1 and sweep launches counted against its
+        steps, predictions and counters bit for bit against the manual loop
+        (``iter_chunks`` + ``step_chunk``, ``iter_windows`` + ``step``): the
+        reference latency bench's configuration (``benchmarks/
+        latency_bench.py:58-67``: the streaming trace, windows of 256, K=16,
+        batches of 4096) with prefetch off and on and with
+        ``chunk_windows="auto"``, eager and through the graph, and against
+        the CPU port; the streaming configuration's ``serve_trace`` through
+        the ring (K=16, without and with ``evict_age=5.0``); the reference
+        obs bench's configuration (``benchmarks/obs_bench.py:144-160``:
+        3000 flows, W=256, K=8 chunked and ``flush_every=4``,
+        ``rollup_every=4``, events to a JSON-lines file in a temporary
+        directory) with obs on equal to obs off and to the CPU port, the
+        log valid, rollups closed, and its drift monitor firing on the
+        shifted trace and silent on a stationary one; a paced source
+        (batches of 1000) with a real 2 ms deadline and with a fake clock
+        that forces deadline cuts (equal but for ``flushes``); a live
+        source sleeping 5 ms a batch at ``serve_stream``'s defaults
+        (prefetch on, the graph captured while the thread stages);
+        ``record_latency`` with and without ``latency_samples`` (p50, p95,
+        p99).
      f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
         params from ``init_model`` on the card, 17.65 GB) through
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
@@ -198,7 +222,18 @@ Phases (any failure exits non-zero before the result line is printed):
      k against the window step's graph at k=1 (W=512), the deferred step's
      parts (the switch half, the deferral tail), a call of each route, and
      ``serve_trace``'s ms and packets/s per k and route; each scenario's
-     guarded ``serve_trace``.
+     guarded ``serve_trace``. Then ingest: the host's parts timed alone
+     (hash, in numpy and in torch on the CPU, rebase, the ring's
+     admit/pop/pack, the pinned pack of a chunk, and its H2D copy under
+     CUDA events on the side stream) at the latency bench's and the
+     streaming configuration's geometry, and the per-window path's
+     transfer (one pinned copy a cut against a copy a column, in turns);
+     packets/s of ``serve_stream`` with prefetch off and on, eager and
+     from the graph, and its obs stage timers a chunk with prefetch off
+     and on; ``serve_trace`` through the ring (prefetch off on the card)
+     against the manual loop from the graph (W=1024, K=16, in turns); the
+     card's idle share over a ``serve_stream`` run (``torch.profiler``);
+     the obs on/off throughput ratio on both paths.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -741,15 +776,18 @@ def main() -> int:
     # -- 4j. serve: the adversarial scenarios under the fault guard -----------
     scenarios = _serve_scenarios(torch, np, dev)
 
+    # -- 4k. serve: open-ended ingest and observability -------------------------
+    ingest = _serve_ingest(torch, np, dev, stream_models)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
     # B1/B2 launches: the launcher's run, both streaming runs, path d, the
-    # chunked runs (4g), the finance launcher (4h), the deferral (4i) and
-    # scenario (4j) runs
+    # chunked runs (4g), the finance launcher (4h), the deferral (4i),
+    # scenario (4j) and ingest (4k) runs
     slice_totals = {}
     for totals in (chunked["totals"], deferred["totals"],
-                   scenarios["totals"]):
+                   scenarios["totals"], ingest["totals"]):
         _add(slice_totals, totals)
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
@@ -831,7 +869,7 @@ def main() -> int:
 
     stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
     for row, key in zip(stream_rows, ("stream_update", "evict_fill")):
-        row["launches"] += slice_totals.get(key, 0)     # 4g, 4i, 4j
+        row["launches"] += slice_totals.get(key, 0)     # 4g, 4i, 4j, 4k
     kernel_rows += stream_rows
     for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
@@ -851,6 +889,9 @@ def main() -> int:
     defer_times = _time_deferred(torch, np, deferred, scenarios, smi)
     print("times (phase 5, deferral and scenarios): "
           + json.dumps(defer_times))
+    ingest_times = _time_ingest(torch, np, ingest, smi)
+    print("times (phase 5, ingest and observability): "
+          + json.dumps(ingest_times))
 
     lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
     kernel_rows.append(lm_row)
@@ -2626,6 +2667,659 @@ def _time_deferred(torch, np, deferred, scenarios, smi):
         print(f"time serve_trace[scenario {name} {profile}, guarded, eager] "
               f"{tr.n_packets} packets: median {med * 1e3:.2f} ms "
               f"({tr.n_packets / med:.0f} packets/s) on {smi}")
+    return out
+
+
+# -- open-ended ingest and observability (phase 4k) ------------------------------
+
+# the reference's serve_stream bench (benchmarks/latency_bench.py:58-67): the
+# streaming trace at windows of 256, K=16, batches of 4096 packets
+LAT_WINDOW, LAT_K, LAT_BATCH = 256, 16, 4096
+LAT_KW = dict(n_buckets=STREAM_BUCKETS, window=LAT_WINDOW, threshold=0.9,
+              capacity=64)
+# the reference's obs bench (benchmarks/obs_bench.py:144-160)
+OBS_FLOWS, OBS_WINDOW, OBS_K, OBS_FLUSH, OBS_ROLLUP = 3000, 256, 8, 4, 4
+OBS_KW = dict(n_buckets=STREAM_BUCKETS, window=OBS_WINDOW, threshold=0.9,
+              capacity=64)
+
+
+def _shift_trace(n_flows=1200, seed=0, benign_frac=0.02, shifted_frac=0.9):
+    """A copy of ``benchmarks/obs_bench.py:47 shift_trace``: a benign
+    opening segment, then an anomaly-heavy segment strictly after it."""
+    import dataclasses
+    from repro_torch.netsim.packets import synth_trace
+    from repro_torch.netsim.scenarios import merge_traces
+    a = synth_trace(n_flows=n_flows, anomaly_frac=benign_frac, seed=seed)
+    b = synth_trace(n_flows=n_flows, anomaly_frac=shifted_frac,
+                    seed=seed + 1)
+    b = dataclasses.replace(b, ts=b.ts + float(a.ts.max()) + 1.0)
+    return merge_traces(a, b)
+
+
+def _chunk_launches(select, k, calls, evict):
+    """What ``calls`` chunk steps of K windows launch: B5 and the sweep K
+    times a chunk, B1 once (``_want_launches``, per window, K times)."""
+    want = _want_launches(select, k * calls, evict)
+    want[select] = calls
+    return want
+
+
+def _manual_chunks(torch, srv, trace):
+    """The loop ``serve_trace`` replaced: ``iter_chunks`` through
+    ``step_chunk``. -> (predictions, stats)."""
+    from repro_torch.netsim.stream import iter_chunks
+    preds = [srv.step_chunk(c)[0].reshape(-1) for c in iter_chunks(
+        trace, srv.window, srv.chunk_windows, srv.n_buckets)]
+    return torch.cat(preds)[:trace.n_packets], srv.stats.check()
+
+
+def _manual_windows(torch, srv, trace):
+    """The per-window loop ``serve_trace`` replaced: ``iter_windows``
+    through ``step``, each flush's patches over its windows."""
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import _patch
+    preds = []
+    for w in iter_windows(trace, srv.window, srv.n_buckets):
+        preds.append(srv.step(w)[0])
+        _patch(preds, srv.consume_flush())
+    _patch(preds, srv.flush(trigger="end_of_stream"))
+    return torch.cat(preds)[:trace.n_packets], srv.stats.check()
+
+
+def _same_served(torch, got, ref, label, *, flushes=True):
+    """Predictions bit for bit and every counter (``conf_sum`` at rtol
+    1e-5)."""
+    (p, s), (p_ref, s_ref) = got, ref
+    if p.shape != p_ref.shape or not torch.equal(p.cpu(), p_ref.cpu()):
+        raise AssertionError(f"{label}: predictions differ")
+    _same_stream_stats(s, s_ref, label, flushes=flushes)
+
+
+def _serve_ingest(torch, np, dev, models):
+    """Phase 4k: open-ended ingest and observability. ``serve_stream``
+    through the packet ring on the card, each run with every launch count
+    set to 0 just before it and read just after (eager: B5 and the sweep K
+    times and B1 once a chunk, or each once a window; graph: the probe, the
+    warm-up and the capture), its predictions and StreamStats bit for bit
+    against the manual loop (``iter_chunks`` + ``step_chunk``, or
+    ``iter_windows`` + ``step``) and, where noted, the CPU port:
+      - latency_bench's configuration (``LAT_KW``, K=16, batches of 4096):
+        prefetch on and off, and ``chunk_windows="auto"``, each eager and
+        through the chunk step's graph; the CPU port on the same source;
+      - the streaming configuration (W=1024, K=16, without and with
+        ``evict_age=5.0``): ``serve_trace`` through the ring against the
+        manual loop, eager and graph;
+      - obs_bench's configuration (3000 flows, W=256, K=8 chunked and
+        ``flush_every=4`` per window, ``rollup_every=4``, events to a
+        JSON-lines file in a temporary directory): obs on equal to obs off
+        and to the CPU port, the log valid, rollups closed; the drift
+        monitor at ``DriftConfig(baseline_windows=2, mix_l1=0.1)`` fires on
+        ``_shift_trace`` and stays silent on a stationary trace;
+      - a paced source (batches of 1000) with a real 2 ms deadline and with
+        a fake clock that forces deadline cuts: equal to the manual loop in
+        everything but ``flushes``;
+      - a live source that sleeps 5 ms before each one-chunk batch, at
+        ``serve_stream``'s defaults (prefetch on, the graph): the prefetch
+        thread stages while the graph is captured;
+      - ``record_latency=True`` with and without ``latency_samples``: the
+        p50/p95/p99.
+    -> the totals, servers and traces phase 5 times."""
+    import tempfile
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.netsim.ingest import replay_source, slice_trace
+    from repro_torch.netsim.packets import synth_trace
+    from repro_torch.obs import DriftConfig, Observability, validate_event_log
+    from repro_torch.serving import stream_serving as ss
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    trace, art, backend = models["trace"], models["art"], models["backend"]
+    big_cpu = models["big"].to("cpu")
+
+    def cpu_backend(r):
+        return predict_tree_ensemble(big_cpu, r)
+
+    out = {"totals": {}, "servers": {}, "trace": trace,
+           "lat_models": (art, backend)}
+    select = None
+
+    def counted(label, run, *, k, calls, evict):
+        """run() with the launch counts from 0, checked against ``calls``
+        chunk steps of K windows (k=1: window steps)."""
+        nonlocal select
+        _reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        path = _counts()
+        print(f"main-path launches (k: {label}): {path}")
+        _check_launches(path, _chunk_launches(select, k, calls, evict), label)
+        _add(out["totals"], path)
+        return res
+
+    def graph_calls(n_steps):
+        return 3 if n_steps >= 2 else 1     # the probe, warm-up, capture
+
+    # -- latency_bench's configuration ------------------------------------------
+    manual = StreamingHybridServer(art, backend, chunk_windows=LAT_K,
+                                   fuse=False, **LAT_KW)
+    select = ek.resolve_select("auto", manual.artifact.n_trees,
+                               manual.artifact.dtable_flat.shape[2],
+                               manual.artifact.dtable_flat.shape[0])
+    ref = _manual_chunks(torch, manual, trace)
+    n_chunks = ref[1].n_flushes
+    host = StreamingHybridServer(art, cpu_backend, chunk_windows=LAT_K,
+                                 device="cpu", **LAT_KW)
+    p_cpu, s_cpu = host.serve_stream(replay_source(trace, batch=LAT_BATCH))
+    _same_served(torch, (p_cpu, s_cpu), ref, "latency_bench CPU port")
+    for route, fuse in (("eager", False), ("graph", None)):
+        for prefetch in (False, True):
+            srv = StreamingHybridServer(art, backend, chunk_windows=LAT_K,
+                                        fuse=fuse, **LAT_KW)
+            label = f"latency_bench {route} prefetch={prefetch}"
+            calls = n_chunks if route == "eager" else graph_calls(n_chunks)
+            got = counted(label, lambda: srv.serve_stream(
+                replay_source(trace, batch=LAT_BATCH), prefetch=prefetch),
+                k=LAT_K, calls=calls, evict=False)
+            _same_served(torch, got, ref, label)
+            if route == "graph" and n_chunks >= 2 and set(
+                    srv._step_graphs) != {("chunk", (LAT_K, LAT_WINDOW))}:
+                raise AssertionError(f"{label}: graphs {srv._step_graphs}")
+            out["servers"][("latency_bench", route, prefetch)] = srv
+            ing = srv.ingest_stats
+            print(f"serve_stream[{label}] packets={got[1].n_packets} "
+                  f"chunks={n_chunks} cuts={ing.cuts} (count "
+                  f"{ing.count_cuts}, drain {ing.drain_cuts}) dropped="
+                  f"{ing.dropped} equal_manual_loop=True equal_cpu=True")
+        ss.clear_chunk_tune_cache()
+        auto = StreamingHybridServer(art, backend, chunk_windows="auto",
+                                     fuse=fuse, **LAT_KW)
+        kk = auto.chunk_windows
+        auto_ref = _manual_chunks(torch, StreamingHybridServer(
+            art, backend, chunk_windows=kk, fuse=False, **LAT_KW), trace)
+        kk_chunks = auto_ref[1].n_flushes
+        label = f"latency_bench auto->K={kk} {route}"
+        got = counted(label, lambda: auto.serve_stream(
+            replay_source(trace, batch=LAT_BATCH)), k=kk,
+            calls=kk_chunks if route == "eager" else graph_calls(kk_chunks),
+            evict=False)
+        _same_served(torch, got, auto_ref, label)
+        _same_served(torch, got, ref, label + " vs K=16", flushes=False)
+        print(f"serve_stream[{label}] the sweep per packet " + ", ".join(
+            f"K={c} {t * 1e9:.1f} ns" for c, t in
+            sorted(auto.chunk_sweep.items())) + " equal_manual_loop=True")
+        out["servers"][("latency_bench_auto", route)] = auto
+
+    # -- the streaming configuration: serve_trace through the ring -------------
+    for name, extra in STREAM_RUNS:
+        kw = dict(STREAM_KW, **extra)
+        m = StreamingHybridServer(art, backend, chunk_windows=16, fuse=False,
+                                  **kw)
+        sref = _manual_chunks(torch, m, trace)
+        nc = sref[1].n_flushes
+        for route, fuse in (("eager", False), ("graph", None)):
+            srv = StreamingHybridServer(art, backend, chunk_windows=16,
+                                        fuse=fuse, **kw)
+            label = f"serve_trace ring {name} K=16 {route}"
+            got = counted(label, lambda: srv.serve_trace(trace), k=16,
+                          calls=nc if route == "eager" else graph_calls(nc),
+                          evict=bool(extra))
+            _same_served(torch, got, sref, label)
+            if not torch.equal(srv.flow_table(), m.flow_table()):
+                raise AssertionError(f"{label}: flow table != manual loop")
+            out["servers"][("stream", name, route)] = srv
+            print(f"{label}: packets={got[1].n_packets} chunks={nc} "
+                  f"evicted={got[1].n_evicted} equal_manual_loop=True "
+                  f"flow_table_equal=True")
+
+    # -- a paced source with deadline cuts -----------------------------------------
+    def fake_clock():
+        state = {"t": 0.0}
+
+        def clock():
+            state["t"] += 10.0
+            return state["t"]
+        return clock
+
+    for clock_name, call in (("real 2 ms deadline", dict(deadline=0.002)),
+                             ("fake clock", dict(deadline=1.0,
+                                                 clock=fake_clock()))):
+        srv = StreamingHybridServer(art, backend, chunk_windows=LAT_K,
+                                    **LAT_KW)
+        label = f"paced batch=1000 {clock_name}"
+        _reset_counts()
+        got = srv.serve_stream(replay_source(trace, batch=1000), **call)
+        torch.cuda.synchronize()
+        path = _counts()
+        ing = srv.ingest_stats
+        print(f"main-path launches (k: {label}): {path}")
+        _check_launches(path, _chunk_launches(select, LAT_K,
+                                              graph_calls(ing.cuts), False),
+                        label)
+        _add(out["totals"], path)
+        _same_served(torch, got, ref, label, flushes=False)
+        if clock_name == "fake clock" and ing.deadline_cuts == 0:
+            raise AssertionError(f"{label}: no deadline cut")
+        print(f"serve_stream[{label}] cuts={ing.cuts} (count "
+              f"{ing.count_cuts}, deadline {ing.deadline_cuts}, drain "
+              f"{ing.drain_cuts}) flushes={got[1].n_flushes} (manual loop "
+              f"{ref[1].n_flushes}) equal_manual_loop_but_flushes=True")
+
+    # -- a live source at serve_stream's defaults ----------------------------------
+    # prefetch on and the chunk step's graph: the source sleeps 5 ms before
+    # each batch of one chunk, longer than a step, so the prefetch thread
+    # stages cuts (allocating on its side stream) while the serving thread
+    # probes, warms up and captures the graph
+    def live():
+        for lo in range(0, trace.n_packets, LAT_BATCH):
+            time.sleep(0.005)
+            yield slice_trace(trace, lo, min(lo + LAT_BATCH, trace.n_packets))
+
+    srv = StreamingHybridServer(art, backend, chunk_windows=LAT_K, **LAT_KW)
+    label = "live source sleeping 5 ms a batch, defaults"
+    got = counted(label, lambda: srv.serve_stream(live()), k=LAT_K,
+                  calls=graph_calls(n_chunks), evict=False)
+    _same_served(torch, got, ref, label)
+    if set(srv._step_graphs) != {("chunk", (LAT_K, LAT_WINDOW))}:
+        raise AssertionError(f"{label}: graphs {srv._step_graphs}")
+    print(f"serve_stream[{label}] prefetch on, graph captured with the "
+          f"thread staging: equal_manual_loop=True")
+
+    # -- record_latency --------------------------------------------------------------
+    srv = out["servers"][("latency_bench", "graph", True)]
+    out["latency"] = {}
+    for samples in (None, 4096):
+        srv.reset()
+        got = srv.serve_stream(replay_source(trace, batch=LAT_BATCH),
+                               record_latency=True, latency_samples=samples)
+        _same_served(torch, got, ref, f"record_latency samples={samples}")
+        summ = srv.latency.summary()
+        if summ["n"] != trace.n_packets or not (
+                0.0 < summ["p50_ms"] <= summ["p95_ms"] <= summ["p99_ms"]):
+            raise AssertionError(f"latency summary {summ}")
+        out["latency"][str(samples)] = summ
+        print(f"serve_stream[latency_bench graph prefetch, record_latency, "
+              f"latency_samples={samples}] n={summ['n']} p50 "
+              f"{summ['p50_ms']:.4f} ms p95 {summ['p95_ms']:.4f} ms p99 "
+              f"{summ['p99_ms']:.4f} ms mean {summ['mean_ms']:.4f} ms max "
+              f"{summ['max_ms']:.4f} ms (kept {srv.latency.latencies().size})")
+
+    # -- obs_bench's configuration -----------------------------------------------
+    otrace = synth_trace(n_flows=OBS_FLOWS, seed=0)
+    oart, obackend, obig = _trace_models(torch, np, dev, otrace,
+                                         STREAM_BUCKETS)
+    obig_cpu = obig.to("cpu")
+    out["obs"] = {"trace": otrace, "servers": {},
+                  "models": (oart, obackend)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, pkw in (("chunked", dict(chunk_windows=OBS_K)),
+                          ("per_window", dict(flush_every=OBS_FLUSH))):
+            kw = dict(OBS_KW, **pkw)
+            batch = (pkw.get("chunk_windows") or 1) * OBS_WINDOW
+            off = StreamingHybridServer(oart, obackend, **kw)
+            p_off = off.serve_stream(replay_source(otrace, batch=batch))
+            log = os.path.join(tmp, f"events_{path}.jsonl")
+            obs = Observability(events_path=log, rollup_every=OBS_ROLLUP)
+            on = StreamingHybridServer(oart, obackend, obs=obs, **kw)
+            _reset_counts()
+            p_on = on.serve_stream(replay_source(otrace, batch=batch))
+            torch.cuda.synchronize()
+            launched = _counts()
+            obs.close()
+            oselect = ek.resolve_select("auto", on.artifact.n_trees,
+                                        on.artifact.dtable_flat.shape[2],
+                                        on.artifact.dtable_flat.shape[0])
+            # graphs: the chunk step's probe, warm-up and capture; the
+            # deferred step's warm-up and capture (its probe is the flush's)
+            want = (_chunk_launches(oselect, OBS_K, 3, False)
+                    if path == "chunked"
+                    else _chunk_launches(oselect, 1, 2, False))
+            print(f"main-path launches (k: obs_bench {path}, obs on): "
+                  f"{launched}")
+            _check_launches(launched, want, f"obs {path}")
+            _add(out["totals"], launched)
+            _same_served(torch, p_on, p_off, f"obs {path} on/off")
+            manual = (_manual_chunks if path == "chunked"
+                      else _manual_windows)(torch, StreamingHybridServer(
+                          oart, obackend, **kw), otrace)
+            _same_served(torch, p_on, manual, f"obs {path} vs manual loop")
+            host = StreamingHybridServer(
+                oart, lambda r: predict_tree_ensemble(obig_cpu, r),
+                device="cpu", **kw)
+            _same_served(torch, p_on, host.serve_stream(
+                replay_source(otrace, batch=batch)), f"obs {path} vs CPU")
+            n_events = validate_event_log(log)
+            if n_events != obs.events.emitted or obs.rollups.n_rows < 1:
+                raise AssertionError(f"obs {path}: {n_events} events, "
+                                     f"{obs.rollups.n_rows} rollups")
+            rolled = sum(r["sums"]["packets"] for r in obs.rollups.rows)
+            if rolled != p_on[1].n_packets:
+                raise AssertionError(f"obs {path}: rollups hold {rolled} "
+                                     f"packets")
+            out["obs"]["servers"][path] = (off, kw, batch)
+            print(f"serve_stream[obs_bench {path}] obs on == obs off == "
+                  f"manual loop == CPU port; {n_events} events validated "
+                  f"({dict(sorted(obs.events.counts().items()))}); "
+                  f"{obs.rollups.n_rows} rollups; stages "
+                  f"{sorted(obs.timer.stages)}")
+    half = max(400, OBS_FLOWS // 3)
+    for scenario, tr, expect in (
+            ("stationary", synth_trace(n_flows=2 * half, anomaly_frac=0.02,
+                                       seed=7), False),
+            ("class_mix_shift", _shift_trace(n_flows=half, seed=7), True)):
+        obs = Observability(rollup_every=1, drift=DriftConfig(
+            baseline_windows=2, mix_l1=0.1))
+        StreamingHybridServer(oart, obackend, chunk_windows=OBS_K, obs=obs,
+                              **OBS_KW).serve_trace(tr)
+        fired = obs.drift.fired_detectors
+        if expect != ("class_mix_shift" in fired) or (not expect and fired):
+            raise AssertionError(f"drift {scenario}: fired {fired}")
+        print(f"drift[{scenario}] {tr.n_packets} packets, "
+              f"{obs.rollups.n_rows} rollups, fired {list(fired)} "
+              f"({len(obs.alarms)} alarms) as the reference's bench asserts")
+    return out
+
+
+def _device_busy_ms(torch, prof):
+    """(busy ms as the union of the device events' intervals, summed ms of
+    the device events, their count) from a ``torch.profiler`` run: the
+    union counts a copy that overlaps a kernel (the side stream) once."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    busy, summed, end = 0.0, 0.0, None
+    for s, e in spans:
+        summed += e - s
+        if end is None or s >= end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy / 1e3, summed / 1e3, len(spans)
+
+
+def _wall_ms(torch, fn, reps=5):
+    """Median and best host wall ms of ``fn`` (which ends in a sync)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times), 1e3 * min(times)
+
+
+def _profile_serve_stream(torch, srv, trace, batch, prefetch, label, out,
+                          smi):
+    """One ``serve_stream`` run under ``torch.profiler``: the card's busy
+    time (the union of its device events) over the run's wall, into
+    ``out["idle"][label]``."""
+    from repro_torch.netsim.ingest import replay_source
+    from torch.profiler import ProfilerActivity, profile
+    srv.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        srv.serve_stream(replay_source(trace, batch=batch),
+                         prefetch=prefetch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, summed, n_ev = _device_busy_ms(torch, prof)
+    idle = (1.0 - busy / wall) if n_ev else None
+    out["idle"][label] = dict(wall_ms=wall, busy_ms=busy, summed_ms=summed,
+                              device_events=n_ev, idle_share=idle)
+    print(f"profile serve_stream[{label}]: device busy {busy:.3f} ms (union "
+          f"of {n_ev} device events; summed {summed:.3f} ms) of {wall:.3f} "
+          f"ms wall: idle share "
+          + ("not measured (no device events)" if idle is None
+             else f"{100 * idle:.1f}%") + f" (profiler on) on {smi}")
+
+
+def _time_ingest(torch, np, ingest, smi):
+    """Phase 5 for phase 4k: the host's ingest parts timed alone (hash,
+    rebase, the ring's admit/pop/pack, the pinned pack and the H2D copy of
+    one chunk on the side stream under CUDA events) at latency_bench's and
+    the streaming configuration's geometry, and the hash in torch beside
+    the numpy one; packets/s of serve_stream with prefetch off and on,
+    eager and from the graph, and the obs stage timers a chunk with
+    prefetch off and on; serve_trace through the
+    ring against the manual loop it replaced, from the graph (W=1024,
+    K=16, in turns); the card's idle share over a serve_stream run
+    (``torch.profiler``, the union of the device events over the wall);
+    the obs on/off throughput ratio on both paths. -> a dict of the
+    numbers."""
+    import tempfile
+    from repro_torch.netsim.features import (fnv1a_hash, fnv1a_hash_np,
+                                             rebase_ts_np)
+    from repro_torch.netsim.ingest import (PacketRingBuffer, PinnedStaging,
+                                           _pack, replay_source)
+    from repro_torch.netsim.stream import trace_columns
+    from repro_torch.obs import Observability
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    trace, servers = ingest["trace"], ingest["servers"]
+    n_pkt = trace.n_packets
+    out = {"host_parts_ms": {}, "serve_stream": {}, "ring_vs_manual": {},
+           "idle": {}, "obs_ratio": {}}
+
+    def host_ms(fn, reps=9):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    ts64 = np.asarray(trace.ts, np.float64)
+    five = (trace.src_ip, trace.dst_ip, trace.sport, trace.dport,
+            trace.proto)
+    hash_ms = host_ms(lambda: fnv1a_hash_np(*five, n_buckets=STREAM_BUCKETS))
+    # the torch hash on the CPU, which the ring's columns used before
+    torch_hash_ms = host_ms(lambda: fnv1a_hash(
+        *five, n_buckets=STREAM_BUCKETS, device="cpu"))
+    print(f"time ingest hash of {n_pkt} packets: numpy {hash_ms:.3f} ms, "
+          f"torch on the CPU {torch_hash_ms:.3f} ms on {smi}")
+    out["torch_hash_ms"] = torch_hash_ms
+    rebase_ms = host_ms(lambda: rebase_ts_np(ts64, float(ts64.min())))
+    cols_ms = host_ms(lambda: trace_columns(trace, STREAM_BUCKETS))
+    cols, t0 = trace_columns(trace, STREAM_BUCKETS)
+    dev = torch.device("cuda")
+    side = torch.cuda.Stream()
+    for cfg, window, k in (("latency_bench", LAT_WINDOW, LAT_K),
+                           ("stream", STREAM_WINDOW, 16)):
+        def ring_run():
+            ring = PacketRingBuffer(window, k, STREAM_BUCKETS, t0=t0)
+            cuts, off = [], 0
+            while off < n_pkt:
+                off += ring.admit_cols(cols, off, min(off + ring.free, n_pkt),
+                                       now=0.0)
+                while ring.ready():
+                    cuts.append(ring.cut("count"))
+            last = ring.drain()
+            return cuts + ([last] if last is not None else [])
+
+        ring_ms = host_ms(ring_run)
+        cuts = ring_run()
+        cut = cuts[0]
+        # a cut staged as prefetch stages it: its columns packed into one
+        # pinned buffer (the pack timed on the host), then that buffer's
+        # one H2D copy on a side stream, timed by CUDA events around it
+        staging = PinnedStaging(k, window, device=dev, slots=1)
+        buf, views = staging._bufs[0], staging._host[0]
+        pack_ms = host_ms(lambda: _pack(views, cut.cols, cut.valid), reps=30)
+        times = []
+        for _ in range(3 + REPS):
+            with torch.cuda.stream(side):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                buf.to(dev, non_blocking=True)
+                end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        h2d_ms = statistics.median(times[3:])
+        n_bytes = buf.numel()
+        n_cuts = len(cuts)
+        per_trace = (hash_ms + rebase_ms + ring_ms
+                     + n_cuts * (pack_ms + h2d_ms))
+        out["host_parts_ms"][cfg] = dict(
+            hash=hash_ms, rebase=rebase_ms, trace_columns=cols_ms,
+            ring_admit_pop_pack=ring_ms, pinned_pack_a_chunk=pack_ms,
+            h2d_a_chunk=h2d_ms, chunk_bytes=n_bytes, chunks=n_cuts,
+            ingest_a_trace=per_trace)
+        print(f"time ingest[{cfg}, W={window}, K={k}, {n_pkt} packets, "
+              f"{n_cuts} chunks] host: hash {hash_ms:.3f} ms, rebase "
+              f"{rebase_ms:.3f} ms (trace_columns {cols_ms:.3f} ms), ring "
+              f"admit/pop/pack {ring_ms:.3f} ms, pinned pack {pack_ms:.4f} ms "
+              f"a chunk; H2D {h2d_ms:.4f} ms a chunk ({n_bytes} B, "
+              f"{n_bytes / h2d_ms / 1e6:.2f} GB/s; CUDA events on the side "
+              f"stream); all ingest {per_trace:.3f} ms a trace on {smi}")
+
+    # the per-window path's transfer (``HostCut.to_windows``): each
+    # one-window cut packed into one pinned block and copied once, against
+    # its plain composition, a pinned copy a column, in turns over the
+    # trace's cuts at the deferral configuration's window
+    ring = PacketRingBuffer(DEFER_WINDOW, 1, STREAM_BUCKETS, t0=t0)
+    wcuts, off = [], 0
+    while off < n_pkt:
+        off += ring.admit_cols(cols, off, min(off + ring.free, n_pkt),
+                               now=0.0)
+        while ring.ready():
+            wcuts.append(ring.cut("count"))
+    wcuts += [c for c in [ring.drain()] if c is not None]
+
+    def one_copy():
+        for c in wcuts:
+            for _ in c.to_windows(device=dev):
+                pass
+
+    def a_copy_a_column():
+        for c in wcuts:
+            live = c.n_windows * c.window
+            for v in (*c.cols.values(), c.valid):
+                torch.from_numpy(np.ascontiguousarray(v[:live])).pin_memory(
+                ).to(dev, non_blocking=True)
+
+    turns = {"one": [], "each": []}
+    for i in range(8):
+        for name in (("one", "each") if i % 2 else ("each", "one")):
+            fn = one_copy if name == "one" else a_copy_a_column
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0_)
+    one_ms, each_ms = (1e3 * statistics.median(turns[k]) for k in
+                       ("one", "each"))
+    out["host_parts_ms"]["per_window_transfer"] = dict(
+        one_copy=one_ms, copy_a_column=each_ms, cuts=len(wcuts),
+        one_copy_best=1e3 * min(turns["one"]),
+        copy_a_column_best=1e3 * min(turns["each"]))
+    print(f"time ingest[per window, W={DEFER_WINDOW}, {len(wcuts)} one-window "
+          f"cuts] to the card: one pinned copy a cut {one_ms:.3f} ms (best "
+          f"{1e3 * min(turns['one']):.3f}), a pinned copy a column "
+          f"{each_ms:.3f} ms (best {1e3 * min(turns['each']):.3f}); medians "
+          f"of 8 in turns on {smi}")
+
+    def stream_run(srv, prefetch, batch=LAT_BATCH):
+        return lambda: srv.serve_stream(replay_source(trace, batch=batch),
+                                        prefetch=prefetch)
+
+    runs = [(f"latency_bench {route} prefetch={pf}",
+             stream_run(servers[("latency_bench", route, pf)], pf))
+            for route in ("eager", "graph") for pf in (False, True)]
+    runs += [(f"stream {name} {route} prefetch={pf}",
+              stream_run(servers[("stream", name, route)], pf, batch=None))
+             for name in ("no_eviction", "evict_timeout")
+             for route in ("eager", "graph") for pf in (False, True)]
+    for label, fn in runs:
+        med, best = _wall_ms(torch, fn)
+        out["serve_stream"][label] = dict(ms=med, best_ms=best,
+                                          packets_per_s=n_pkt / med * 1e3)
+        print(f"time serve_stream[{label}] {n_pkt} packets: median "
+              f"{med:.2f} ms ({n_pkt / med * 1e3:.0f} packets/s), best "
+              f"{best:.2f} ms on {smi}")
+
+    # where prefetch's time goes: the stage timers of an Observability on
+    # latency_bench's graph server, prefetch off and on (ring_cut and h2d
+    # run on the prefetch thread when it is on, megastep on the loop's)
+    lat_art, lat_backend = ingest["lat_models"]
+    out["stages_ms"] = {}
+    for pf in (False, True):
+        obs = Observability(rollup_every=1 << 30)
+        srv = StreamingHybridServer(lat_art, lat_backend, chunk_windows=LAT_K,
+                                    obs=obs, **LAT_KW)
+        srv.serve_stream(replay_source(trace, batch=LAT_BATCH), prefetch=pf)
+        obs.timer.reset()
+        med, _ = _wall_ms(torch, stream_run(srv, pf))
+        stages = {k: v["mean_ms"] for k, v in obs.timer.summary().items()}
+        out["stages_ms"][f"prefetch={pf}"] = dict(stages, wall_ms=med)
+        print(f"time serve_stream[latency_bench graph prefetch={pf}, obs "
+              f"stage timers] median {med:.2f} ms; a chunk: " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in sorted(stages.items()))
+              + f" on {smi}")
+
+    for name in ("no_eviction", "evict_timeout"):
+        srv = servers[("stream", name, "graph")]
+        ring, manual = [], []
+        for order in ("ring", "manual", "manual", "ring") * 3:
+            srv.reset()
+            torch.cuda.synchronize()
+            t0_ = time.perf_counter()
+            if order == "ring":
+                srv.serve_trace(trace)
+            else:
+                _manual_chunks(torch, srv, trace)
+            (ring if order == "ring" else manual).append(
+                time.perf_counter() - t0_)
+        r_ms = 1e3 * statistics.median(ring)
+        m_ms = 1e3 * statistics.median(manual)
+        faster = "the ring" if r_ms < m_ms else "the manual loop"
+        out["ring_vs_manual"][name] = dict(ring_ms=r_ms, manual_ms=m_ms,
+                                           faster=faster)
+        print(f"time serve_trace[{name}, W={STREAM_WINDOW}, K=16, graph]: "
+              f"through the ring (prefetch off, serve_trace's setting on "
+              f"the card) {r_ms:.2f} ms median of 6, "
+              f"the manual iter_chunks loop {m_ms:.2f} ms; {faster} is "
+              f"faster by {abs(r_ms - m_ms):.2f} ms on {smi}")
+
+    profiled = [("latency_bench", servers[("latency_bench", "graph", True)],
+                 LAT_BATCH),
+                ("stream evict_timeout",
+                 servers[("stream", "evict_timeout", "graph")], None)]
+    for cfg, srv, batch in profiled:
+        for pf in (False, True):
+            label = f"{cfg} graph prefetch={pf}"
+            _profile_serve_stream(torch, srv, trace, batch, pf, label, out,
+                                  smi)
+
+    otrace = ingest["obs"]["trace"]
+    oart, obackend = ingest["obs"]["models"]
+    for path, (off, kw, batch) in ingest["obs"]["servers"].items():
+        t_off, t_on = [], []
+        with tempfile.TemporaryDirectory() as tmp:
+            obs = Observability(events_path=os.path.join(tmp, "e.jsonl"),
+                                rollup_every=OBS_ROLLUP)
+            on = StreamingHybridServer(oart, obackend, obs=obs, **kw)
+            on.serve_stream(replay_source(otrace, batch=batch))   # capture
+            for _ in range(5):
+                for srv, acc in ((off, t_off), (on, t_on)):
+                    srv.reset()
+                    torch.cuda.synchronize()
+                    t0_ = time.perf_counter()
+                    srv.serve_stream(replay_source(otrace, batch=batch))
+                    acc.append(time.perf_counter() - t0_)
+            obs.close()
+        ratio = min(t_off) / min(t_on)
+        out["obs_ratio"][path] = dict(off_ms=1e3 * min(t_off),
+                                      on_ms=1e3 * min(t_on), ratio=ratio)
+        print(f"time serve_stream[obs_bench {path}] obs off "
+              f"{1e3 * min(t_off):.2f} ms, on {1e3 * min(t_on):.2f} ms "
+              f"(best of 5, interleaved): on/off throughput {ratio:.3f}x "
+              f"(the reference's bench gates 0.9x) on {smi}")
     return out
 
 

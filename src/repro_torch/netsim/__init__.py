@@ -4,8 +4,10 @@ Port of ``repro/netsim``: synthetic packet traces, per-packet,
 flow-level, aggregate-level and file-level (CSV payload) features, and
 ``stream``, the always-on deployment shape — the same flow registers
 carried as a ``FlowTableState`` and updated window by window, or K windows
-at a time as a ``PacketChunk`` — and ``scenarios``, the adversarial traces
-(floods, hash-collision storms, slow-loris probes, elephant/mice skew).
+at a time as a ``PacketChunk`` — ``ingest``, the open-ended packet ring
+that cuts a live stream into such chunks, and ``scenarios``, the
+adversarial traces (floods, hash-collision storms, slow-loris probes,
+elephant/mice skew).
 """
 
 from repro_torch.netsim.features import (aggregate_features,
@@ -15,6 +17,11 @@ from repro_torch.netsim.features import (aggregate_features,
                                          rebase_ts, rebase_ts_np,
                                          stitch_split_payload,
                                          table_from_registers)
+from repro_torch.netsim.ingest import (HostCut, IngestStats,
+                                       LatencyRecorder, PacketRingBuffer,
+                                       PinnedStaging, await_chunk, cut_stream,
+                                       prefetch_iter, replay_source,
+                                       slice_trace)
 from repro_torch.netsim.packets import PacketTrace, synth_trace
 from repro_torch.netsim.scenarios import (SCENARIOS, collision_storm,
                                           ddos_flood, elephant_mice,
@@ -34,14 +41,17 @@ from repro_torch.netsim.stream import (FlowTableState, PacketChunk,
                                        window_update_readout)
 
 __all__ = [
-    "SCENARIOS", "FlowTableState", "PacketChunk", "PacketTrace",
-    "PacketWindow", "age_out", "aggregate_features", "chunk_update_readout",
-    "collision_storm", "ddos_flood", "elephant_mice", "encode_csv_payload",
+    "SCENARIOS", "FlowTableState", "HostCut", "IngestStats",
+    "LatencyRecorder", "PacketChunk", "PacketRingBuffer", "PacketTrace",
+    "PacketWindow", "PinnedStaging", "age_out", "aggregate_features",
+    "await_chunk", "chunk_update_readout", "collision_storm", "cut_stream",
+    "ddos_flood", "elephant_mice", "encode_csv_payload",
     "file_features_csv", "flow_features", "flow_table_from_arrays",
     "flow_table_readout", "fnv1a_hash", "init_flow_table", "iter_chunks",
     "iter_windows", "lifecycle_sweep", "make_scenario", "merge_traces",
     "pack_chunk_columns", "packet_chunk_from_arrays", "packet_features",
-    "packet_window_from_arrays", "rebase_ts", "rebase_ts_np",
-    "saturate_counts", "slow_loris", "stitch_split_payload",
+    "packet_window_from_arrays", "prefetch_iter", "rebase_ts",
+    "rebase_ts_np", "replay_source", "saturate_counts", "slice_trace",
+    "slow_loris", "stitch_split_payload",
     "stream_flow_features", "synth_trace", "table_from_registers",
     "trace_columns", "update_flow_table", "window_update_readout"]

@@ -94,6 +94,21 @@ def fnv1a_hash(*cols, n_buckets: int, device=None) -> torch.Tensor:
     return (h % n_buckets).to(torch.int32)
 
 
+def fnv1a_hash_np(*cols, n_buckets: int) -> np.ndarray:
+    """``fnv1a_hash`` on the host in numpy -> (P,) int32 bucket ids, the
+    same values. uint32 products wrap as the reference's do, and the
+    ufunc loops release the GIL, so the ingest ring's hash on the prefetch
+    thread leaves the serving thread free (and starts no intra-op thread
+    team of PyTorch's on that thread)."""
+    h = np.full(np.shape(cols[0]), FNV_OFFSET, np.uint32)
+    prime = np.uint32(FNV_PRIME)
+    for c in cols:
+        c = np.asarray(c).astype(np.uint32)
+        for shift in (0, 8, 16, 24):
+            h = (h ^ ((c >> np.uint32(shift)) & np.uint32(0xFF))) * prime
+    return (h % np.uint32(n_buckets)).astype(np.int32)
+
+
 def packet_features(trace, *, device=None) -> torch.Tensor:
     """Stateless per-packet features (parser stage).
 

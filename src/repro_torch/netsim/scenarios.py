@@ -42,7 +42,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.netsim.features import fnv1a_hash
+from repro_torch.netsim.features import fnv1a_hash_np
 from repro_torch.netsim.packets import PacketTrace, synth_trace
 
 SCENARIOS = ("ddos_flood", "collision_storm", "slow_loris",
@@ -123,13 +123,13 @@ def collision_storm(*, n_background: int = 300, n_attack: int = 2000,
     """The flood aimed at the hash: thousands of flows, a handful of
     buckets.
 
-    Attack 5-tuples are rejection-sampled against the same ``fnv1a_hash``
-    the serving tiers use until they land in ``n_target_buckets`` chosen
-    buckets — the crafted-collision attack a public hash invites. The
-    targeted registers aggregate thousands of unrelated flows (feature
-    garbage in, prediction garbage out for anything sharing the bucket)
-    while the rest of the table stays idle, so occupancy-triggered
-    defenses never fire. ``n_buckets`` must match the serving table for
+    Attack 5-tuples are rejection-sampled against the FNV-1a hash the
+    serving tiers use (``fnv1a_hash_np``, on the host) until they land in
+    ``n_target_buckets`` chosen buckets — the crafted-collision attack a
+    public hash invites. The targeted registers aggregate thousands of
+    unrelated flows (feature garbage in, prediction garbage out for
+    anything sharing the bucket) while the rest of the table stays idle,
+    so occupancy-triggered defenses never fire. ``n_buckets`` must match the serving table for
     the collisions to land.
     """
     bg = synth_trace(n_flows=n_background, seed=seed)
@@ -145,10 +145,9 @@ def collision_storm(*, n_background: int = 300, n_attack: int = 2000,
         m = max(64 * 1024, need * (n_buckets // n_target_buckets) * 2)
         s = rng.integers(0, 2 ** 32, m, dtype=np.uint32)
         sp = rng.integers(1024, 65535, m).astype(np.uint16)
-        b = fnv1a_hash(
+        b = fnv1a_hash_np(
             s, np.full(m, dst, np.uint32), sp, np.full(m, 80, np.uint16),
-            np.full(m, 6, np.uint8), n_buckets=n_buckets,
-            device="cpu").numpy()
+            np.full(m, 6, np.uint8), n_buckets=n_buckets)
         hit = np.isin(b, targets)
         keep_src.append(s[hit][:need])
         keep_sport.append(sp[hit][:need])

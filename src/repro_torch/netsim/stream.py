@@ -49,8 +49,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.evict import evict_cutoff
 from repro_torch.kernels.ops import evict_fill, stream_update, timeout_sweep
-from repro_torch.netsim.features import (fnv1a_hash, rebase_ts_np,
-                                         table_from_registers)
+from repro_torch.netsim.features import (fnv1a_hash, fnv1a_hash_np,
+                                         rebase_ts_np, table_from_registers)
 
 FLOW_FEATURES = 8      # columns of the readout table == features.flow_features
 
@@ -552,16 +552,16 @@ def trace_columns(trace, n_buckets: int, *, t0: Optional[float] = None,
     -> (cols dict of numpy arrays, t0_used).
 
     Rebasing stays in float64 on the host and the bucket hash is
-    elementwise (order-free), so every consumer presents bit-identical
-    lanes. t0=None latches the trace's minimum timestamp.
+    elementwise (order-free; ``features.fnv1a_hash_np``, numpy on the
+    host), so every consumer presents bit-identical lanes. t0=None latches
+    the trace's minimum timestamp.
     """
     ts64 = np.asarray(trace.ts, np.float64)
     if t0 is None:
         t0 = float(ts64.min()) if ts64.size else 0.0
     if bucket is None:
-        bucket = fnv1a_hash(
-            trace.src_ip, trace.dst_ip, trace.sport, trace.dport,
-            trace.proto, n_buckets=n_buckets, device="cpu")
+        bucket = fnv1a_hash_np(trace.src_ip, trace.dst_ip, trace.sport,
+                               trace.dport, trace.proto, n_buckets=n_buckets)
     if isinstance(bucket, torch.Tensor):
         bucket = bucket.cpu().numpy()
     return dict(bucket=np.asarray(bucket, np.int32),

@@ -1,2 +1,11 @@
-"""Serving runtime: the hybrid batch tier, the streaming tier and the LM
-engine (``engine.ServeEngine``: prefill, then int8-KV decode)."""
+"""Serving runtime: the hybrid batch tier, the streaming tier (window,
+chunk and open-ended ``serve_stream`` serving) and the LM engine
+(``engine.ServeEngine``: prefill, then int8-KV decode)."""
+
+from repro_torch.serving.engine import ServeEngine, greedy_generate
+from repro_torch.serving.hybrid_serving import HybridServer
+from repro_torch.serving.stream_serving import (StreamingHybridServer,
+                                                StreamStats)
+
+__all__ = ["HybridServer", "ServeEngine", "StreamStats",
+           "StreamingHybridServer", "greedy_generate"]

@@ -139,17 +139,29 @@ class GuardedBackend:
     backend attempt* are treated as faults.
 
     ``sleep`` is injectable so tests can assert the backoff schedule
-    without real waiting. (The reference's ``events`` hook narrates the
-    guard to its observability, which the port has not yet.)
+    without real waiting. ``events`` takes an ``EventBus``
+    (``repro_torch.obs.events``): when set, the guard narrates its
+    lifecycle — ``backend_attempt`` / ``backend_timeout`` /
+    ``backend_error`` / ``backend_retry`` per attempt, ``flush_ok`` /
+    ``flush_failed`` / ``flush_rejected`` per flush, ``breaker_open`` /
+    ``breaker_half_open`` / ``breaker_close`` on state transitions, and
+    ``guard_reset`` — the reference's sequence, event for event.
     """
 
     def __init__(self, backend_fn: Callable, policy: FaultPolicy, *,
-                 sleep: Callable[[float], None] = time.sleep):
+                 sleep: Callable[[float], None] = time.sleep,
+                 events=None):
         self.backend_fn = backend_fn
         self.policy = policy
         self._sleep = sleep
         self._executor = None
+        self._events = None        # init-time reset() emits nothing
         self.reset()
+        self._events = events
+
+    def _emit(self, kind: str, **fields) -> None:
+        if self._events is not None:
+            self._events.emit(kind, **fields)
 
     def reset(self):
         """Fresh telemetry and a CLOSED breaker (a new stream epoch:
@@ -159,12 +171,15 @@ class GuardedBackend:
         self.state = CLOSED
         self.consecutive_failures = 0
         self._cooldown_left = 0
+        self._emit("guard_reset")
 
     # -- timeout plumbing ---------------------------------------------------
 
     def _attempt(self, rows):
         """One backend attempt under the per-attempt timeout."""
         self.stats.attempts += 1
+        self._emit("backend_attempt", attempt=self.stats.attempts,
+                   state=self.state)
         if self.policy.timeout_s is None:
             return self.backend_fn(rows)
         if self._executor is None:
@@ -191,6 +206,8 @@ class GuardedBackend:
     def _record_failure(self):
         self.stats.flushes_failed += 1
         self.consecutive_failures += 1
+        self._emit("flush_failed",
+                   consecutive_failures=self.consecutive_failures)
         p = self.policy
         if not p.breaker_threshold:
             return
@@ -200,13 +217,16 @@ class GuardedBackend:
             self.state = OPEN
             self._cooldown_left = p.breaker_cooldown
             self.stats.breaker_opens += 1
+            self._emit("breaker_open", cooldown=p.breaker_cooldown)
 
     def _record_success(self):
         self.stats.flushes_ok += 1
         self.consecutive_failures = 0
+        self._emit("flush_ok")
         if self.state != CLOSED:
             self.state = CLOSED
             self.stats.breaker_closes += 1
+            self._emit("breaker_close")
 
     # -- the guarded flush --------------------------------------------------
 
@@ -217,18 +237,25 @@ class GuardedBackend:
                 self._cooldown_left -= 1
                 self.stats.rejected += 1
                 self.stats.flushes_failed += 1
+                self._emit("flush_rejected",
+                           cooldown_left=self._cooldown_left)
                 return None
             self.state = HALF_OPEN          # cooldown over: one probe
+            self._emit("breaker_half_open")
         attempts = 1 if self.state == HALF_OPEN else 1 + p.max_retries
         for i in range(attempts):
             if i:
                 self.stats.retries += 1
+                self._emit("backend_retry", retry=i)
                 self._sleep(p.backoff_base_s * p.backoff_factor ** (i - 1))
             try:
                 out = self._attempt(rows)
-            except Exception:  # noqa: BLE001 — fault boundary: ANY backend
-                #                  failure must degrade, not crash the
-                #                  serving loop
+            except Exception as e:  # noqa: BLE001 — fault boundary: ANY
+                #                     backend failure must degrade, not crash
+                #                     the serving loop
+                kind = ("backend_timeout" if isinstance(e, BackendTimeout)
+                        else "backend_error")
+                self._emit(kind, error=f"{type(e).__name__}: {e}")
                 continue
             self._record_success()
             return out

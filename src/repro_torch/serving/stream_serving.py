@@ -71,18 +71,28 @@ routes do. ``step``, ``step_chunk`` and ``flush`` may be mixed: the graphs
 read and write the same carries, and ``reset()`` refills them in place.
 Nothing in a step waits on the device unless a flush trigger asks for it.
 
-Left out until their slices: ``serve_stream`` with the ingest ring (A-v),
-``obs`` (A-vi; ``flush``'s ``trigger`` labels nothing yet). ``serve_trace``
-drives ``iter_chunks`` through ``step_chunk`` when ``chunk_windows`` is set
-and ``iter_windows`` through ``step`` otherwise, the two loops the
-reference documents as equal to its ring route. As in ``HybridServer``,
-``use_kernel`` picks the kernels or their plain versions (the reference's
-``use_pallas``).
+Open-ended ingest (DESIGN.md §13): ``serve_stream(source)`` is the primary
+serving loop, a pull-based pipeline over ``netsim.ingest``'s ring buffer
+(count / deadline window-granular cuts; on the chunked path a prefetch
+thread whose copies run on a side CUDA stream from pinned buffers; the
+per-packet admit->prediction latency recorder). ``serve_trace`` is its
+finite-replay wrapper, equal bit for bit to driving ``iter_chunks`` through
+``step_chunk`` (or ``iter_windows`` through ``step``) by hand.
+Predictions come back as one tensor on the server's device.
+
+Observability (``obs``, DESIGN.md §14): lifecycle events (cuts, chunks,
+windows, flushes, back-patches, degradations, the guard's attempts and
+breaker, the chunk autotune's decision), stage timers, a rollup window
+every ``rollup_every`` dispatches (the loop's one stats read) and the drift
+monitors over it. As in ``HybridServer``, ``use_kernel`` picks the kernels
+or their plain versions (the reference's ``use_pallas``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
@@ -96,15 +106,21 @@ from repro_torch.core.hybrid import (DeferredDispatch, backpatch_pending,
 from repro_torch.kernels.ops import fused_classify, pred_dtype
 from repro_torch.kernels.tuning import (TileConfig, _artifact_key,
                                         measure_min, sweep_best)
+from repro_torch.netsim.ingest import (LatencyRecorder, PacketRingBuffer,
+                                       PinnedStaging, await_chunk,
+                                       cut_stream, prefetch_iter,
+                                       replay_source)
 from repro_torch.netsim.stream import (EVICT_POLICIES, FLOW_FEATURES,
                                        FlowTableState, PacketChunk,
                                        PacketWindow, chunk_update_readout,
                                        flow_table_readout, init_flow_table,
-                                       iter_chunks, iter_windows,
                                        packet_chunk_from_arrays,
                                        window_update_readout)
+from repro_torch.obs import Observability
 from repro_torch.serving.faults import FaultPolicy, FaultStats, GuardedBackend
 from repro_torch.serving.hybrid_serving import HybridServer, HybridStats
+
+_NULL = contextlib.nullcontext()
 
 _COUNTERS = ("windows", "packets", "handled", "backend_rows", "deferred",
              "degraded", "flushes", "evicted", "overflow")
@@ -460,7 +476,7 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
                            candidates=CHUNK_WINDOW_CANDIDATES,
                            default: int = DEFAULT_CHUNK_WINDOWS,
                            reps: int = 3, seed: int = 0, cache_key=None,
-                           time_fn=None) -> int:
+                           time_fn=None, events=None) -> int:
     """Measured K sweep at server init: pick ``chunk_windows``.
 
     ``make_server(k)`` builds a throwaway server for chunk size k; each
@@ -472,7 +488,9 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
     sweep never picks a K slower than the default on the tuned shape.
     ``time_fn(k) -> seconds`` replaces the measurement (deterministic
     tests); ``cache_key`` memoizes the winner and the timings. Each
-    throwaway server's graphs are freed once it is timed.
+    throwaway server's graphs are freed once it is timed. ``events`` (an
+    ``obs`` ``EventBus``) gets one ``autotune`` event, on a cache hit as on
+    a decision.
 
     The probes call the real ``backend_fn``: a *stateful* backend sees
     those extra calls, so pair "auto" with a stateless backend. (The
@@ -482,6 +500,9 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
     if cache_key is not None:
         hit = _CHUNK_TUNE_CACHE.get(cache_key)
         if hit is not None:
+            if events is not None:
+                events.emit("autotune", knob="chunk_windows", chosen=hit[0],
+                            cached=True)
             return hit[0]
 
     def time_k(k: int) -> float:
@@ -506,6 +527,10 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
         torch.cuda.empty_cache()        # the throwaway servers' graph pools
     if cache_key is not None:
         _CHUNK_TUNE_CACHE[cache_key] = (best, timings)
+    if events is not None:
+        events.emit("autotune", knob="chunk_windows", chosen=best,
+                    default=default, candidates=list(candidates),
+                    cached=False)
     return best
 
 
@@ -564,7 +589,8 @@ class StreamingHybridServer(HybridServer):
                  fault_policy: Optional[FaultPolicy] = None,
                  use_kernel: Optional[bool] = None, autotune: bool = False,
                  tiles: Optional[TileConfig] = None,
-                 fuse: Optional[bool] = None, device=None):
+                 fuse: Optional[bool] = None,
+                 obs: Optional[Observability] = None, device=None):
         """evict_age: recycle a flow bucket once it has been idle this many
         (rebased) seconds; the sweep's cutoff is clamped to the window's
         oldest timestamp, so a flow seen in a window survives it. None
@@ -617,11 +643,26 @@ class StreamingHybridServer(HybridServer):
         backend, is a graph whenever fuse is not False. A backend that
         reads mutable side channels must pass fuse=False.
 
+        obs: attach a ``repro_torch.obs.Observability``: lifecycle events,
+        per-stage timings, metric rollups and drift monitors over the
+        serving loop. None (the default) takes no observability branch
+        anywhere; with an instance attached every hook stays on the host
+        and the predictions are the same bit for bit. Only ``sync_every >
+        0`` adds sampled syncs, and only the rollup boundary (every
+        ``rollup_every`` dispatches) reads the stats. The patch events of a
+        chunk step (``backpatch``, ``degraded``) narrate the reference's
+        two-phase route, so they come where it takes that route: with a
+        fault policy or fuse=False, and on the card where the probe found a
+        backend that syncs.
+
         device=None serves on CUDA and raises without a card; pass
         device="cpu" for the plain path. use_kernel=None means "the kernels
         for CUDA tensors"; False runs every kernel's plain version on the
         server's device.
         """
+        self._obs = obs
+        if obs is not None:
+            obs.bind(self)
         if flush_every < 1:
             raise ValueError(f"flush_every must be >= 1, got {flush_every}")
         sweep = None
@@ -693,8 +734,14 @@ class StreamingHybridServer(HybridServer):
         self.evict_policy = evict_policy
         self.lru_occupancy = lru_occupancy
         self.fault_policy = fault_policy
-        self._guard = (GuardedBackend(backend_fn, fault_policy)
+        self._fuse = fuse
+        self._guard = (GuardedBackend(backend_fn, fault_policy,
+                                      events=(obs.events if obs is not None
+                                              else None))
                        if fault_policy is not None else None)
+        self._ingest = None      # ring telemetry of the last serve_stream
+        self._latency = None     # LatencyRecorder of the last serve_stream
+        self._staging = None     # serve_stream's pinned buffers, kept
         # the carries: written in place by every step, read by the graphs
         self._regs = init_flow_table(n_buckets, device=self.device).regs
         self._stats = StreamStats.zero(self.device)
@@ -729,7 +776,8 @@ class StreamingHybridServer(HybridServer):
             lambda k: StreamingHybridServer(
                 artifact, backend_fn, chunk_windows=k, n_buckets=n_buckets,
                 window=window, capacity=capacity, device=device, **kw),
-            window=window, n_buckets=n_buckets, cache_key=key)
+            window=window, n_buckets=n_buckets, cache_key=key,
+            events=None if self._obs is None else self._obs.events)
         return k, chunk_sweep_timings(key)
 
     # -- the carries ---------------------------------------------------------
@@ -772,6 +820,20 @@ class StreamingHybridServer(HybridServer):
         timeouts, breaker transitions; ``serving.faults.FaultStats``), or
         None without a ``fault_policy``."""
         return self._guard.stats if self._guard is not None else None
+
+    @property
+    def ingest_stats(self):
+        """``netsim.ingest.IngestStats`` of the most recent (or running)
+        ``serve_stream``: admitted/dropped packets, count vs deadline vs
+        drain cuts. None before the first serve_stream."""
+        return self._ingest
+
+    @property
+    def latency(self) -> Optional[LatencyRecorder]:
+        """Admit->prediction LatencyRecorder of the most recent
+        ``serve_stream(record_latency=True)`` (``.summary()`` gives the
+        p50/p95/p99 row); None otherwise."""
+        return self._latency
 
     def flow_table(self) -> torch.Tensor:
         """(n_buckets, 8) feature table from the current registers."""
@@ -880,14 +942,42 @@ class StreamingHybridServer(HybridServer):
         c.pending.fill_(-1)
         return patched
 
-    def _host_backend(self, rows) -> Optional[torch.Tensor]:
+    def _backend_answer(self, rows) -> Optional[torch.Tensor]:
         """The backend's answers for ``rows`` on the server's device; with
         a fault policy through the guard, and None when the guarded call
-        ultimately failed (the caller degrades)."""
+        ultimately failed (the caller degrades). The captured steps call
+        this."""
         out = self._backend_fn(rows) if self._guard is None \
             else self._guard(rows)
         return None if out is None else torch.as_tensor(out,
                                                         device=self.device)
+
+    def _stage(self, name: str):
+        """The attached Observability's timer for stage ``name``, or a null
+        context without one."""
+        return _NULL if self._obs is None else self._obs.stage(name)
+
+    def _annotate(self, name: str):
+        """The attached Observability's profiler range, or a null context."""
+        return _NULL if self._obs is None else self._obs.annotate(name)
+
+    def _host_backend(self, rows) -> Optional[torch.Tensor]:
+        """``_backend_answer`` called from the host on the two-phase route,
+        timed as the ``backend_flush`` stage when an Observability is
+        attached."""
+        with self._stage("backend_flush"):
+            return self._backend_answer(rows)
+
+    def _narrates_patch(self) -> bool:
+        """Whether the reference's counterpart of the last step took its
+        two-phase route (a host backend call, then the patch), where it
+        emits the chunk step's patch events: on the card, whenever the port
+        serves eagerly (fuse=False, a fault policy, or a backend the probe
+        found syncing); a CPU server always serves eagerly, so there it is
+        fuse=False or a fault policy."""
+        if self.device.type == "cuda":
+            return self._fused_ok is False
+        return self._fuse is False
 
     def _probe_backend(self, buf) -> torch.Tensor:
         """The backend's first call, with host syncs turned into errors: a
@@ -911,7 +1001,10 @@ class StreamingHybridServer(HybridServer):
         its first call), replayed on ``inp`` (None: the body reads only the
         carries); its output tensors cloned out of the graph's buffers. The
         warm-up before the capture runs on copies of the carries, so it
-        advances nothing."""
+        advances nothing. The capture forbids unsafe CUDA calls on this
+        thread only (``thread_local``): ``serve_stream``'s prefetch thread
+        may allocate, copy and wait on events meanwhile, on its own stream,
+        which the capture does not record."""
         entry = self._step_graphs.get(key)
         if entry is None:
             static = None if inp is None else _clone_input(inp)
@@ -922,7 +1015,7 @@ class StreamingHybridServer(HybridServer):
                 body(self._carries().clone(), static)
             main.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 outs = body(self._carries(), static)
             entry = self._step_graphs[key] = (graph, static, outs)
         graph, static, outs = entry
@@ -936,7 +1029,7 @@ class StreamingHybridServer(HybridServer):
         if self._fused_ok:
             def body(c, i):
                 buf, ctx = switch(c, i, self._tau)
-                return finish(c, i, ctx, self._host_backend(buf))
+                return finish(c, i, ctx, self._backend_answer(buf))
 
             self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
@@ -946,7 +1039,15 @@ class StreamingHybridServer(HybridServer):
             buf, ctx = switch(c, inp, self.threshold)
             be = (self._probe_backend(buf) if self._fused_ok is None
                   else self._host_backend(buf))
-            pred, frac, rows = finish(c, inp, ctx, be)
+            narrate = (self._obs is not None and kind == "chunk"
+                       and self._narrates_patch())
+            # a failed call (be None) leaves the switch's answers: no patch
+            with (self._stage("backpatch") if narrate and be is not None
+                  else _NULL):
+                pred, frac, rows = finish(c, inp, ctx, be)
+            if narrate:
+                self._obs.emit("degraded" if be is None else "backpatch",
+                               windows=inp.n_windows)
         return pred, HybridStats(frac, rows, self.capacity)
 
     # -- serving ---------------------------------------------------------------
@@ -1026,22 +1127,30 @@ class StreamingHybridServer(HybridServer):
         up), the provisional answers come back unpatched and the cycle's
         rows fold into ``degraded``. ``trigger`` names what asked for the
         flush ("cycle_full", "occupancy", "deadline", "end_of_stream",
-        "manual"); the reference hands it to its observability, which the
-        port has not yet, and it changes nothing.
+        "manual") in the ``flush`` event when an Observability is attached;
+        it changes nothing else.
         """
         if self.flush_every == 1 or self._pending_n == 0:
             return None
         n = self._pending_n
+        obs = self._obs
+        if obs is not None:
+            obs.emit("flush", windows=n, trigger=trigger)
+        served = True
         if self._fused_ok:
             (patched,) = self._replay_step(
                 ("flush", tuple(self._dd.buf.shape)),
                 lambda c, _: (self._flush_finish(
-                    c, self._host_backend(c.dd.buf)),), None)
+                    c, self._backend_answer(c.dd.buf)),), None)
         else:
             rows = self._flush_rows_host()
             be = (self._probe_backend(rows) if self._fused_ok is None
                   else self._host_backend(rows))
-            patched = self._flush_finish(self._carries(), be)
+            served = be is not None
+            with self._stage("backpatch") if served else _NULL:
+                patched = self._flush_finish(self._carries(), be)
+        if obs is not None:
+            obs.emit("backpatch" if served else "degraded", windows=n)
         self._pending_n = 0
         self._occ_rows = 0
         self._cycle_born = None
@@ -1079,37 +1188,323 @@ class StreamingHybridServer(HybridServer):
                              f"server built for {self.window}")
         return self._serve("chunk", chunk)
 
+    # -- open-ended serving --------------------------------------------------
+
+    def _sync_current(self) -> None:
+        """Wait until everything enqueued so far on the current CUDA stream
+        is done, through an event (not a stream sync): the latency
+        recorder's and the sampled sync's one wait. Nothing on the CPU."""
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+            done.synchronize()
+
+    def serve_stream(self, source, *, t0: Optional[float] = None,
+                     deadline: Optional[float] = None,
+                     ring_capacity: Optional[int] = None,
+                     prefetch: Optional[bool] = None,
+                     prefetch_depth: int = 2,
+                     record_latency: bool = False,
+                     latency_samples: Optional[int] = None,
+                     clock: Callable[[], float] = time.monotonic):
+        """The primary serving loop: pull packets from an open-ended
+        ``source`` through the ingest ring. -> (pred (P,) on the server's
+        device, stats).
+
+        ``source`` is any iterable of PacketTrace batches (a live capture
+        adapter, ``netsim.ingest.replay_source`` for finite traces, a
+        generator pacing a scenario). Batches are admitted into a
+        ``PacketRingBuffer`` and cut into window-granular chunks by count
+        or ``deadline`` (wall seconds an admitted packet may wait),
+        whichever fires first (see ``netsim.ingest``). Cuts never move
+        window boundaries, so predictions, the flow table and every
+        StreamStats field except ``flushes`` are the same under ANY cut
+        grouping; replaying a finite trace in one batch reproduces the
+        offline grouping exactly (``serve_trace``).
+
+        Ingest is pull-based, so backpressure is "the source waits":
+        nothing is dropped, and ``ring_capacity`` (default 4 chunks) bounds
+        host memory.
+
+        On the chunked path (``chunk_windows`` set) ``prefetch`` (default
+        on) runs the ring and the cut -> device map on a background thread
+        with a bounded ``prefetch_depth`` queue. On the card each cut is
+        packed into a pinned buffer and copied on a side stream
+        (``netsim.ingest.PinnedStaging``, ``prefetch_depth + 2`` buffers,
+        kept by the server), so chunk k+1's transfer is in flight while
+        chunk k runs; the loop makes its stream wait on the copy's event
+        before the step reads the chunk. The per-window path has no chunk
+        transfer to overlap: prefetch=True there raises ValueError, and
+        the default (None) turns it off. The generator is closed (and the
+        thread joined) however the loop ends.
+
+        record_latency=True records every packet's admit->prediction wall
+        latency into ``self.latency`` (p50/p95/p99 via ``.summary()``), with
+        *final*-prediction semantics: a chunk's packets complete when its
+        back-patched predictions can be read on the host; under deferred
+        dispatch (flush_every > 1) a window's packets complete at the flush
+        that back-patches its cycle. Each completion is one wait on an
+        event recorded after the step on the current stream (the only
+        waits the knob adds); off, the loop waits on nothing.
+        ``latency_samples`` bounds the recorder's memory with a seeded
+        reservoir (exact mean/max, sampled percentiles); None keeps exact
+        percentiles at unbounded memory (see ``LatencyRecorder``).
+
+        With an ``obs=Observability`` attached at construction, this loop
+        emits lifecycle events (serve_begin / cut / chunk / window / flush
+        / rollup / serve_end), times pipeline stages, closes a metric
+        rollup window every ``rollup_every`` dispatches (the loop's only
+        stats read), feeds the drift monitors, and, only when
+        ``sync_every > 0``, waits for the device as the ``megastep_synced``
+        stage. The predictions, flow table and StreamStats are the same
+        with obs on or off.
+
+        The ingest ``deadline`` acts in the *wall-clock* domain on admitted
+        packets and only changes cut grouping; ``flush_deadline`` /
+        ``flush_occupancy`` act in the *data-time / occupancy* domain on
+        the deferral cycle inside ``step`` and only change flush grouping.
+        When a count cut and a deadline cut are both due, the count cut
+        wins. ``self.ingest_stats`` reports admitted/dropped/cut telemetry.
+        """
+        chunked = bool(self.chunk_windows)
+        if prefetch is None:
+            prefetch = chunked
+        if prefetch and not chunked:
+            raise ValueError(
+                "prefetch double-buffers (K, W) chunk transfers and "
+                "needs the chunked path — build the server with "
+                "chunk_windows (prefetch=None auto-disables on the "
+                "per-window path)")
+        ring = PacketRingBuffer(self.window,
+                                self.chunk_windows if chunked else 1,
+                                self.n_buckets, t0=t0,
+                                capacity=ring_capacity, deadline=deadline,
+                                clock=clock)
+        self._ingest = ring.stats
+        rec = (LatencyRecorder(max_samples=latency_samples)
+               if record_latency else None)
+        self._latency = rec
+        # windows pending from manual step() calls belong to a different
+        # prediction stream: flush them, drop their patches
+        self.flush()
+        self._flush_queue = []
+        preds = []
+        cuts = cut_stream(ring, source)
+        obs = self._obs
+        if obs is not None:
+            obs.emit("serve_begin", tier=type(self).__name__,
+                     window=self.window,
+                     chunk_windows=self.chunk_windows or 0,
+                     flush_every=self.flush_every, prefetch=bool(prefetch))
+            obs.reset_ticks()
+            # the rollup baseline: ONE stats read before the loop, so
+            # boundary deltas are exact even on a warm server
+            obs_prev = self._read_stats()[0]
+            obs_b0 = 0                # preds index of the last boundary
+
+        def done_at() -> float:
+            self._sync_current()
+            return clock()
+
+        if chunked:
+            staging = None
+            if prefetch and self.device.type == "cuda":
+                staging = self._staging
+                if staging is None or staging.slots != prefetch_depth + 2:
+                    staging = self._staging = PinnedStaging(
+                        self.chunk_windows, self.window, device=self.device,
+                        slots=prefetch_depth + 2)
+
+            def to_device(c):
+                if staging is None:
+                    return c.to_chunk(device=self.device), None
+                return staging.stage(c)
+
+            def make_pairs():
+                # a generator, so the obs stage timers can bracket the cut
+                # pull and the device map separately; with prefetch on, both
+                # run on the prefetch thread and time its work
+                it = iter(cuts)
+                while True:
+                    try:
+                        with self._stage("ring_cut"):
+                            c = next(it)
+                    except StopIteration:
+                        return
+                    with self._stage("h2d"):
+                        ch, ready = to_device(c)
+                    yield c, ch, ready
+
+            pairs = make_pairs()
+            if prefetch:
+                pairs = prefetch_iter(pairs, depth=prefetch_depth)
+            try:
+                for cut, chunk, ready in pairs:
+                    chunk = await_chunk(chunk, ready)
+                    if obs is not None:
+                        obs.emit("cut", cut_kind=cut.kind, packets=cut.n,
+                                 windows=cut.n_windows)
+                    with self._annotate("megastep"), self._stage("megastep"):
+                        pred, _ = self.step_chunk(chunk)
+                    # live rows lead; pad/-1 lanes only trail them
+                    flat = pred.reshape(-1)[:cut.n]
+                    if rec is not None:
+                        rec.record(cut.admit_time, done_at())
+                    preds.append(flat)
+                    if obs is not None:
+                        obs.emit("chunk", windows=cut.n_windows,
+                                 packets=cut.n)
+                        if obs.sync_due():
+                            with obs.stage("megastep_synced"):
+                                self._sync_current()
+                        if obs.tick():
+                            obs_prev, obs_b0 = self._obs_rollup(
+                                obs, preds, obs_b0, obs_prev,
+                                n_dispatches=obs.config.rollup_every,
+                                collapse=True)
+            finally:
+                pairs.close()
+            if obs is not None and obs.pending_ticks:
+                obs_prev, obs_b0 = self._obs_rollup(
+                    obs, preds, obs_b0, obs_prev,
+                    n_dispatches=obs.pending_ticks, collapse=True)
+            flat = self._concat(preds)
+            if obs is not None:
+                obs.emit("serve_end", packets=int(flat.numel()),
+                         cuts=ring.stats.cuts,
+                         windows=self._stats.n_windows)
+            return flat, self.stats.check()
+
+        # per-window path (incl. deferred dispatch); one window per cut
+        times = []                    # admit times aligned with preds
+        n_live = 0
+
+        def patch(fl):
+            k = fl[0]
+            _patch(preds, fl)
+            if rec is not None:
+                done = done_at()
+                for at in times[len(times) - k:]:
+                    rec.record(at, done)
+
+        for cut in cuts:
+            if obs is not None:
+                obs.emit("cut", cut_kind=cut.kind, packets=cut.n,
+                         windows=cut.n_windows)
+            for w in cut.to_windows(device=self.device):
+                with self._annotate("window_step"), self._stage("megastep"):
+                    pred, _ = self.step(w)
+                preds.append(pred)
+                times.append(cut.admit_time)
+                n_live += cut.n
+                if rec is not None and self.flush_every == 1:
+                    rec.record(cut.admit_time, done_at())
+                fl = self.consume_flush()
+                if fl is not None:
+                    patch(fl)
+                if obs is not None:
+                    obs.emit("window", packets=cut.n)
+                    if obs.sync_due():
+                        with obs.stage("megastep_synced"):
+                            self._sync_current()
+                    if obs.tick():
+                        # never collapse: a patch rewrites preds per window
+                        obs_prev, obs_b0 = self._obs_rollup(
+                            obs, preds, obs_b0, obs_prev,
+                            n_dispatches=obs.config.rollup_every,
+                            collapse=False)
+        fl = self.flush(trigger="end_of_stream")   # guaranteed final flush
+        if fl is not None:
+            patch(fl)
+        if obs is not None and obs.pending_ticks:
+            obs_prev, obs_b0 = self._obs_rollup(
+                obs, preds, obs_b0, obs_prev,
+                n_dispatches=obs.pending_ticks, collapse=False)
+        flat = self._concat(preds)[:n_live]
+        if obs is not None:
+            obs.emit("serve_end", packets=n_live, cuts=ring.stats.cuts,
+                     windows=self._stats.n_windows)
+        return flat, self.stats.check()
+
+    def _concat(self, preds: list) -> torch.Tensor:
+        if preds:
+            return torch.cat([p.reshape(-1) for p in preds])
+        return torch.zeros((0,), dtype=pred_dtype(self.artifact),
+                           device=self.device)
+
+    def _read_stats(self, seg: Optional[torch.Tensor] = None) -> tuple:
+        """The additive StreamStats counters as a dict of Python numbers,
+        and with ``seg`` the class counts of its predictions (pad/-1 lanes
+        and labels outside [0, n_classes) not counted), in ONE read from
+        the device: every value rides one float64 tensor (exact for the
+        int32 counters, the f32 ``conf_sum`` and the counts)."""
+        vals = [t.to(torch.float64) for t in self._stats._tensors()]
+        n_classes = self.artifact.n_classes
+        if seg is not None:
+            ok = (seg >= 0) & (seg < n_classes)
+            counts = torch.zeros(n_classes + 1, dtype=torch.float64,
+                                 device=seg.device).index_add_(
+                0, torch.where(ok, seg, n_classes).long(),
+                torch.ones(seg.shape, dtype=torch.float64,
+                           device=seg.device))
+            vals.append(counts[:n_classes])
+        host = torch.cat([v.reshape(-1) for v in vals]).tolist()
+        names = [f.name for f in dataclasses.fields(self._stats)]
+        cur = {k: (v if k == "conf_sum" else int(v))
+               for k, v in zip(names, host)}
+        return cur, [int(v) for v in host[len(names):]]
+
+    def _obs_rollup(self, obs, preds, b0, prev, *, n_dispatches, collapse):
+        """Close one observability rollup window at a dispatch boundary.
+
+        The loop's ONE device read per ``rollup_every`` dispatches: the
+        StreamStats counters, whose delta against the previous boundary is
+        the rollup sample (all additive), with the predicted class counts
+        of the predictions emitted since the last boundary, counted on the
+        device (on the deferred per-window path these may still be
+        provisional; the class-mix signal tolerates that).
+        ``collapse=True`` (chunked path only) replaces the consumed preds
+        entries with their concatenation; the per-window path keeps one
+        entry per window for the flush back-patch. An eviction delta
+        surfaces as an ``eviction`` event. Returns (snapshot, new_b0) for
+        the next boundary."""
+        if len(preds) > b0:
+            seg = torch.cat([p.reshape(-1) for p in preds[b0:]])
+            if collapse:
+                preds[b0:] = [seg]
+        else:
+            seg = torch.zeros(0, dtype=torch.int64, device=self.device)
+        cur, counts = self._read_stats(seg)
+        delta = {k: cur[k] - prev[k] for k in cur}
+        if delta["evicted"] > 0:
+            obs.emit("eviction", buckets=int(delta["evicted"]))
+        sample = dict(delta, dispatches=int(n_dispatches),
+                      class_counts=counts)
+        obs.observe_rollup(sample)
+        return cur, len(preds)
+
     def serve_trace(self, trace, *, t0: Optional[float] = None):
         """Stream a whole PacketTrace. -> (pred (P,) on the server's device,
         stats).
 
-        Windows pending from manual ``step`` calls belong to another
-        prediction stream: they are flushed first and their patches
-        dropped. With ``chunk_windows`` the trace is cut by ``iter_chunks``
-        and every chunk goes through ``step_chunk``; otherwise
-        ``iter_windows`` and ``step``, each flush's patches written over
-        the provisional predictions of its windows, and a guaranteed flush
-        at the end. t0 defaults to the trace minimum. Per-packet
-        predictions come back in arrival order with pad lanes stripped,
-        final and equal on every route. Ends with ``stats.check()``.
+        The finite-replay wrapper over ``serve_stream``: the trace enters
+        the ingest ring as one batch, so t0 latches to the trace minimum
+        (the offline iterators' epoch), every cut is a count cut and the
+        grouping, hence predictions, flow table and StreamStats including
+        ``flushes``, equals driving ``iter_chunks`` / ``iter_windows``
+        through ``step_chunk`` / ``step`` by hand. Per-packet predictions
+        come back in arrival order with pad lanes stripped; under deferred
+        dispatch they are final (every cycle back-patched, the trailing
+        cycle flushed). Ends with ``stats.check()``.
+
+        On the card the replay runs without prefetch: the trace is already
+        in host memory, and there the thread and the pinned staging cost
+        more than the overlap hides (PERF.md). On the CPU prefetch keeps
+        serve_stream's default, as the reference's replay does.
         """
-        self.flush()
-        self._flush_queue = []
-        if self.chunk_windows is not None:
-            preds = [self.step_chunk(c)[0].reshape(-1) for c in iter_chunks(
-                trace, self.window, self.chunk_windows, self.n_buckets,
-                t0=t0, device=self.device)]
-        else:
-            preds = []
-            for w in iter_windows(trace, self.window, self.n_buckets, t0=t0,
-                                  device=self.device):
-                preds.append(self.step(w)[0])
-                _patch(preds, self.consume_flush())
-            _patch(preds, self.flush(trigger="end_of_stream"))
-        n = len(trace.ts)
-        flat = (torch.cat(preds)[:n] if preds
-                else torch.zeros((0,), dtype=torch.int64, device=self.device))
-        return flat, self.stats.check()
+        return self.serve_stream(replay_source(trace), t0=t0,
+                                 prefetch=(False if self.device.type == "cuda"
+                                           else None))
 
 
 def _patch(preds: list, flushed) -> None:

@@ -1232,6 +1232,264 @@ def test_finance_launcher_on_card_equals_plain(cuda):
     assert torch.equal(res["pred"], torch.cat(preds))
 
 
+# -- open-ended ingest on the card: pinned staging, the side stream, the ring --------
+
+def _delay_staging(monkeypatch, cycles=2_000_000):
+    """Make every staged copy wait behind a spin kernel on the side stream,
+    so a step that reads a chunk without waiting on its copy, or a host
+    that refills a pinned buffer still being copied, gives wrong answers."""
+    from repro_torch.netsim import ingest
+    stage = ingest.PinnedStaging.stage
+
+    def slow(self, cut):
+        with torch.cuda.stream(self.stream):
+            torch.cuda._sleep(cycles)
+        return stage(self, cut)
+    monkeypatch.setattr(ingest.PinnedStaging, "stage", slow)
+
+
+def test_pinned_staging_round_robin_waits_for_its_copies(cuda, monkeypatch):
+    """More cuts than buffer sets through one staging, each copy delayed:
+    every chunk, once awaited, holds its own cut's columns (a buffer is
+    refilled only after its copy completed); the chunks were allocated on
+    the side stream and are safe to read on the current one."""
+    import dataclasses
+    from repro_torch.netsim import ingest
+    from repro_torch.netsim.packets import synth_trace
+    _delay_staging(monkeypatch)
+    trace = synth_trace(n_flows=200, seed=5)
+    ring = ingest.PacketRingBuffer(64, 4, 2048)
+    cuts = list(ingest.cut_stream(ring, ingest.replay_source(trace, 300)))
+    assert len(cuts) > 6
+    staging = ingest.PinnedStaging(4, 64, device=cuda, slots=2)
+    staged = [staging.stage(c) for c in cuts]
+    for c, (chunk, ready) in zip(cuts, staged):
+        ingest.await_chunk(chunk, ready)
+        want = c.to_chunk(device="cpu")
+        for f in ("bucket", "ts", "length", "is_fwd", "valid"):
+            assert torch.equal(getattr(chunk, f).cpu(), getattr(want, f)), f
+    with pytest.raises(ValueError):
+        staging.stage(dataclasses.replace(cuts[0], rows=2))
+
+
+@pytest.mark.parametrize("route", ["graph", "eager"])
+def test_prefetch_bit_identical_over_repeats(stream_served, monkeypatch,
+                                             route):
+    """20 repeats of serve_stream with prefetch on (pinned staging, copies
+    on the side stream, each delayed behind a spin kernel) against
+    prefetch off, the consumer slowed by a sleep on every other repeat:
+    the same predictions, counters and flow table each time."""
+    import time
+    from repro_torch.netsim.ingest import replay_source
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    _delay_staging(monkeypatch)
+    kw = dict(_stream_kw(True), chunk_windows=4,
+              fuse=None if route == "graph" else False)
+    fast = _rf_backend(big_dev)
+    state = {"slow": False}
+
+    def backend(rows):
+        if state["slow"] and route == "eager":
+            time.sleep(0.002)
+        return fast(rows)
+
+    ref = StreamingHybridServer(art, backend, **kw)
+    p_ref, s_ref = ref.serve_stream(replay_source(trace, batch=700),
+                                    prefetch=False)
+    srv = StreamingHybridServer(art, backend, **kw)
+    for i in range(20):
+        state["slow"] = bool(i % 2)
+        srv.reset()
+        p, s = srv.serve_stream(replay_source(trace, batch=700),
+                                prefetch=True, prefetch_depth=1 + i % 3)
+        assert torch.equal(p, p_ref), i
+        _same_stats(s, s_ref)
+        assert torch.equal(srv.flow_table(), ref.flow_table())
+    if route == "graph":
+        assert set(srv._step_graphs) == {("chunk", (4, 256))}
+
+
+@pytest.mark.parametrize("evict", [False, True])
+def test_prefetch_stages_during_the_first_capture(stream_served, monkeypatch,
+                                                  evict):
+    """serve_stream at its defaults (prefetch on, the chunk step's graph)
+    on a live source that sleeps between one-chunk batches, gated so that
+    the prefetch thread stages a cut while the serving thread is inside the
+    chunk step's first capture (held open until it has): the stage reuses
+    a buffer (waiting on its copy's event) and allocates a block that no
+    cache holds on its side stream, as a cut of a larger geometry would
+    just after the capture's empty_cache. The capture holds, and the
+    predictions, counters and flow table equal prefetch off."""
+    import threading
+    import time
+    from repro_torch.netsim import ingest
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(evict), chunk_windows=4)
+    batch = 4 * 256
+    assert trace.n_packets > 4 * batch
+    capturing, staged_inside = threading.Event(), threading.Event()
+    begin = torch.cuda.CUDAGraph.capture_begin
+    stage = ingest.PinnedStaging.stage
+
+    def capture_begin(self, *a, **k):
+        begin(self, *a, **k)
+        capturing.set()
+        staged_inside.wait(timeout=10.0)   # hold the capture open
+
+    def staged(self, cut):
+        out = stage(self, cut)
+        if capturing.is_set() and not staged_inside.is_set():
+            with torch.cuda.stream(self.stream):
+                torch.empty(64 << 20, dtype=torch.uint8, device=self.device)
+            staged_inside.set()
+        return out
+
+    def live(gate):
+        for i, lo in enumerate(range(0, trace.n_packets, batch)):
+            if gate and i == 3:       # the fourth cut waits for the capture
+                capturing.wait(timeout=10.0)
+            time.sleep(0.001)
+            yield ingest.slice_trace(trace, lo, min(lo + batch,
+                                                    trace.n_packets))
+
+    ref = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    p_ref, s_ref = ref.serve_stream(live(False), prefetch=False)
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    monkeypatch.setattr(ingest.PinnedStaging, "stage", staged)
+    srv = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    # one queue slot, three buffers: the fourth cut reuses the first's
+    p, s = srv.serve_stream(live(True), prefetch_depth=1)
+    assert staged_inside.is_set()
+    assert set(srv._step_graphs) == {("chunk", (4, 256))}
+    assert torch.equal(p, p_ref)
+    _same_stats(s, s_ref)
+    assert torch.equal(srv.flow_table(), ref.flow_table())
+
+
+@pytest.mark.parametrize("path_kw", [dict(chunk_windows=4),
+                                     dict(chunk_windows=4, evict_age=1.0),
+                                     dict(), dict(flush_every=3)],
+                         ids=["chunked", "chunked_evict", "per_window",
+                              "deferred"])
+def test_serve_stream_under_graphs_equals_cpu(stream_served, path_kw):
+    """serve_stream on the card through the step graphs (fuse=None), on a
+    paced source with deadline cuts under a fake clock, against the CPU
+    port on the same source: predictions, counters, flow table and
+    IngestStats; and serve_trace through the ring against the manual
+    loop on the card."""
+    from repro_torch.netsim import ingest
+    from repro_torch.netsim.stream import iter_chunks, iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer, \
+        _patch
+    trace, art, big, big_dev = stream_served
+    kw = dict(_stream_kw(False), **path_kw)
+
+    def clock_():
+        state = {"t": 0.0}
+
+        def clock():
+            state["t"] += 3.0
+            return state["t"]
+        return clock
+
+    call = dict(deadline=1.0)
+    card = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    p, s = card.serve_stream(ingest.replay_source(trace, batch=500),
+                             clock=clock_(), **call)
+    host = StreamingHybridServer(art, _rf_backend(big), device="cpu", **kw)
+    p_h, s_h = host.serve_stream(ingest.replay_source(trace, batch=500),
+                                 clock=clock_(), **call)
+    assert card._fused_ok is True and card._step_graphs
+    assert torch.equal(p.cpu(), p_h)
+    _same_stats(s, s_h)
+    assert torch.equal(card.flow_table().cpu(), host.flow_table())
+    assert card.ingest_stats.as_dict() == host.ingest_stats.as_dict()
+    if "chunk_windows" in path_kw:
+        assert card.ingest_stats.deadline_cuts > 0
+    card.reset()
+    p_t, s_t = card.serve_trace(trace)
+    manual = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    if "chunk_windows" in path_kw:
+        preds = [manual.step_chunk(c)[0].reshape(-1)
+                 for c in iter_chunks(trace, 256, 4, 4096)]
+    else:
+        preds = []
+        for w in iter_windows(trace, 256, 4096):
+            preds.append(manual.step(w)[0])
+            _patch(preds, manual.consume_flush())
+        _patch(preds, manual.flush())
+    assert torch.equal(p_t, torch.cat(preds)[:trace.n_packets])
+    _same_stats(s_t, manual.stats)
+
+
+@pytest.mark.parametrize("chunked", [True, False])
+def test_record_latency_syncs_only_on_its_events(stream_served, chunked):
+    """With record_latency on, the warm graph server's loop runs under
+    torch.cuda.set_sync_debug_mode('error'): the latency path waits on
+    events (which the mode allows), and nothing else in the loop syncs —
+    not the pinned staging, not the side stream, not the steps. The mode
+    is on while the source runs and off before the drain and the closing
+    stats.check()."""
+    from repro_torch.netsim.ingest import slice_trace
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(True), **(dict(chunk_windows=4) if chunked else {}))
+    srv = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    p_ref, s_ref = srv.serve_trace(trace)          # probe and capture
+    for samples in (None, 64):
+        def source():
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for lo in range(0, trace.n_packets, 1000):
+                    yield slice_trace(trace, lo, min(lo + 1000,
+                                                     trace.n_packets))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        srv.reset()
+        try:
+            p, s = srv.serve_stream(source(), record_latency=True,
+                                    latency_samples=samples)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(p, p_ref)
+        _same_stats(s, s_ref)
+        summ = srv.latency.summary()
+        assert summ["n"] == trace.n_packets
+        assert 0.0 < summ["p50_ms"] <= summ["p99_ms"] <= summ["max_ms"]
+        if samples:
+            assert srv.latency.latencies().size == samples
+
+
+def test_obs_on_card_equals_obs_off(stream_served, tmp_path):
+    """An Observability on the card, chunked through the graph and per
+    window deferred: the same predictions as without, a valid event log,
+    closed rollups (their class counts from the card) matching the
+    served predictions."""
+    from repro_torch.obs import Observability, validate_event_log
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    for path_kw in (dict(chunk_windows=8), dict(flush_every=4)):
+        kw = dict(_stream_kw(True), **path_kw)
+        p_ref, _ = StreamingHybridServer(art, _rf_backend(big_dev),
+                                         **kw).serve_trace(trace)
+        log = str(tmp_path / "events.jsonl")
+        obs = Observability(events_path=log, rollup_every=3)
+        srv = StreamingHybridServer(art, _rf_backend(big_dev), obs=obs, **kw)
+        p, s = srv.serve_trace(trace)
+        obs.close()
+        assert torch.equal(p, p_ref)
+        assert validate_event_log(log) == obs.events.emitted
+        rows = list(obs.rollups.rows)
+        assert rows and sum(r["sums"]["packets"] for r in rows) == s.n_packets
+        counts = np.sum([r["sums"]["class_counts"] for r in rows], axis=0)
+        want = torch.bincount(p.cpu(), minlength=2).numpy()
+        if "flush_every" not in path_kw:      # deferred rows: provisional
+            assert counts.tolist() == want.tolist()
+
+
 # -- B7: the per-feature-loop lookup ------------------------------------------------
 
 def _loop_tables(rng, f, u, t, s, c, vote, dev):

@@ -1,8 +1,8 @@
 """Hypothesis property tests on the port's invariants: the cases of the
 reference's ``tests/test_properties.py`` whose modules the port has
 (bucketize is the rank, the quantize contracts, the hybrid dispatch round
-trip), each also held bit for bit against the reference on the drawn
-inputs. Everything runs on the CPU."""
+trip, the ingest ring's replay), each also held bit for bit against the
+reference on the drawn inputs. Everything runs on the CPU."""
 
 import numpy as np
 import pytest
@@ -120,3 +120,70 @@ def test_hybrid_dispatch_roundtrip(n_fwd, cap, seed):
     np.testing.assert_array_equal(np.asarray(jidx), idx.numpy())
     np.testing.assert_array_equal(np.asarray(jbuf), buf.numpy())
     np.testing.assert_array_equal(np.asarray(jvalid), valid.numpy())
+
+
+_INGEST_TRACE = None
+
+
+def _ingest_trace():
+    """Small shared trace for the ring-replay property (built lazily, so
+    collection stays cheap)."""
+    global _INGEST_TRACE
+    if _INGEST_TRACE is None:
+        from repro.netsim.packets import synth_trace
+        _INGEST_TRACE = synth_trace(n_flows=30, seed=17)
+    return _INGEST_TRACE
+
+
+@PROFILE
+@given(st.integers(1, 400), st.sampled_from([3, 5, 8]),
+       st.sampled_from([1, 2, 3]), st.booleans())
+def test_ring_replay_bit_identical_to_iter_chunks(batch, window, k,
+                                                  use_deadline):
+    """Window-granular cuts: replaying a trace through the port's ingest
+    ring in ANY batch size, with count cuts, deadline cuts (an aggressive
+    fake clock) and the ragged-tail drain all firing, yields exactly the
+    window sequence of ``iter_chunks`` (the port's and the reference's),
+    and the same cuts as the reference's ring under the same clock."""
+    from repro.netsim import ingest as jingest
+    from repro.netsim.stream import iter_chunks as j_iter_chunks
+    from repro_torch.netsim import ingest as tingest
+    from repro_torch.netsim.stream import iter_chunks
+    trace = _ingest_trace()
+    n_buckets = 64
+    runs = []
+    for mod in (tingest, jingest):
+        state = {"t": 0.0}
+
+        def clock():
+            state["t"] += 1.0          # every look at the clock ages the ring
+            return state["t"]
+
+        ring = mod.PacketRingBuffer(window, k, n_buckets,
+                                    deadline=0.5 if use_deadline else None,
+                                    clock=clock)
+        runs.append((list(mod.cut_stream(
+            ring, mod.replay_source(trace, batch=batch))), ring.stats))
+    (cuts, stats), (jcuts, jstats) = runs
+    assert sum(c.n for c in cuts) == trace.n_packets
+    assert stats.admitted == trace.n_packets and stats.dropped == 0
+    assert all(c.kind in ("count", "deadline", "drain") for c in cuts)
+    if not use_deadline:
+        assert stats.deadline_cuts == 0
+    assert stats.as_dict() == jstats.as_dict()
+    assert [(c.kind, c.n) for c in cuts] == [(c.kind, c.n) for c in jcuts]
+    for c, jc in zip(cuts, jcuts):
+        np.testing.assert_array_equal(c.admit_time, jc.admit_time)
+    n_live = -(-trace.n_packets // window) * window   # live windows, padded
+    ref = list(iter_chunks(trace, window, k, n_buckets, device="cpu"))
+    jref = list(j_iter_chunks(trace, window, k, n_buckets))
+    for field in ("bucket", "ts", "length", "is_fwd", "valid"):
+        got = np.concatenate([
+            (c.valid if field == "valid" else c.cols[field])
+            [:c.n_windows * c.window] for c in cuts])
+        want = np.concatenate([getattr(rc, field).numpy().reshape(-1)
+                               for rc in ref])[:n_live]
+        jwant = np.concatenate([np.asarray(getattr(rc, field)).reshape(-1)
+                                for rc in jref])[:n_live]
+        np.testing.assert_array_equal(got, want, err_msg=field)
+        np.testing.assert_array_equal(got, jwant, err_msg=field)
