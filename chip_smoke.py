@@ -172,6 +172,21 @@ Phases (any failure exits non-zero before the result line is printed):
         (prefetch on, the graph captured while the thread stages);
         ``record_latency`` with and without ``latency_samples`` (p50, p95,
         p99).
+     l. the sharded flow-table tier (``ShardedStreamingServer``) at D = 1,
+        one NCCL rank (``flow_shard_mesh`` starts a one-rank group), at the
+        reference shard bench's configuration (``benchmarks/
+        shard_stream_bench.py:55-57``: the streaming trace and models,
+        N=8192, W=1024, tau 0.9, capacity 64), without eviction and with
+        ``evict_age=2.0``: the sharded oracle table against the batch table;
+        the trace per window (through the step's CUDA graph, collectives
+        captured inside, and eagerly: rank 0's backend call broadcast),
+        chunked at K=16, with ``flush_every=4``, with
+        ``partition_classify=False`` and through ``serve_stream`` (K=16,
+        batches of 4096), each equal bit for bit to the single-device
+        server on the card (predictions, StreamStats, flow table; epoch
+        0.0) with the same B5, B6-sweep and B1 launches, and collectives
+        sent; then the census of collectives per step kind (3 psums, 1
+        reduce-scatter and 2 all-gathers a window or chunk switch half).
      f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
         params from ``init_model`` on the card, 17.65 GB) through
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
@@ -233,7 +248,11 @@ Phases (any failure exits non-zero before the result line is printed):
      and on; ``serve_trace`` through the ring (prefetch off on the card)
      against the manual loop from the graph (W=1024, K=16, in turns); the
      card's idle share over a ``serve_stream`` run (``torch.profiler``);
-     the obs on/off throughput ratio on both paths.
+     the obs on/off throughput ratio on both paths. Then the sharded tier
+     against the single-device server in turns: each step's device time by
+     replaying its graph (window, chunk at K=16, deferred step and flush
+     at k=4) and ``serve_trace``'s ms and packets/s, the cost of the
+     collectives at D = 1.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -779,15 +798,19 @@ def main() -> int:
     # -- 4k. serve: open-ended ingest and observability -------------------------
     ingest = _serve_ingest(torch, np, dev, stream_models)
 
+    # -- 4l. serve: the sharded tier on one NCCL rank ----------------------------
+    sharded = _serve_sharded(torch, np, dev, stream_models)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
     # B1/B2 launches: the launcher's run, both streaming runs, path d, the
     # chunked runs (4g), the finance launcher (4h), the deferral (4i),
-    # scenario (4j) and ingest (4k) runs
+    # scenario (4j), ingest (4k) and sharded (4l) runs
     slice_totals = {}
     for totals in (chunked["totals"], deferred["totals"],
-                   scenarios["totals"], ingest["totals"]):
+                   scenarios["totals"], ingest["totals"],
+                   sharded["totals"]):
         _add(slice_totals, totals)
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
@@ -869,7 +892,7 @@ def main() -> int:
 
     stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
     for row, key in zip(stream_rows, ("stream_update", "evict_fill")):
-        row["launches"] += slice_totals.get(key, 0)     # 4g, 4i, 4j, 4k
+        row["launches"] += slice_totals.get(key, 0)   # 4g, 4i-4l
     kernel_rows += stream_rows
     for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
@@ -892,6 +915,9 @@ def main() -> int:
     ingest_times = _time_ingest(torch, np, ingest, smi)
     print("times (phase 5, ingest and observability): "
           + json.dumps(ingest_times))
+    sharded_times = _time_sharded(torch, np, sharded, smi)
+    print("times (phase 5, the sharded tier at D=1): "
+          + json.dumps(sharded_times))
 
     lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
     kernel_rows.append(lm_row)
@@ -901,6 +927,8 @@ def main() -> int:
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
     print(smi)
     print(json.dumps({"kernels": kernel_rows}))
+    import torch.distributed as dist
+    dist.destroy_process_group()          # phase 4l's one-rank NCCL group
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2613,7 +2641,7 @@ def _time_deferred(torch, np, deferred, scenarios, smi):
     # deferral tail that replaces the backend and the combine
     srv = servers[(name, 8, "eager")]
     c = srv._carries().clone()
-    tau = torch.full((), srv.threshold, device=c.regs.device)
+    tau = torch.full((), srv.threshold, device=srv.device)
     buf, ctx = srv._window_switch(c, w, tau)
     sw_pred, idx, valid, fwd, conf, n_ev, n_ov = ctx
     parts = {
@@ -3320,6 +3348,251 @@ def _time_ingest(torch, np, ingest, smi):
               f"{1e3 * min(t_off):.2f} ms, on {1e3 * min(t_on):.2f} ms "
               f"(best of 5, interleaved): on/off throughput {ratio:.3f}x "
               f"(the reference's bench gates 0.9x) on {smi}")
+    return out
+
+
+# -- the sharded flow-table tier on one NCCL rank (phase 4l) ---------------------
+
+# the reference's shard bench (benchmarks/shard_stream_bench.py:55-57): the
+# streaming trace and models (4000 flows, N=8192, W=1024, tau 0.9, capacity
+# 64), without eviction and with evict_age=2.0
+SHARD_RUNS = (("no_eviction", {}), ("evict_2s", {"evict_age": 2.0}))
+SHARD_ROUTES = (("window graph", {}),
+                ("window eager", {"fuse": False}),
+                ("chunk K=16 graph", {"chunk_windows": 16}),
+                ("flush_every=4 graph", {"flush_every": 4}),
+                ("unpartitioned graph", {"partition_classify": False}),
+                ("serve_stream K=16 graph", {"chunk_windows": 16,
+                                             "stream": True}))
+SHARD_CENSUS = {
+    "window switch": dict(psum=3, reduce_scatter=1, all_gather=2,
+                          broadcast=0),
+    "chunk switch": dict(psum=3, reduce_scatter=1, all_gather=2,
+                         broadcast=0),
+    "chunk backend": dict(psum=0, reduce_scatter=0, all_gather=1,
+                          broadcast=0),
+    "deferred switch": dict(psum=2, reduce_scatter=1, all_gather=2,
+                            broadcast=0),
+    "flush backend": dict(psum=0, reduce_scatter=1, all_gather=1,
+                          broadcast=0)}
+
+
+def _serve_sharded(torch, np, dev, models):
+    """Phase 4l: the sharded flow-table tier (``ShardedStreamingServer``)
+    on the card at D = 1, a one-rank NCCL group (``flow_shard_mesh``
+    starts it), at the reference shard bench's configuration: the sharded
+    oracle table against the batch table; then, without eviction and with
+    ``evict_age=2.0``, the trace served per window (through the step's CUDA
+    graph, collectives inside, and eagerly), chunked at K=16, with
+    ``flush_every=4``, with ``partition_classify=False`` (graphs) and
+    through ``serve_stream`` (K=16, batches of 4096, graph). Each run with
+    every launch count set to 0 just before it and read just after, against
+    the single-device ``StreamingHybridServer`` with the same knobs on the
+    card: the same launches of B5, B6's sweep and B1, and the same
+    predictions, StreamStats and flow table bit for bit, epoch 0.0, and
+    collectives sent. Then the collective census per step kind (on copies
+    of the carries). -> the servers, the totals, the census."""
+    import torch.distributed as dist
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed.sharding import flow_shard_mesh
+    from repro_torch.kernels import ensemble_lookup as ek
+    from repro_torch.netsim.ingest import replay_source
+    from repro_torch.netsim.shard_stream import stream_sharded_flow_features
+    from repro_torch.netsim.stream import iter_chunks, iter_windows
+    from repro_torch.serving.shard_serving import ShardedStreamingServer
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+
+    trace, art, backend = models["trace"], models["art"], models["backend"]
+    mesh = flow_shard_mesh(device="cuda")
+    if dist.get_world_size() != 1 or "nccl" not in dist.get_backend():
+        raise AssertionError(f"the mesh's group: {dist.get_world_size()} "
+                             f"ranks of {dist.get_backend()}")
+    out = {"totals": {}, "servers": {}, "trace": trace, "census": {}}
+    collectives.reset_counts()
+    _, table = stream_sharded_flow_features(
+        trace, n_buckets=STREAM_BUCKETS, window=STREAM_WINDOW, mesh=mesh)
+    if not torch.equal(table, models["table"]):
+        raise AssertionError("sharded oracle table != batch flow_features")
+    print(f"sharded[mesh (1, 1), NCCL, one rank] oracle table == batch "
+          f"flow_features bit for bit ({collectives.counts()})")
+    select = None
+    for name, extra in SHARD_RUNS:
+        for route, rkw in SHARD_ROUTES:
+            rkw = dict(rkw)
+            stream = rkw.pop("stream", False)
+            pc = rkw.pop("partition_classify", True)
+            kw = dict(STREAM_KW, **extra, **rkw)
+            label = f"sharded {name} {route}"
+            single = StreamingHybridServer(art, backend, **kw)
+            select = ek.resolve_select("auto", single.artifact.n_trees,
+                                       single.artifact.dtable_flat.shape[2],
+                                       single.artifact.dtable_flat.shape[0])
+            _reset_counts()
+            p_ref, s_ref = single.serve_trace(trace)
+            torch.cuda.synchronize()
+            want = _counts()
+            srv = ShardedStreamingServer(art, backend, mesh=mesh,
+                                         partition_classify=pc, **kw)
+            _reset_counts()
+            collectives.reset_counts()
+            if stream:
+                p, s = srv.serve_stream(replay_source(trace, batch=LAT_BATCH))
+            else:
+                p, s = srv.serve_trace(trace)
+            torch.cuda.synchronize()
+            path, sent = _counts(), collectives.counts()
+            print(f"main-path launches (l: {label}): {path}; collectives "
+                  f"{sent}")
+            if path != want:
+                raise AssertionError(f"{label}: launches {path}, the "
+                                     f"single-device server's {want}")
+            if min(path["stream_update"], path[select]) < 1 or (
+                    extra and path["evict_fill"] < 1):
+                raise AssertionError(f"{label}: a kernel did not launch")
+            if sent["psum"] < 1 or sent["all_gather"] + sent["psum"] < 3:
+                raise AssertionError(f"{label}: collectives {sent}")
+            _add(out["totals"], path)
+            if not torch.equal(p, p_ref):
+                raise AssertionError(f"{label}: predictions != single")
+            if s.as_dict() != s_ref.as_dict():
+                raise AssertionError(f"{label}: stats {s.as_dict()} != "
+                                     f"{s_ref.as_dict()}")
+            if not torch.equal(srv.flow_table(), single.flow_table()):
+                raise AssertionError(f"{label}: flow table != single")
+            if srv.epoch != 0.0:
+                raise AssertionError(f"{label}: epoch {srv.epoch}")
+            graphs = sorted(srv._step_graphs)
+            if route.endswith("graph") != bool(srv._fused_ok) or graphs \
+                    != sorted(single._step_graphs):
+                raise AssertionError(f"{label}: route {srv._fused_ok}, "
+                                     f"graphs {graphs}")
+            if extra and s.n_evicted < 1:
+                raise AssertionError(f"{label}: nothing evicted")
+            out["servers"][(name, route)] = (srv, single)
+            print(f"serve[{label}] packets={s.n_packets} windows="
+                  f"{s.n_windows} flushes={s.n_flushes} backend_rows="
+                  f"{s.total_backend_rows} evicted={s.n_evicted} "
+                  f"fraction_handled={s.fraction_handled:.4f} graphs="
+                  f"{graphs} classify_rows_per_device="
+                  f"{srv.classify_rows_per_device} equal_single_device="
+                  f"True (predictions, StreamStats, flow table) epoch=0.0")
+
+    # the census: the collectives of each step kind, on copies of carries
+    def census(fn):
+        collectives.reset_counts()
+        fn()
+        torch.cuda.synchronize()
+        return collectives.counts()
+
+    tau = torch.full((), 0.9, device=dev)
+    w = next(iter(iter_windows(trace, STREAM_WINDOW, STREAM_BUCKETS)))
+    chunk = next(iter(iter_chunks(trace, STREAM_WINDOW, 16, STREAM_BUCKETS)))
+    win = out["servers"][("no_eviction", "window graph")][0]
+    chk = out["servers"][("no_eviction", "chunk K=16 graph")][0]
+    dfr = out["servers"][("no_eviction", "flush_every=4 graph")][0]
+    c1, c2, c3 = (srv._carries().clone() for srv in (win, chk, dfr))
+    got = {"window switch": census(lambda: win._window_switch(c1, w, tau)),
+           "chunk switch": census(lambda: chk._chunk_switch(c2, chunk, tau))}
+    buf, _ = chk._chunk_switch(c2, chunk, tau)
+    got["chunk backend"] = census(lambda: chk._fused_backend("chunk", c2,
+                                                             buf))
+    got["deferred switch"] = census(lambda: dfr._defer_switch(c3, w, tau))
+    got["flush backend"] = census(lambda: dfr._fused_backend("flush", c3,
+                                                             None))
+    for kind, counts in got.items():
+        print(f"census[{kind}] {counts}")
+        if counts != SHARD_CENSUS[kind]:
+            raise AssertionError(f"census {kind}: {counts}, want "
+                                 f"{SHARD_CENSUS[kind]}")
+    out["census"] = got
+    return out
+
+
+def _time_sharded(torch, np, sharded, smi):
+    """Phase 5 for phase 4l: the sharded server (one NCCL rank) against the
+    single-device server, in turns in this process (single, sharded,
+    sharded, single): each step's device time by replaying its own graph
+    (the window step, the chunk step at K=16, the deferred step and the
+    flush at k=4), and ``serve_trace``'s ms and packets/s from the graphs
+    and on the eager two-phase route, without and with eviction: the cost
+    of the collectives at D = 1; then one collective of each kind at the
+    window step's shapes, 20 in a CUDA graph."""
+    from repro_torch.distributed import collectives as coll
+    trace = sharded["trace"]
+    out = {"device_ms": {}, "serve_trace": {}, "collective_ms": {}}
+    keys = {"window graph": [("window", (STREAM_WINDOW,))],
+            "chunk K=16 graph": [("chunk", (16, STREAM_WINDOW))],
+            "flush_every=4 graph": [("defer", (STREAM_WINDOW,)),
+                                    ("flush", (4 * 64, 8))]}
+    order = ("single", "sharded", "sharded", "single")
+    for (name, route), (srv, single) in sharded["servers"].items():
+        if route not in keys and route != "window eager":
+            continue
+        pair = {"single": single, "sharded": srv}
+        dev_ms = {}
+        for key in keys.get(route, ()):
+            runs = {"single": [], "sharded": []}
+            for _ in range(2):
+                for who in order:
+                    runs[who].append(_median_ms(
+                        torch, pair[who]._step_graphs[key][0].replay))
+            dev_ms[key[0]] = {who: statistics.median(v)
+                              for who, v in runs.items()}
+        wall = {"single": [], "sharded": []}
+        for _ in range(3):
+            for who in order:
+                pair[who].reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pair[who].serve_trace(trace)       # ends with stats.check()
+                wall[who].append(time.perf_counter() - t0)
+        label = f"{name} {route}"
+        out["device_ms"][label] = dev_ms
+        out["serve_trace"][label] = {
+            who: dict(ms=1e3 * statistics.median(v),
+                      packets_per_s=trace.n_packets / statistics.median(v))
+            for who, v in wall.items()}
+        for step, d in dev_ms.items():
+            print(f"time sharded[{label}] {step} step device by graph "
+                  f"replay: single {d['single']:.4f} ms, sharded (D=1, one "
+                  f"NCCL rank) {d['sharded']:.4f} ms, "
+                  f"{d['sharded'] - d['single']:+.4f} ms on {smi}")
+        st = out["serve_trace"][label]
+        print(f"time sharded[{label}] serve_trace {trace.n_packets} packets "
+              f"(median of 6, in turns): single {st['single']['ms']:.2f} ms "
+              f"({st['single']['packets_per_s']:.0f} packets/s), sharded "
+              f"{st['sharded']['ms']:.2f} ms "
+              f"({st['sharded']['packets_per_s']:.0f} packets/s) on {smi}")
+
+    # each collective kind alone at the window step's shapes: 20 calls in a
+    # graph captured as the server captures (NCCL's watchdog queries its
+    # events meanwhile), replays timed by CUDA events
+    srv = sharded["servers"][("no_eviction", "window graph")][0]
+    dev = srv.device
+    rows = torch.zeros((STREAM_WINDOW, 8), device=dev)
+    buf = torch.zeros((64, 8), device=dev)
+    pred = torch.zeros(STREAM_WINDOW, dtype=torch.int64, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    calls = {"psum (64, 8) buffer": lambda: coll.psum(buf, srv._shard_group),
+             "psum i32 scalar": lambda: coll.psum(count, srv._shard_group),
+             "reduce-scatter (1024, 8) rows":
+                 lambda: coll.psum_scatter(rows, srv._shard_group),
+             "all-gather 1024 int64 preds":
+                 lambda: coll.all_gather(pred, srv._mesh_group)}
+    for label, fn in calls.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(20):
+                fn()
+        ms = _median_ms(torch, graph.replay) / 20
+        out["collective_ms"][label] = ms
+        print(f"time sharded collective[{label}, one NCCL rank] {ms:.5f} ms "
+              f"a call (device, graph of 20) on {smi}")
     return out
 
 

@@ -46,6 +46,23 @@ def padded_rows(n: int, tile: int) -> int:
     return -(-n // tile) * tile
 
 
+def shard_tiles(tiles: TileConfig, batch: int) -> TileConfig:
+    """Clamp ``tile_n`` to a partitioned per-device batch.
+
+    The sharded classify hands each device a slab of ceil(K*W/D) rows
+    (``netsim.shard_stream.lane_slab_rows``). A block of more rows than the
+    slab only leaves threads idle, so the fused realization's ``tile_n`` is
+    cut to the smallest power of two that covers the slab (16 at least);
+    'loop' and 'ref' pass through. The rows processed stay exactly the
+    slab's on every route: the kernels mask their ragged last block, where
+    the reference's TPU grid padded to an 8-row multiple.
+    """
+    if tiles.impl != "fused" or batch >= tiles.tile_n:
+        return tiles
+    return dataclasses.replace(
+        tiles, tile_n=max(16, 1 << max(batch - 1, 0).bit_length()))
+
+
 def measure_min(fn, reps: int, warmup: int = 1) -> float:
     """min-over-reps wall time of ``fn()`` (which must block until the
     work is done: on the card, end it with ``torch.cuda.synchronize()``).

@@ -108,6 +108,12 @@ class FlowTableState:
     def clone(self) -> "FlowTableState":
         return FlowTableState(self.regs.clone())
 
+    def copy_(self, other: "FlowTableState") -> "FlowTableState":
+        """Write ``other``'s registers into this file in place. Returns
+        self."""
+        self.regs.copy_(other.regs)
+        return self
+
 
 @dataclasses.dataclass
 class PacketWindow:
@@ -387,7 +393,8 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
                           saturate: bool = True,
                           evict_policy: str = "timeout",
                           lru_occupancy: float = 0.75,
-                          use_kernel: Optional[bool] = None) -> tuple:
+                          use_kernel: Optional[bool] = None,
+                          sweep: Optional[PacketWindow] = None) -> tuple:
     """Fold one window and read out its touched-flow feature rows.
 
     The serving step's register half: update -> aging sweep -> overflow
@@ -401,7 +408,13 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
     file B5 has just updated (again: keep only the returned state). The
     approx-LRU sweep resets through B6's mask-taking entry, out of place.
     use_kernel=False runs the plain composition (``update_flow_table``, the
-    sweep, the gather) on either device. The two are bit-identical because
+    sweep, the gather) on either device.
+
+    ``sweep`` is the window whose timestamps and valid lanes the aging sweep
+    reads (its cutoff, its clock and its protection), ``w`` by default. The
+    sharded tier folds a shard's localized window (its own lanes valid, its
+    local bucket ids) and sweeps with the full one, so every shard cuts off
+    where a single device would. The two routes are bit-identical because
 
       * eviction cannot touch this window's rows (the cutoff is clamped to
         the window minimum, the approx-LRU sweep protects flows seen this
@@ -417,21 +430,25 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
         prev = state
         state = update_flow_table(state, w)
         state, n_ev, n_ov = lifecycle_sweep(
-            state, w, evict_age, saturate, prev=prev,
-            evict_policy=evict_policy, lru_occupancy=lru_occupancy,
-            use_kernel=False)
+            state, w if sweep is None else sweep, evict_age, saturate,
+            prev=prev, evict_policy=evict_policy,
+            lru_occupancy=lru_occupancy, use_kernel=False)
         return state, flow_table_readout(state, w.bucket), n_ev, n_ov
     state, rows, n_ev, n_ov = _register_half(
         state, w, evict_age=evict_age, saturate=saturate,
-        evict_policy=evict_policy, lru_occupancy=lru_occupancy)
+        evict_policy=evict_policy, lru_occupancy=lru_occupancy, sweep=sweep)
     return state, table_from_registers(*rows), n_ev, n_ov
 
 
 def _register_half(state: FlowTableState, w: PacketWindow, *, evict_age,
-                   saturate, evict_policy, lru_occupancy) -> tuple:
-    """``window_update_readout``'s kernel route up to the raw rows: B5, the
-    sweep, the overflow guard. -> (state, rows (8, W) register rows at the
-    window's lanes, n_evicted, n_overflow)."""
+                   saturate, evict_policy, lru_occupancy,
+                   sweep: Optional[PacketWindow] = None) -> tuple:
+    """``window_update_readout``'s kernel route up to the raw rows: B5 on
+    ``w``, the sweep on ``sweep`` (default ``w``), the overflow guard.
+    -> (state, rows (8, W) register rows at the window's lanes, n_evicted,
+    n_overflow)."""
+    if sweep is None:
+        sweep = w
     if saturate:
         # gathered before the kernel writes the register file in place
         bucket = w.bucket.long()
@@ -441,12 +458,12 @@ def _register_half(state: FlowTableState, w: PacketWindow, *, evict_age,
                                limit=OVERFLOW_LIMIT if saturate else None)
     if evict_age is not None and evict_policy == "timeout":
         # the register file is this step's own: the sweep works in place
-        regs, n_ev = timeout_sweep(regs, w.ts, w.valid, evict_age,
+        regs, n_ev = timeout_sweep(regs, sweep.ts, sweep.valid, evict_age,
                                    evict_fills(regs.device))
         state, n_ov = FlowTableState(regs), None
     else:
         state, n_ev, n_ov = lifecycle_sweep(
-            FlowTableState(regs), w, evict_age, False,
+            FlowTableState(regs), sweep, evict_age, False,
             evict_policy=evict_policy, lru_occupancy=lru_occupancy)
     if saturate:
         n_ov = _newly_saturated(before, rows, bucket, state.n_buckets)
@@ -501,7 +518,8 @@ def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
                          saturate: bool = True,
                          evict_policy: str = "timeout",
                          lru_occupancy: float = 0.75,
-                         use_kernel: Optional[bool] = None) -> tuple:
+                         use_kernel: Optional[bool] = None,
+                         sweep: Optional[PacketChunk] = None) -> tuple:
     """Whole-chunk register half: fold the chunk's K windows in order.
 
     Returns ``(state, xs (K, W, 8), n_evicted, n_overflow)``, bit-identical
@@ -520,9 +538,13 @@ def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
     use_kernel=False loops the plain window step instead. The reference's
     plain route packs the registers into (N, 6)/(N, 2) arrays for its scan;
     this register file stays the stacked (8, N) one, which binds the result
-    no more than the TPU layout does.
+    no more than the TPU layout does. ``sweep``: the chunk whose windows
+    the aging sweeps read, row by row (``window_update_readout``'s
+    ``sweep``; default ``chunk``).
     """
     k, w_lanes = chunk.bucket.shape
+    if sweep is None:
+        sweep = chunk
     dev = state.regs.device
     n_ev = torch.zeros((), dtype=torch.int32, device=dev)
     n_ov = torch.zeros((), dtype=torch.int32, device=dev)
@@ -532,13 +554,15 @@ def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
         xs = []
         for i in range(k):
             state, x, ev, ov = window_update_readout(
-                state, chunk.window_at(i), use_kernel=False, **kw)
+                state, chunk.window_at(i), use_kernel=False,
+                sweep=sweep.window_at(i), **kw)
             xs.append(x)
             n_ev, n_ov = n_ev + ev, n_ov + ov
         return state, torch.stack(xs), n_ev, n_ov
     rows = []
     for i in range(k):
-        state, r, ev, ov = _register_half(state, chunk.window_at(i), **kw)
+        state, r, ev, ov = _register_half(state, chunk.window_at(i),
+                                          sweep=sweep.window_at(i), **kw)
         rows.append(r)
         n_ev, n_ov = n_ev + ev, n_ov + ov
     raw = torch.stack(rows, dim=1).reshape(len(REGISTER_FIELDS), k * w_lanes)

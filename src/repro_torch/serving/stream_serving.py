@@ -418,16 +418,19 @@ def accumulate_chunk_stats(stats: StreamStats, chunk: PacketChunk, fwd,
 
 
 def chunk_classify_tail(art, stats, chunk: PacketChunk, xs, n_ev, n_ov,
-                        threshold, capacity: int, *, tiles, device):
+                        threshold, capacity: int, *, tiles, device,
+                        classify=None):
     """The batched half of the chunk step, after the register half produced
     the (K, W, 8) readout rows: ONE fused classify over the K*W rows, the
     dispatch of every window, the whole-chunk stats fold, and the pending
     predictions (pad and dead lanes at -1). Equal to K per-window passes
-    because every op is row-independent.
+    because every op is row-independent. ``classify(rows) -> (pred, conf)``
+    replaces the fused classify (the sharded tier's partitioned one).
     Returns (stats, dd, pending, frac, rows)."""
     k, w_lanes, nf = xs.shape
-    sw_pred, conf = fused_classify(art, xs.reshape(k * w_lanes, nf),
-                                   tiles=tiles, device=device)
+    rows_in = xs.reshape(k * w_lanes, nf)
+    sw_pred, conf = (fused_classify(art, rows_in, tiles=tiles, device=device)
+                     if classify is None else classify(rows_in))
     sw_pred = sw_pred.reshape(k, w_lanes)
     conf = conf.reshape(k, w_lanes)
     fwd = (conf < threshold) & chunk.valid
@@ -475,8 +478,9 @@ def probe_window(window: int, n_buckets: int, seed: int = 0, *,
 def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
                            candidates=CHUNK_WINDOW_CANDIDATES,
                            default: int = DEFAULT_CHUNK_WINDOWS,
-                           reps: int = 3, seed: int = 0, cache_key=None,
-                           time_fn=None, events=None) -> int:
+                           candidate_filter=None, reps: int = 3,
+                           seed: int = 0, cache_key=None, time_fn=None,
+                           events=None) -> int:
     """Measured K sweep at server init: pick ``chunk_windows``.
 
     ``make_server(k)`` builds a throwaway server for chunk size k; each
@@ -486,6 +490,9 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
     fairly. The ``default`` is always timed and the winner is the measured
     argmin over a set containing it (``kernels.tuning.sweep_best``), so the
     sweep never picks a K slower than the default on the tuned shape.
+    ``candidate_filter`` drops the Ks a configuration cannot use (the
+    sharded tier's per-device backend slices); when it rejects the default,
+    the first surviving candidate takes the default's role.
     ``time_fn(k) -> seconds`` replaces the measurement (deterministic
     tests); ``cache_key`` memoizes the winner and the timings. Each
     throwaway server's graphs are freed once it is timed. ``events`` (an
@@ -493,9 +500,7 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
     a decision.
 
     The probes call the real ``backend_fn``: a *stateful* backend sees
-    those extra calls, so pair "auto" with a stateless backend. (The
-    reference's ``candidate_filter`` serves its sharded tier, which the
-    port does not have yet.)
+    those extra calls, so pair "auto" with a stateless backend.
     """
     if cache_key is not None:
         hit = _CHUNK_TUNE_CACHE.get(cache_key)
@@ -504,6 +509,14 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
                 events.emit("autotune", knob="chunk_windows", chosen=hit[0],
                             cached=True)
             return hit[0]
+    cands = [k for k in candidates
+             if candidate_filter is None or candidate_filter(k)]
+    if candidate_filter is not None and not candidate_filter(default):
+        if not cands:
+            raise ValueError(
+                "no chunk_windows candidate satisfies this configuration "
+                f"(candidates={tuple(candidates)})")
+        default = cands[0]
 
     def time_k(k: int) -> float:
         if time_fn is not None:
@@ -522,14 +535,14 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
         finally:
             srv.release_graphs()
 
-    best, timings = sweep_best(candidates, time_k, default=default)
+    best, timings = sweep_best(cands, time_k, default=default)
     if time_fn is None and torch.cuda.is_available():
         torch.cuda.empty_cache()        # the throwaway servers' graph pools
     if cache_key is not None:
         _CHUNK_TUNE_CACHE[cache_key] = (best, timings)
     if events is not None:
         events.emit("autotune", knob="chunk_windows", chosen=best,
-                    default=default, candidates=list(candidates),
+                    default=default, candidates=list(cands),
                     cached=False)
     return best
 
@@ -554,16 +567,17 @@ def _copy_input(dst, src) -> None:
 
 
 class _Carries(NamedTuple):
-    """What a step reads and writes in place: the register file, the stats
-    tensors, and on the deferred path the deferral buffer and the pending
-    set (None at flush_every=1)."""
-    regs: torch.Tensor
+    """What a step reads and writes in place: the register file (a
+    ``FlowTableState``, or the sharded tier's ``ShardedFlowTable``), the
+    stats tensors, and on the deferred path the deferral buffer and the
+    pending set (None at flush_every=1)."""
+    table: FlowTableState
     stats: StreamStats
     dd: Optional[DeferredDispatch]
     pending: Optional[torch.Tensor]
 
     def clone(self) -> "_Carries":
-        return _Carries(self.regs.clone(), self.stats.clone(),
+        return _Carries(self.table.clone(), self.stats.clone(),
                         None if self.dd is None else _clone_input(self.dd),
                         None if self.pending is None
                         else self.pending.clone())
@@ -743,10 +757,12 @@ class StreamingHybridServer(HybridServer):
         self._latency = None     # LatencyRecorder of the last serve_stream
         self._staging = None     # serve_stream's pinned buffers, kept
         # the carries: written in place by every step, read by the graphs
-        self._regs = init_flow_table(n_buckets, device=self.device).regs
+        self._table = self._make_state()
         self._stats = StreamStats.zero(self.device)
         self._dd = self._pending = None
         if flush_every > 1:
+            # the sharded tier's ranks keep their partial rows in this same
+            # layout
             self._dd = init_deferred(flush_every, capacity, FLOW_FEATURES,
                                      device=self.device)
             self._pending = torch.full((flush_every, window), -1,
@@ -768,22 +784,41 @@ class StreamingHybridServer(HybridServer):
         dev = resolve_device(device)
         card = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                 else "cpu")
-        # the route (graphs or eager) and the sweep change what K costs
-        key = (type(self).__name__, _artifact_key(artifact), id(backend_fn),
-               card, window, n_buckets, capacity, kw["fuse"],
+        # the route (graphs or eager), the sweep and the mesh change what K
+        # costs
+        key = (type(self).__name__, getattr(self, "n_shards", 1),
+               getattr(self, "n_data", 1), _artifact_key(artifact),
+               id(backend_fn), card, window, n_buckets, capacity, kw["fuse"],
                kw["evict_age"], kw["evict_policy"])
         k = autotune_chunk_windows(
-            lambda k: StreamingHybridServer(
-                artifact, backend_fn, chunk_windows=k, n_buckets=n_buckets,
-                window=window, capacity=capacity, device=device, **kw),
-            window=window, n_buckets=n_buckets, cache_key=key,
+            lambda k: self._auto_chunk_server(
+                k, artifact, backend_fn, n_buckets=n_buckets, window=window,
+                capacity=capacity, device=device, **kw),
+            window=window, n_buckets=n_buckets,
+            candidate_filter=self._auto_chunk_filter(capacity), cache_key=key,
             events=None if self._obs is None else self._obs.events)
         return k, chunk_sweep_timings(key)
 
+    def _auto_chunk_server(self, k: int, artifact, backend_fn, **kw):
+        """A throwaway server of this tier for chunk size k, the sweep's
+        timing target (the sharded tier pins its mesh)."""
+        return StreamingHybridServer(artifact, backend_fn, chunk_windows=k,
+                                     **kw)
+
+    def _auto_chunk_filter(self, capacity: int):
+        """The sweep's candidate predicate (None: every K); the sharded
+        tier keeps the Ks whose chunk buffer divides over its mesh."""
+        return None
+
     # -- the carries ---------------------------------------------------------
 
+    def _make_state(self) -> FlowTableState:
+        """A fresh register file, the carry's layout (the sharded tier
+        allocates this rank's block of its partitioned file instead)."""
+        return init_flow_table(self.n_buckets, device=self.device)
+
     def _carries(self) -> _Carries:
-        return _Carries(self._regs, self._stats, self._dd, self._pending)
+        return _Carries(self._table, self._stats, self._dd, self._pending)
 
     def _reset_deferred(self):
         """Empty pending cycle: the deferral buffer zeroed and the pending
@@ -802,7 +837,7 @@ class StreamingHybridServer(HybridServer):
     def state(self) -> FlowTableState:
         """The live register file, written in place by every step: read it,
         don't keep it."""
-        return FlowTableState(self._regs)
+        return self._table
 
     @property
     def stats(self) -> StreamStats:
@@ -844,8 +879,7 @@ class StreamingHybridServer(HybridServer):
         place, so captured graphs stay valid. Pending deferred windows are
         dropped unflushed (flush() first if their answers matter), and the
         fault guard starts a fresh epoch."""
-        self._regs.copy_(init_flow_table(self.n_buckets,
-                                         device=self.device).regs)
+        self._table.copy_(self._make_state())
         self._stats.zero_()
         self._reset_deferred()
         if self._guard is not None:
@@ -865,13 +899,17 @@ class StreamingHybridServer(HybridServer):
 
     # -- the step kinds: switch half, then what follows the backend ----------
 
+    def _register_kw(self) -> dict:
+        """The register half's knobs, as this server was built."""
+        return dict(evict_age=self.evict_age, saturate=self.saturate,
+                    evict_policy=self.evict_policy,
+                    lru_occupancy=self.lru_occupancy,
+                    use_kernel=False if self.use_kernel is False else None)
+
     def _window_switch(self, c: _Carries, w: PacketWindow, tau):
         state, x, n_ev, n_ov = window_update_readout(
-            FlowTableState(c.regs), w, evict_age=self.evict_age,
-            saturate=self.saturate, evict_policy=self.evict_policy,
-            lru_occupancy=self.lru_occupancy,
-            use_kernel=False if self.use_kernel is False else None)
-        self._store_regs(c.regs, state)
+            FlowTableState(c.table.regs), w, **self._register_kw())
+        self._store_regs(c.table.regs, state)
         sw_pred, conf = fused_classify(self.artifact, x, tiles=self.tiles,
                                        device=self.device)
         fwd = (conf < tau) & w.valid
@@ -892,11 +930,8 @@ class StreamingHybridServer(HybridServer):
 
     def _chunk_switch(self, c: _Carries, chunk: PacketChunk, tau):
         state, xs, n_ev, n_ov = chunk_update_readout(
-            FlowTableState(c.regs), chunk, evict_age=self.evict_age,
-            saturate=self.saturate, evict_policy=self.evict_policy,
-            lru_occupancy=self.lru_occupancy,
-            use_kernel=False if self.use_kernel is False else None)
-        self._store_regs(c.regs, state)
+            FlowTableState(c.table.regs), chunk, **self._register_kw())
+        self._store_regs(c.table.regs, state)
         new, dd, pending, frac, rows = chunk_classify_tail(
             self.artifact, c.stats, chunk, xs, n_ev, n_ov, tau,
             self.capacity, tiles=self.tiles, device=self.device)
@@ -919,13 +954,18 @@ class StreamingHybridServer(HybridServer):
         """One deferred window: the switch half, then the rows into the
         buffer and the provisional predictions into the pending set at
         slot ``pos``; no backend. -> (pred, frac, rows)."""
-        buf, ctx = self._window_switch(c, w, tau)
+        buf, ctx = self._defer_switch(c, w, tau)
         sw_pred, idx, valid, fwd, conf, n_ev, n_ov = ctx
         new, _, _, pred, frac, rows = defer_tail(
             c.stats, c.dd, c.pending, w, sw_pred, fwd, buf, idx, valid, conf,
             (n_ev, n_ov), pos)
         c.stats.copy_(new)
         return pred, frac, rows
+
+    def _defer_switch(self, c: _Carries, w: PacketWindow, tau):
+        """The deferred window's switch half (the sharded tier keeps each
+        shard's partial rows, with no merge a window)."""
+        return self._window_switch(c, w, tau)
 
     def _flush_finish(self, c: _Carries, be_pred) -> torch.Tensor:
         """Patch the backend's answers into the pending set (or, when the
@@ -952,6 +992,23 @@ class StreamingHybridServer(HybridServer):
         return None if out is None else torch.as_tensor(out,
                                                         device=self.device)
 
+    def _fused_backend(self, kind: str, c: _Carries, rows):
+        """The backend's answers inside a fused step (a graph's body): for
+        "window" and "chunk" on the step's dispatched ``rows``, for "flush"
+        on the deferral buffer. The sharded tier serves them across its
+        mesh."""
+        return self._backend_answer(c.dd.buf if kind == "flush" else rows)
+
+    def _eager_backend(self, kind: str, c: _Carries, rows):
+        """The backend's answers on the eager route: the probe at the first
+        call on the card, else the two-phase host call, over the step's
+        ``rows`` or, for a "flush", ``_flush_rows_host()``; None when the
+        guarded call failed."""
+        if kind == "flush":
+            rows = self._flush_rows_host()
+        return (self._probe_backend(rows) if self._fused_ok is None
+                else self._host_backend(rows))
+
     def _stage(self, name: str):
         """The attached Observability's timer for stage ``name``, or a null
         context without one."""
@@ -961,12 +1018,16 @@ class StreamingHybridServer(HybridServer):
         """The attached Observability's profiler range, or a null context."""
         return _NULL if self._obs is None else self._obs.annotate(name)
 
-    def _host_backend(self, rows) -> Optional[torch.Tensor]:
-        """``_backend_answer`` called from the host on the two-phase route,
-        timed as the ``backend_flush`` stage when an Observability is
-        attached."""
+    def _host_call(self, rows) -> Optional[torch.Tensor]:
+        """``_backend_answer`` called from the host, timed as the
+        ``backend_flush`` stage when an Observability is attached."""
         with self._stage("backend_flush"):
             return self._backend_answer(rows)
+
+    def _host_backend(self, rows) -> Optional[torch.Tensor]:
+        """The two-phase route's backend answers: the host call (the
+        sharded tier makes it on one rank and shares the answers)."""
+        return self._host_call(rows)
 
     def _narrates_patch(self) -> bool:
         """Whether the reference's counterpart of the last step took its
@@ -988,13 +1049,13 @@ class StreamingHybridServer(HybridServer):
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            be = self._host_backend(buf)
+            be = self._host_call(buf)
             self._fused_ok = True
         except RuntimeError:
             self._fused_ok = False
         finally:
             torch.cuda.set_sync_debug_mode(mode)
-        return be if self._fused_ok else self._host_backend(buf)
+        return be if self._fused_ok else self._host_call(buf)
 
     def _replay_step(self, key, body, inp):
         """``body(carries, inp)`` as a CUDA graph under ``key`` (captured at
@@ -1029,7 +1090,7 @@ class StreamingHybridServer(HybridServer):
         if self._fused_ok:
             def body(c, i):
                 buf, ctx = switch(c, i, self._tau)
-                return finish(c, i, ctx, self._backend_answer(buf))
+                return finish(c, i, ctx, self._fused_backend(kind, c, buf))
 
             self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
@@ -1037,8 +1098,7 @@ class StreamingHybridServer(HybridServer):
         else:
             c = self._carries()
             buf, ctx = switch(c, inp, self.threshold)
-            be = (self._probe_backend(buf) if self._fused_ok is None
-                  else self._host_backend(buf))
+            be = self._eager_backend(kind, c, buf)
             narrate = (self._obs is not None and kind == "chunk"
                        and self._narrates_patch())
             # a failed call (be None) leaves the switch's answers: no patch
@@ -1109,8 +1169,7 @@ class StreamingHybridServer(HybridServer):
 
     def _flush_rows_host(self) -> torch.Tensor:
         """The deferred rows a two-phase backend call serves: the whole
-        buffer (the reference's sharded tier sums its per-shard partial
-        rows here; the port has no sharded tier yet)."""
+        buffer (the sharded tier sums its shards' partial rows here)."""
         return self._dd.buf
 
     def flush(self, *, trigger: str = "manual"):
@@ -1141,14 +1200,13 @@ class StreamingHybridServer(HybridServer):
             (patched,) = self._replay_step(
                 ("flush", tuple(self._dd.buf.shape)),
                 lambda c, _: (self._flush_finish(
-                    c, self._backend_answer(c.dd.buf)),), None)
+                    c, self._fused_backend("flush", c, None)),), None)
         else:
-            rows = self._flush_rows_host()
-            be = (self._probe_backend(rows) if self._fused_ok is None
-                  else self._host_backend(rows))
+            c = self._carries()
+            be = self._eager_backend("flush", c, None)
             served = be is not None
             with self._stage("backpatch") if served else _NULL:
-                patched = self._flush_finish(self._carries(), be)
+                patched = self._flush_finish(c, be)
         if obs is not None:
             obs.emit("backpatch" if served else "degraded", windows=n)
         self._pending_n = 0

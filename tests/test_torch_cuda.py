@@ -1490,6 +1490,114 @@ def test_obs_on_card_equals_obs_off(stream_served, tmp_path):
             assert counts.tolist() == want.tolist()
 
 
+# -- the sharded tier on one NCCL rank ----------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(stream_served):
+    """The one-device ('shard', 'data') mesh on the card: with no group
+    yet, ``flow_shard_mesh`` starts a one-rank NCCL group."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import flow_shard_mesh
+    started = not dist.is_initialized()
+    mesh = flow_shard_mesh(device="cuda")
+    assert dist.get_world_size() == 1 and "nccl" in dist.get_backend()
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+def _stream_launches():
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    return dict(ek.LAUNCHES, **su.LAUNCHES, **ev.LAUNCHES)
+
+
+@pytest.mark.parametrize("path_kw", [{}, dict(chunk_windows=8),
+                                     dict(flush_every=4)])
+def test_sharded_graphs_equal_single_device(stream_served, nccl_mesh,
+                                            path_kw):
+    """The sharded window step, chunk step and deferred step (with its
+    flush) through their CUDA graphs, collectives captured inside, against
+    the single-device server's graphs on the same card: predictions,
+    counters, flow table, epoch 0, the same kernel launches; a replayed
+    step does not sync the host."""
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.shard_serving import ShardedStreamingServer
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(True), **path_kw)
+    ref = StreamingHybridServer(art, _rf_backend(big_dev), **kw)
+    before = _stream_launches()
+    p_ref, s_ref = ref.serve_trace(trace)
+    torch.cuda.synchronize()
+    mid = _stream_launches()
+    srv = ShardedStreamingServer(art, _rf_backend(big_dev), mesh=nccl_mesh,
+                                 **kw)
+    p, s = srv.serve_trace(trace)
+    torch.cuda.synchronize()
+    after = _stream_launches()
+    assert srv._fused_ok is True and set(srv._step_graphs) \
+        == set(ref._step_graphs)
+    assert {k: after[k] - mid[k] for k in after} \
+        == {k: mid[k] - before[k] for k in after}
+    assert torch.equal(p, p_ref)
+    _same_stats(s, s_ref)
+    assert s.n_evicted > 0
+    assert torch.equal(srv.flow_table(), ref.flow_table())
+    assert srv.epoch == 0.0
+    if not path_kw:
+        w = next(iter(iter_windows(trace, 256, 4096)))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            srv.step(w)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+
+def test_sharded_reset_under_graphs(stream_served, nccl_mesh):
+    """``reset`` refills this rank's block and epoch in place: the captured
+    graphs (collectives inside) serve the trace again to the same answers,
+    with no new capture."""
+    from repro_torch.serving.shard_serving import ShardedStreamingServer
+    trace, art, _, big_dev = stream_served
+    srv = ShardedStreamingServer(art, _rf_backend(big_dev), mesh=nccl_mesh,
+                                 chunk_windows=8, **_stream_kw(True))
+    p1, s1 = srv.serve_trace(trace)
+    graphs = dict(srv._step_graphs)
+    ptrs = (srv.state.regs.data_ptr(), srv.state.epoch.data_ptr())
+    srv.reset()
+    assert srv.stats.n_windows == 0 and srv.epoch == 0.0
+    assert float(srv.state.epoch) == float("inf")
+    p2, s2 = srv.serve_trace(trace)
+    assert srv._step_graphs == graphs
+    assert (srv.state.regs.data_ptr(), srv.state.epoch.data_ptr()) == ptrs
+    assert torch.equal(p1, p2)
+    _same_stats(s1, s2)
+
+
+def test_sharded_syncing_backend_served_eagerly(stream_served, nccl_mesh):
+    """A backend that syncs the host: rank 0's probe says so, every rank
+    serves two-phase (rank 0's answers broadcast), equal to the eager
+    single-device server."""
+    from repro_torch.ml.trees import predict_tree_ensemble
+    from repro_torch.serving.shard_serving import ShardedStreamingServer
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    kw = dict(_stream_kw(True), chunk_windows=8)
+
+    def np_backend(r):                         # a host round trip
+        return predict_tree_ensemble(big_dev, r).cpu().numpy()
+
+    p_ref, s_ref = StreamingHybridServer(art, _rf_backend(big_dev),
+                                         fuse=False, **kw).serve_trace(trace)
+    srv = ShardedStreamingServer(art, np_backend, mesh=nccl_mesh, **kw)
+    p, s = srv.serve_trace(trace)
+    assert srv._fused_ok is False and not srv._step_graphs
+    assert torch.equal(p_ref, p)
+    _same_stats(s_ref, s)
+
+
 # -- B7: the per-feature-loop lookup ------------------------------------------------
 
 def _loop_tables(rng, f, u, t, s, c, vote, dev):

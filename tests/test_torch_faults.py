@@ -1,7 +1,7 @@
 """Port parity for backend fault tolerance (``repro_torch.serving.faults``)
 and the streaming server's degraded routes, against the reference's
-``tests/test_faults.py`` (less its two sharded cases: the port has no
-sharded tier yet) and against the reference's guard and server on the same
+``tests/test_faults.py`` (less its two sharded cases, which are in
+``tests/test_torch_shard.py``) and against the reference's guard and server on the same
 seeded fault sequences. Everything runs on the CPU; the worker thread's
 CUDA stream is checked in ``tests/test_torch_cuda.py``.
 

@@ -1,8 +1,8 @@
 """Port parity for open-ended ingest (``repro_torch.netsim.ingest``) and
 ``StreamingHybridServer.serve_stream`` / ``serve_trace``: the cases of the
-reference's ``tests/test_ingest.py`` (less its sharded ones, A-vii, and
-``test_autotune_candidate_filter``, whose filter only the sharded tier
-passes), each held against the reference on the same inputs, and the
+reference's ``tests/test_ingest.py`` (less its sharded ones and
+``test_autotune_candidate_filter``, which are in ``tests/test_torch_shard.py``),
+each held against the reference on the same inputs, and the
 port's own prefetch staging and thread lifetime. Everything runs on the
 CPU; the card's side-stream prefetch and the graph routes are in
 ``tests/test_torch_cuda.py``.

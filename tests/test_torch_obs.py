@@ -1,7 +1,7 @@
 """Port parity for the observability package (``repro_torch.obs``) and its
 wiring into the streaming server: the cases of the reference's
-``tests/test_obs.py`` (less ``test_obs_bit_identity_sharded``: the sharded
-tier is A-vii), each held against the reference on the same inputs.
+``tests/test_obs.py`` (less ``test_obs_bit_identity_sharded``, which is in
+``tests/test_torch_shard.py``), each held against the reference on the same inputs.
 Everything runs on the CPU.
 
 Tolerances: predictions, the flow table, every integer counter, rollup
