@@ -187,6 +187,23 @@ Phases (any failure exits non-zero before the result line is printed):
         0.0) with the same B5, B6-sweep and B1 launches, and collectives
         sent; then the census of collectives per step kind (3 psums, 1
         reduce-scatter and 2 all-gathers a window or chunk switch half).
+     m. the analysis gate: ``python -m repro_torch.analysis --strict
+        --json`` in a subprocess on the card (exit 0, no finding, every
+        rule registered with its self-test fired) and with ``--device
+        cpu``, each timed; then the four hot-path rules in this process at
+        the streaming cell's full width (N=8192, W=1024, capacity 64, tau
+        0.9, the RF 4x3 switch and RF 16x6 backend, ``evict_age=5.0``,
+        K=16, ``flush_every=4``) over ``HybridServer``, the single-device
+        server and, on phase 4l's one-rank NCCL group, the sharded server:
+        every contracted body eagerly under the op recorder and
+        ``set_sync_debug_mode("error")``, then through its CUDA graph (the
+        capture and two replays): no finding, and each eager body's B1, B5
+        and B6 launches as a step of its kind launches them; then
+        ``repro_torch.examples.quickstart`` and ``anomaly_hybrid`` at the
+        reference's sizes on the card, with the forests fitted once on the
+        CPU and carried across, each equal to the CPU port's run
+        (predictions, accuracy, P/R/F1, the fraction handled, the backend
+        rows, the flagged count, the flow table).
      f. Qwen3-4B at full width (36 layers, d_model 2560, vocab 151,936, f32
         params from ``init_model`` on the card, 17.65 GB) through
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
@@ -801,16 +818,19 @@ def main() -> int:
     # -- 4l. serve: the sharded tier on one NCCL rank ----------------------------
     sharded = _serve_sharded(torch, np, dev, stream_models)
 
+    # -- 4m. the analysis gate and the quickstart / anomaly examples -----------
+    gate = _analysis_gate(torch, np, dev, here, stream_models)
+
     # -- 5. times ------------------------------------------------------------
     served = runs["auto"]["artifact"].to(dev)
     x2048 = xb.contiguous()
     # B1/B2 launches: the launcher's run, both streaming runs, path d, the
     # chunked runs (4g), the finance launcher (4h), the deferral (4i),
-    # scenario (4j), ingest (4k) and sharded (4l) runs
+    # scenario (4j), ingest (4k), sharded (4l) and gate (4m) runs
     slice_totals = {}
     for totals in (chunked["totals"], deferred["totals"],
                    scenarios["totals"], ingest["totals"],
-                   sharded["totals"]):
+                   sharded["totals"], gate["totals"]):
         _add(slice_totals, totals)
     path_ac = {k: path_a[k] + sum(r["path"][k]
                                   for r in stream["runs"].values())
@@ -892,7 +912,7 @@ def main() -> int:
 
     stream_rows, stream_extra = _time_stream(torch, np, stream, smi)
     for row, key in zip(stream_rows, ("stream_update", "evict_fill")):
-        row["launches"] += slice_totals.get(key, 0)   # 4g, 4i-4l
+        row["launches"] += slice_totals.get(key, 0)   # 4g, 4i-4m
     kernel_rows += stream_rows
     for row in stream_rows + stream_extra:
         lib = ("none" if row["library_ms"] is None
@@ -935,27 +955,17 @@ def main() -> int:
     return 0
 
 
-def _kernel_modules():
-    from repro_torch.kernels import (bucketize, classical_lookup,
-                                     decode_attention, ensemble_lookup, evict,
-                                     stream_update)
-    return (ensemble_lookup, classical_lookup, bucketize, stream_update,
-            evict, decode_attention)
-
-
 def _reset_counts():
-    for mod in _kernel_modules():
-        mod.reset_launches()
+    from repro_torch.analysis.dispatch_utils import reset_kernel_launches
+    reset_kernel_launches()
 
 
 def _counts() -> dict:
     """Every kernel's launch count, by kernel (B1 matmul, B2 compare, B7
     loop, B3 classical, B4 bucketize, B5 stream_update, B6 evict_fill, B8
     decode_attention)."""
-    out = {}
-    for mod in _kernel_modules():
-        out.update(mod.LAUNCHES)
-    return out
+    from repro_torch.analysis.dispatch_utils import kernel_launches
+    return kernel_launches()
 
 
 def _max_abs_err(a, b) -> float:
@@ -3506,6 +3516,190 @@ def _serve_sharded(torch, np, dev, models):
                                  f"{SHARD_CENSUS[kind]}")
     out["census"] = got
     return out
+
+
+GATE_RULES = ("hotpath-donation", "hotpath-zero-sync", "hotpath-dtype",
+              "hotpath-collectives", "lint-host-sync-in-graph",
+              "lint-broad-except", "lint-env-mutation",
+              "lint-carry-out-of-place", "fit-standard-artifacts")
+# the streaming cell at full width for the hot-path audit
+GATE_GEOMETRY = dict(n_buckets=STREAM_BUCKETS, window=STREAM_WINDOW,
+                     capacity=64, threshold=0.9, chunk_windows=16,
+                     flush_every=4, evict_age=5.0, seed=0)
+
+
+def _run_gate(here, device):
+    """``python -m repro_torch.analysis --strict --json`` in a subprocess
+    (``--device cpu`` when asked). -> (report, wall seconds)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(here, "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "repro_torch.analysis", "--strict",
+           "--json"] + (["--device", device] if device == "cpu" else [])
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=here, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis gate ({device}) exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    by_name = {r["rule"]: r for r in report["results"]}
+    if not report["ok"] or report["n_findings"] or set(GATE_RULES) - \
+            set(by_name) or any(by_name[r]["selftest_fired"] is not True
+                                or by_name[r]["error"] for r in GATE_RULES):
+        raise AssertionError(f"analysis gate ({device}): {report}")
+    return report, wall
+
+
+def _gate_launches(select, label):
+    """What one eager body of a contracted row launches at the streaming
+    cell's geometry (eviction on): a batch classify B1 once, a window-
+    shaped step B5, B6's sweep and B1 once, a chunk step B5 and the sweep
+    K times and B1 once, a flush nothing (the backend is plain PyTorch)."""
+    attr = label.rsplit(".", 1)[1]
+    if attr == "_step":
+        return {select: 1}
+    if attr == "_chunk_step":
+        return _chunk_launches(select, GATE_GEOMETRY["chunk_windows"], 1,
+                               True)
+    if attr == "_flush_step":
+        return {}
+    return _want_launches(select, 1, True)
+
+
+def _analysis_gate(torch, np, dev, here, models):
+    """Phase 4m: the analysis gate on the card and on the CPU
+    (subprocesses, timed); the four hot-path rules here at the streaming
+    cell's full width, every launch count set to 0 just before and read
+    just after, each eager body's launches against a step of its kind;
+    then the two examples at the reference's sizes on the card against the
+    CPU port. -> dict(totals, walls, records, examples)."""
+    from repro_torch.analysis import hotpath
+    from repro_torch.analysis.dispatch_utils import collective_census
+    from repro_torch.distributed.sharding import flow_shard_mesh
+    from repro_torch.kernels import ensemble_lookup as ek
+
+    out = {"totals": {}, "walls": {}}
+    for device in ("cuda", "cpu"):
+        report, wall = _run_gate(here, device)
+        out["walls"][f"gate_{device}_s"] = wall
+        print(f"analysis gate --strict (--device {device}): exit 0, "
+              f"{report['n_rules']} rules, {report['n_findings']} findings, "
+              f"every self-test fired; wall {wall:.2f} s; "
+              + ", ".join(f"{r['rule']} {r['elapsed_s']:.2f} s"
+                          for r in report["results"]))
+
+    mesh = flow_shard_mesh(device="cuda")        # phase 4l's one-rank group
+    targets = hotpath.build_targets(GATE_GEOMETRY, device=dev,
+                                    artifact=models["art"],
+                                    backend=models["backend"], mesh=mesh)
+    art = targets[0].server.artifact
+    select = ek.resolve_select("auto", art.n_trees, art.dtable_flat.shape[2],
+                               art.dtable_flat.shape[0])
+    _reset_counts()
+    t0 = time.perf_counter()
+    records = hotpath.audit(targets, geometry=GATE_GEOMETRY)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    path = _counts()
+    print(f"main-path launches (m: the full-width hot-path audit, eager "
+          f"bodies, captures and replays): {path}")
+    _add(out["totals"], path)
+    found = []
+    for check in (hotpath.donation_findings, hotpath.zero_sync_findings,
+                  hotpath.dtype_findings, hotpath.collective_findings):
+        found += [f.format() for f in check(records)]
+    if found:
+        raise AssertionError("full-width audit:\n" + "\n".join(found))
+    for r in records:
+        want = _gate_launches(select, r.label)
+        if r.launches != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"audit {r.label}: launched {r.launches}, "
+                                 f"want {want}")
+        if bool(r.row.get("graph")) != r.graph or r.n_ops < 10:
+            raise AssertionError(f"audit {r.label}: graph {r.graph}, "
+                                 f"{r.n_ops} ops")
+        print(f"audit[{r.label}] {r.n_ops} ops, dtypes {sorted(r.dtypes)}, "
+              f"launches {r.launches}, census "
+              f"{collective_census(r.calls)}, no host sync (also "
+              f"under set_sync_debug_mode('error')), carries in place"
+              + (" through the capture and two replays" if r.graph else ""))
+    out["walls"]["audit_full_width_s"] = wall
+    out["records"] = records
+    print(f"analysis gate at full width: {len(records)} contracted bodies, "
+          f"0 findings, {wall:.2f} s")
+    out["examples"] = _serve_examples(torch, np, out)
+    return out
+
+
+def _serve_examples(torch, np, out):
+    """Phase 4m's examples: each at the reference's sizes, first on the CPU
+    (fitting its forests), then on the card with those forests: every
+    number equal."""
+    from repro_torch.examples import anomaly_hybrid, quickstart
+
+    def timed(fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    q_cpu, t_cpu = timed(quickstart.main, ["--device", "cpu"])
+    _reset_counts()
+    q_gpu, t_gpu = timed(quickstart.main, ["--device", "cuda"],
+                         models=q_cpu["models"])
+    path = _counts()
+    _add(out["totals"], path)
+    same = (torch.equal(q_gpu["pred"].cpu(), q_cpu["pred"])
+            and torch.equal(q_gpu["hybrid"].pred.cpu(), q_cpu["hybrid"].pred)
+            and all(q_gpu[k] == q_cpu[k] for k in (
+                "switch_acc", "switch_prf", "hybrid_acc", "hybrid_prf",
+                "fraction_handled"))
+            and q_gpu["resources"].row() == q_cpu["resources"].row())
+    if not same:
+        raise AssertionError("quickstart on the card != the CPU port")
+    print(f"example[quickstart] switch acc {q_gpu['switch_acc']:.4f} F1 "
+          f"{q_gpu['switch_prf'][2]:.4f}; hybrid acc "
+          f"{q_gpu['hybrid_acc']:.4f} F1 {q_gpu['hybrid_prf'][2]:.4f}, "
+          f"{q_gpu['fraction_handled'] * 100:.1f}% at the switch; wall "
+          f"{t_gpu:.3f} s on the card (the CPU port with its fits "
+          f"{t_cpu:.3f} s); launches {path}; equal_cpu=True")
+
+    a_cpu, ta_cpu = timed(anomaly_hybrid.main, ["--device", "cpu"])
+    _reset_counts()
+    a_gpu, ta_gpu = timed(anomaly_hybrid.main, ["--device", "cuda"],
+                          models=a_cpu["models"])
+    path = _counts()
+    _add(out["totals"], path)
+    select = next((k for k in ("matmul", "compare") if path.get(k)), None)
+    if select is None or path[select] != 2 or path["stream_update"]:
+        raise AssertionError(f"anomaly example launched {path} (want B1 in "
+                             "the warm-up and the capture)")
+    same = (torch.equal(a_gpu["pred"].cpu(), a_cpu["pred"])
+            and torch.equal(a_gpu["flow_table"].cpu(), a_cpu["flow_table"])
+            and torch.equal(a_gpu["packet_features"].cpu(),
+                            a_cpu["packet_features"])
+            and all(a_gpu[k] == a_cpu[k] for k in (
+                "fraction_handled", "backend_rows", "accuracy", "prf",
+                "flagged")))
+    if not same or not a_gpu["server"]._graphs:
+        raise AssertionError("anomaly_hybrid on the card != the CPU port "
+                             "(or not served from its graph)")
+    print(f"example[anomaly_hybrid] {a_gpu['trace'].n_packets} packets, "
+          f"{len(a_gpu['rows'])} flows; handled at switch "
+          f"{a_gpu['fraction_handled'] * 100:.1f}% (backend saw "
+          f"{a_gpu['backend_rows']}); accuracy {a_gpu['accuracy']:.4f} "
+          f"P/R/F1 {a_gpu['prf']}; flagged {a_gpu['flagged']}; classify "
+          f"{a_gpu['classify_s'] * 1e3:.2f} ms (its capture included); wall "
+          f"{ta_gpu:.3f} s on the card (the CPU port with its fits "
+          f"{ta_cpu:.3f} s); launches {path}; equal_cpu=True")
+    out["walls"].update(quickstart_cuda_s=t_gpu, quickstart_cpu_s=t_cpu,
+                        anomaly_cuda_s=ta_gpu, anomaly_cpu_s=ta_cpu)
+    print("times (phase 4m, the analysis gate and the examples): "
+          + json.dumps(out["walls"]))
+    return dict(quickstart=q_gpu, anomaly=a_gpu)
 
 
 def _time_sharded(torch, np, sharded, smi):

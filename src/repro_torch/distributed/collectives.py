@@ -8,7 +8,10 @@ before it, ``counts`` after) reads what the step sends between devices:
 the counterpart of the reference's hot-path census
 (``repro/serving/shard_serving.py`` ``AUDIT_CONTRACTS``). Inside a CUDA
 graph the count is taken when the step is captured, not at each replay,
-as the kernels' launch counts are.
+as the kernels' launch counts are. ``CALLS`` keeps one record a call as well,
+(kind, the output's ndim), so a census can tell the rank >= 2 "readout"
+merges (rows) from the scalar and vector ones (the counterpart of the
+reference auditor's ``_readout_psum_count``).
 
 NCCL has no bool: a bool tensor crosses as uint8 and comes back bool (a
 psum of masks is then their logical or).
@@ -20,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 COUNTS = {"psum": 0, "reduce_scatter": 0, "all_gather": 0, "broadcast": 0}
+CALLS: list = []        # (kind, output ndim), one a call, in call order
 
 # the names the running torch offers (torch 2.13 deprecates the *_tensor
 # forms in favour of the *_single ones); nowhere else picks
@@ -32,10 +36,21 @@ _ALL_GATHER = (getattr(dist, "all_gather_single", None)
 def reset_counts() -> None:
     for k in COUNTS:
         COUNTS[k] = 0
+    CALLS.clear()
 
 
 def counts() -> dict:
     return dict(COUNTS)
+
+
+def calls() -> list:
+    """The (kind, output ndim) records since the last ``reset_counts``."""
+    return list(CALLS)
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    COUNTS[kind] += 1
+    CALLS.append((kind, out.dim()))
 
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
@@ -50,7 +65,7 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over the group's ranks (a new tensor)."""
     y = _wire(x).clone()
     dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
-    COUNTS["psum"] += 1
+    _count("psum", y)
     return _back(y, x.dtype)
 
 
@@ -64,7 +79,7 @@ def psum_scatter(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty((x.shape[0] // g,) + tuple(x.shape[1:]),
                       dtype=w.dtype, device=w.device)
     _REDUCE_SCATTER(out, w, group=group)
-    COUNTS["reduce_scatter"] += 1
+    _count("reduce_scatter", out)
     return _back(out, x.dtype)
 
 
@@ -75,7 +90,7 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty((g * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=w.dtype, device=w.device)
     _ALL_GATHER(out, w, group=group)
-    COUNTS["all_gather"] += 1
+    _count("all_gather", out)
     return _back(out, x.dtype)
 
 
@@ -86,5 +101,5 @@ def broadcast(x: torch.Tensor, group) -> torch.Tensor:
     w = _wire(x)
     dist.broadcast(w, src=dist.get_process_group_ranks(group)[0],
                    group=group)
-    COUNTS["broadcast"] += 1
+    _count("broadcast", w)
     return _back(w, x.dtype)

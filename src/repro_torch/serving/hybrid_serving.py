@@ -84,6 +84,16 @@ class HybridStats:
 
 
 class HybridServer:
+    # What the analysis gate (``repro_torch.analysis.hotpath``) audits: the
+    # step ``_replay`` captures, run on a "batch" probe as ``_step(x, tau)``.
+    # It keeps no carry (the reference's ``donate`` is empty too); on the
+    # card its graph's input buffer and outputs must stay put across
+    # replays. ``reference`` names the reference's row.
+    AUDIT_CONTRACTS = (
+        {"attr": "_step", "reference": "_step", "probe": "batch",
+         "carries": (), "graph": True, "collectives": {}},
+    )
+
     def __init__(self, artifact: TableArtifact, backend_fn: Callable, *,
                  threshold: float = 0.7, capacity: int = 256,
                  use_kernel: Optional[bool] = None, autotune: bool = False,

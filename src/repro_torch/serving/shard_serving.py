@@ -91,6 +91,33 @@ _ANSWER_DTYPES = (torch.int64, torch.int32, torch.int16, torch.int8,
                   torch.uint8, torch.bool, torch.float32, torch.float64)
 
 
+# The census each of the parent's AUDIT_CONTRACTS steps sends here
+# (``distributed.collectives``): a window or chunk switch half 3 psums, 1
+# reduce-scatter, 2 all-gathers, one rank >= 2 "readout" psum (the dispatch
+# buffer) and one rank >= 2 reduce-scatter (the lane slab), as the
+# reference's rows (``repro/serving/shard_serving.py``). The chunk step
+# all-gathers its backend's answers once more (ROADMAP C3: the reference's
+# come back through its out_specs, uncounted). A deferred step sends no
+# buffer psum; a flush reduce-scatters the buffer and all-gathers the
+# answers.
+_CENSUS = {
+    "_window_step": {"collectives": {"psum": 3, "reduce_scatter": 1,
+                                     "all_gather": 2},
+                     "readout_psums": 1, "readout_scatters": 1},
+    "_window_switch": {"collectives": {"psum": 3, "reduce_scatter": 1,
+                                       "all_gather": 2},
+                       "readout_psums": 1, "readout_scatters": 1},
+    "_chunk_step": {"collectives": {"psum": 3, "reduce_scatter": 1,
+                                    "all_gather": 3},
+                    "readout_psums": 1, "readout_scatters": 1},
+    "_deferred_step": {"collectives": {"psum": 2, "reduce_scatter": 1,
+                                       "all_gather": 2},
+                       "readout_psums": 0, "readout_scatters": 1},
+    "_flush_step": {"collectives": {"reduce_scatter": 1, "all_gather": 1},
+                    "readout_psums": 0, "readout_scatters": 1},
+}
+
+
 class ShardedStreamingServer(StreamingHybridServer):
     """StreamingHybridServer over a bucket-sharded register file.
 
@@ -107,6 +134,10 @@ class ShardedStreamingServer(StreamingHybridServer):
     ``device`` is this rank's device (None: CUDA, raising without a card);
     it must be of the mesh's device type.
     """
+
+    # The parent's rows, each with the census its step sends (``_CENSUS``)
+    AUDIT_CONTRACTS = tuple(dict(row, **_CENSUS[row["attr"]])
+                            for row in StreamingHybridServer.AUDIT_CONTRACTS)
 
     def __init__(self, artifact: TableArtifact, backend_fn: Callable, *,
                  n_buckets: int = 4096, window: int = 512,

@@ -591,6 +591,34 @@ class StreamingHybridServer(HybridServer):
     the parent stays available.
     """
 
+    # What the analysis gate (``repro_torch.analysis.hotpath``) audits: each
+    # body ``_replay_step`` captures ("graph"), called as ``attr(carries,
+    # probe)``, and the two-phase route's switch half, called as
+    # ``attr(carries, probe, tau)`` ("tau"). ``carries`` names the
+    # ``_Carries`` fields the body must write in place, the counterpart of
+    # the reference's ``donate``. ``reference`` maps each row to the
+    # reference's (``repro/serving/stream_serving.py`` AUDIT_CONTRACTS):
+    # ``_window_step`` is its ``_stream_step``, ``_window_switch`` its
+    # ``_stream_switch``; the deferred step and the flush, graphs of their
+    # own here, have no row there.
+    AUDIT_CONTRACTS = (
+        {"attr": "_window_step", "reference": "_stream_step",
+         "probe": "window", "carries": ("table", "stats"), "graph": True,
+         "collectives": {}},
+        {"attr": "_window_switch", "reference": "_stream_switch",
+         "probe": "window", "carries": ("table",), "tau": True,
+         "collectives": {}},
+        {"attr": "_chunk_step", "reference": "_chunk_step",
+         "probe": "chunk", "carries": ("table", "stats"), "graph": True,
+         "collectives": {}},
+        {"attr": "_deferred_step", "reference": None, "probe": "defer",
+         "carries": ("table", "stats", "dd", "pending"), "graph": True,
+         "collectives": {}},
+        {"attr": "_flush_step", "reference": None, "probe": "flush",
+         "carries": ("stats", "dd", "pending"), "graph": True,
+         "collectives": {}},
+    )
+
     def __init__(self, artifact: TableArtifact, backend_fn: Callable, *,
                  n_buckets: int = 4096, window: int = 512,
                  threshold: float = 0.7, capacity: int = 64,
@@ -950,6 +978,35 @@ class StreamingHybridServer(HybridServer):
             return self._window_switch, self._window_finish
         return self._chunk_switch, self._chunk_finish
 
+    # -- the captured step bodies -----------------------------------------------
+
+    def _fused_step(self, kind: str, c: _Carries, inp):
+        """A fused step's body: the switch half, the backend on its rows,
+        then the fold (a window) or the back-patch (a chunk), every carry
+        written in place. -> (pred, frac, rows)."""
+        switch, finish = self._halves(kind)
+        buf, ctx = switch(c, inp, self._tau)
+        return finish(c, inp, ctx, self._fused_backend(kind, c, buf))
+
+    def _window_step(self, c: _Carries, w: PacketWindow):
+        """The window step a graph captures (threshold from ``_tau``)."""
+        return self._fused_step("window", c, w)
+
+    def _chunk_step(self, c: _Carries, chunk: PacketChunk):
+        """The chunk step a graph captures (threshold from ``_tau``)."""
+        return self._fused_step("chunk", c, chunk)
+
+    def _deferred_step(self, c: _Carries, w: PacketWindow):
+        """The deferred step a graph captures: ``_defer_body`` at the
+        threshold in ``_tau`` and the cycle slot in ``_pos``."""
+        return self._defer_body(c, w, self._tau, self._pos)
+
+    def _flush_step(self, c: _Carries, _inp=None):
+        """The flush a graph captures: the backend over the deferral
+        buffer, the back-patch, the fold and the emptying.
+        -> (patched predictions,)."""
+        return (self._flush_finish(c, self._fused_backend("flush", c, None)),)
+
     def _defer_body(self, c: _Carries, w: PacketWindow, tau, pos):
         """One deferred window: the switch half, then the rows into the
         buffer and the provisional predictions into the pending set at
@@ -1088,13 +1145,11 @@ class StreamingHybridServer(HybridServer):
     def _serve(self, kind: str, inp):
         switch, finish = self._halves(kind)
         if self._fused_ok:
-            def body(c, i):
-                buf, ctx = switch(c, i, self._tau)
-                return finish(c, i, ctx, self._fused_backend(kind, c, buf))
-
             self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
-                (kind, tuple(inp.bucket.shape)), body, inp)
+                (kind, tuple(inp.bucket.shape)),
+                self._window_step if kind == "window" else self._chunk_step,
+                inp)
         else:
             c = self._carries()
             buf, ctx = switch(c, inp, self.threshold)
@@ -1136,8 +1191,7 @@ class StreamingHybridServer(HybridServer):
         if self._defer_graphs:
             self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
-                ("defer", tuple(w.bucket.shape)),
-                lambda c, i: self._defer_body(c, i, self._tau, self._pos), w)
+                ("defer", tuple(w.bucket.shape)), self._deferred_step, w)
         else:
             pred, frac, rows = self._defer_body(self._carries(), w,
                                                 self.threshold, self._pos)
@@ -1198,9 +1252,7 @@ class StreamingHybridServer(HybridServer):
         served = True
         if self._fused_ok:
             (patched,) = self._replay_step(
-                ("flush", tuple(self._dd.buf.shape)),
-                lambda c, _: (self._flush_finish(
-                    c, self._fused_backend("flush", c, None)),), None)
+                ("flush", tuple(self._dd.buf.shape)), self._flush_step, None)
         else:
             c = self._carries()
             be = self._eager_backend("flush", c, None)

@@ -2009,3 +2009,22 @@ def test_int8_decode_step_on_card_equals_cpu(cuda, arch):
     ref, got = out["cpu"][0], out["cuda"][0]
     assert float((ref - got).abs().max()) <= 1e-3 * float(ref.abs().max())
     assert torch.equal(ref.argmax(-1), got.argmax(-1))
+
+
+def test_analysis_hotpath_on_the_card(cuda):
+    """The hot-path audit at its probe geometry on the card: every
+    contracted body eagerly under the op recorder and the sync debug mode,
+    then through its CUDA graph (the capture and two replays), with no
+    finding; each streaming body launches B5, B6's sweep and B1."""
+    from repro_torch.analysis import hotpath
+    recs = hotpath.audit(device="cuda")
+    found = []
+    for check in (hotpath.donation_findings, hotpath.zero_sync_findings,
+                  hotpath.dtype_findings, hotpath.collective_findings):
+        found += [f.format() for f in check(recs)]
+    assert not found, "\n".join(found)
+    for r in recs:
+        assert r.graph == bool(r.row.get("graph")), r.label
+        if r.row["probe"] in ("window", "defer"):
+            assert r.launches.get("stream_update") == 1, r.label
+            assert r.launches.get("evict_fill") == 1, r.label
