@@ -209,10 +209,31 @@ Phases (any failure exits non-zero before the result line is printed):
         ``ServeEngine``: prefill of 8 x 256 seeded tokens, the prefill K/V
         quantized by ``_q8`` into an int8 decode cache of 32,768 slots
         (19.9 GB; ``decode_32k`` cut from batch 128 to 8), then 16 greedy
-        decode steps. B8 must launch 36 x 16 times and nothing else; the
-        logits must be finite and the tokens in the vocabulary; the first
-        step's logits against a prefill of prompt + token (relative gap
-        under 0.05, argmax agreement reported).
+        decode steps eagerly, then 16 from the engine's decode graph on a
+        fresh cache from the same prefill (the first step eager as the
+        warm-up, the capture, then replays): the same tokens and logits
+        bit for bit, every cache tensor where it was. B8 must launch
+        36 x 16 times eagerly and 36 x 2 on the graph route (warm-up and
+        capture; a replay counts none), and nothing else; the logits must
+        be finite and the tokens in the vocabulary; the first step's
+        logits against a prefill of prompt + token (relative gap under
+        0.05, argmax agreement reported).
+     n. the other six LM families at their published widths, one after
+        another, each freed before the next (run after phase 5's LM times,
+        once phase f's model is freed): recurrentgemma-2b (26 layers),
+        xlstm-1.3b (48), whisper-base (6 + 6, 1500 frames), phi-3-vision
+        (32, 576 patches), arctic-480b at 1 of its 35 layers (56.3 GB of
+        f32 weights; 2 are 110.7 GB) and deepseek-v3-671b at its 3 dense
+        layers and 1 MoE layer of 61, without the MTP head (60.4 GB);
+        seeded weights, 8 x 256 prompts (+ frames / patches), a decode
+        cache of 2048 slots, int8 wherever there are GQA layers (arctic
+        M=7 hd=128, phi-3 M=1 hd=96, recurrentgemma M=10 hd=256 at its
+        2048 window), 16 steps eagerly and 16 from the decode graph, as
+        phase f: bit for bit, B8 once a GQA layer a step and twice for the
+        graph route; the first step against a prefill of prompt + token
+        (for MoE one that drops no unit: row by row, each expert with room
+        for the row); B8 against its plain version on each served int8
+        cache.
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -240,8 +261,12 @@ Phases (any failure exits non-zero before the result line is printed):
      already-dequantized cache (the library yardstick, dequant left out),
      the bound and the split it chose; B8 at h2o-danube-1.8b's shape
      (B=8, S=4096, G=8, M=4, hd=80) with its bound; the prefill, the decode
-     step (eager, median), tokens/s and B8's share of a step; then two more
-     decode steps under ``torch.profiler``, kernels summed by name. This
+     step (eager and from the graph, medians; the graph's replay alone),
+     tokens/s and B8's share of a step; then two more decode steps under
+     ``torch.profiler`` on each route, kernels summed by name; for each
+     family of phase n its prefill, decode step eager and from the graph,
+     tokens/s, and B8 on its served cache (kernel, plain, SDPA on the
+     dequantized cache, bound). This
      slice's: one chunk step at K=16 with eviction (eager, device time by
      graph replay, the server's own graph per call and its replay alone)
      and its parts; the per-window step under its graph against eager;
@@ -942,6 +967,17 @@ def main() -> int:
     lm_row = _time_lm(torch, dev, da, lm, max(b8_errs), smi)
     kernel_rows.append(lm_row)
     _profile_decode(torch, lm, smi)
+    _profile_decode(torch, lm, smi, route="graph")
+    del lm
+    torch.cuda.empty_cache()
+
+    # -- 4n. serve: the other six LM families through ServeEngine ---------------
+    # (after phase 5's LM times, so that phase 4f's model is freed first)
+    lm_families = _serve_lm_families(torch, np, dev, da, smi)
+    lm_row["launches"] += lm_families["launches"]
+    lm_row["families"] = lm_families["rows"]
+    print("times (phase 5, the LM families): "
+          + json.dumps(lm_families["rows"]))
 
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
@@ -4173,7 +4209,23 @@ def _check_decode_attention(torch, np, dev, da) -> float:
             args[5][1, 500:] = 0.0
             errs.append(_check_b8(torch, da, "m_hd_grid", args,
                                   f"B=2 S=1000 G=2 M={m_r} hd={hd_r}"))
+    # M past 8, in query groups over the grid (ceil(M / 8) of them, the last
+    # short where 8 does not divide M), then the served shapes of phase 4n's
+    # int8 caches: recurrentgemma's local attention (M=10, hd=256, its
+    # 2048-slot window), arctic (M=7) and phi-3 (M=1, hd=96)
+    for b_r, s_r, g_r, m_r, hd_r in B8_GROUP_SHAPES:
+        args = _b8_inputs(torch, np, dev, b_r, s_r, g_r, m_r, hd_r,
+                          seed=m_r + hd_r + s_r)
+        args[5][:, s_r // 2 + 1:] = 0.0
+        args[5][0, ::3] = 0.0
+        errs.append(_check_b8(torch, da, "m_groups", args,
+                              f"B={b_r} S={s_r} G={g_r} M={m_r} hd={hd_r}"))
     return max(errs)
+
+
+B8_GROUP_SHAPES = ((2, 1000, 2, 9, 128), (2, 1000, 2, 16, 64),
+                   (2, 1000, 1, 10, 256), (8, 2048, 1, 10, 256),
+                   (8, 2048, 8, 7, 128), (8, 2048, 32, 1, 96))
 
 
 def _split_edges(da, dev, b, g, m, hd):
@@ -4248,15 +4300,53 @@ def _serve_lm_launcher(torch, ek, serve, HybridServer):
 def _fill_quantized(q8, dst, src):
     """Quantize the prefill K/V through the port's ``_q8`` into the leading
     slots of an int8 decode cache, in place (the reference's
-    ``tests/test_int8_kv.py:20-35`` helper)."""
-    if isinstance(dst, dict):
+    ``tests/test_int8_kv.py:20-35`` helper); every other leaf (an MLA
+    latent, a recurrent state, Whisper's caches) takes the prefill's values
+    in its leading slots, as ``serving.engine`` places them."""
+    from repro_torch.serving.engine import _place_prefill_into_decode
+    if isinstance(dst, dict) and "k_scale" in dst:
         for key in ("k", "v"):
             q, sc = q8(src[key])
             dst[key][tuple(slice(0, x) for x in q.shape)] = q
             dst[key + "_scale"][tuple(slice(0, x) for x in sc.shape)] = sc
         dst["pos"][..., :src["pos"].shape[-1]] = src["pos"]
         return dst
-    return [_fill_quantized(q8, d, s) for d, s in zip(dst, src)]
+    if isinstance(dst, dict):
+        return {k: _fill_quantized(q8, dst[k], src[k]) for k in dst}
+    if isinstance(dst, (list, tuple)):
+        return type(dst)(_fill_quantized(q8, d, s) for d, s in zip(dst, src))
+    return _place_prefill_into_decode(dst, src)
+
+
+def _decode_route(torch, step, logits, pos0, caches, steps):
+    """``steps`` greedy steps of ``step(token, pos, caches)`` (the eager
+    ``decode_step`` or the engine's graph) from ``logits`` (the
+    prefill's): -> (tokens, each step's logits, host ms of each step to
+    its sync, seconds of the whole loop)."""
+    toks, logs, ms = [], [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        t1 = time.perf_counter()
+        nxt = logits.argmax(-1).to(torch.int32)
+        logits, caches = step(nxt, pos0 + i, caches)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t1))
+        toks.append(nxt)
+        logs.append(logits)
+    return toks, logs, ms, time.perf_counter() - t0
+
+
+def _same_routes(torch, eager, graph, name):
+    """The graph route's tokens and logits against the eager route's, bit
+    for bit, step by step."""
+    for i, (te, tg, le, lg) in enumerate(zip(eager[0], graph[0], eager[1],
+                                             graph[1])):
+        if not (torch.equal(te, tg) and torch.equal(le, lg)):
+            gap = float((le - lg).abs().max())
+            raise AssertionError(f"{name}: the decode graph differs from "
+                                 f"eager decode at step {i} (max |logit "
+                                 f"diff| {gap})")
 
 
 def _serve_lm(torch, np, dev):
@@ -4265,8 +4355,14 @@ def _serve_lm(torch, np, dev):
     the card, seeded), served by ``ServeEngine``: prefill of 8 x 256 seeded
     tokens, the prefill K/V quantized into an int8 decode cache of 32,768
     slots (the cut from ``decode_32k``: batch 128 -> 8), then 16 greedy
-    decode steps. The counts are set to 0 just before the prefill and read
-    after the last step: B8 must launch 36 x 16 times and nothing else."""
+    decode steps eagerly; then a fresh cache filled from the same prefill
+    and 16 steps from the engine's decode graph (the first step eager as
+    its warm-up, then the capture, then 15 replays), whose tokens and
+    logits must equal the eager route's bit for bit. The counts are set to
+    0 just before the prefill and read after the last step: B8 must launch
+    36 x 16 times on the eager route and 36 x 2 on the graph route (the
+    warm-up and the capture; a replay runs the captured launches and
+    counts none), and nothing else."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
     from repro_torch.models.attention import _q8
@@ -4284,6 +4380,10 @@ def _serve_lm(torch, np, dev):
           f"({4 * n_params / 1e9:.2f} GB f32), init "
           f"{time.perf_counter() - t0:.2f} s")
     eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=LM_MAX_LEN)
+
+    def eager_step(token, pos, caches):
+        return M.decode_step(params, cfg, token, pos, caches)
+
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)
     caches = M.init_decode_cache(cfg, LM_BATCH, LM_MAX_LEN, quantize_kv=True,
@@ -4298,33 +4398,36 @@ def _serve_lm(torch, np, dev):
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, pcache = eng.prefill({"tokens": toks})
+    logits0, pcache = eng.prefill({"tokens": toks})
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     _fill_quantized(_q8, caches, pcache)
+    eager = _decode_route(torch, eager_step, logits0, LM_PROMPT, caches,
+                          LM_STEPS)
+    # the graph route from the same prefill, on a fresh cache
+    del caches
+    torch.cuda.empty_cache()
+    caches = _fill_quantized(_q8, M.init_decode_cache(
+        cfg, LM_BATCH, LM_MAX_LEN, quantize_kv=True, device=dev), pcache)
     del pcache
-    torch.cuda.synchronize()
-    steps_ms, out_toks = [], []
-    t_dec = time.perf_counter()
-    for i in range(LM_STEPS):
-        t1 = time.perf_counter()
-        nxt = logits.argmax(-1).to(torch.int32)
-        out_toks.append(nxt)
-        logits, caches = eng.decode(nxt, LM_PROMPT + i, caches)
-        torch.cuda.synchronize()
-        steps_ms.append(1e3 * (time.perf_counter() - t1))
-        if i == 0:
-            first = logits.clone()
-    decode_s = time.perf_counter() - t_dec
+    ptrs = [t.data_ptr() for seg in caches for layer in seg
+            for t in layer.values()]
+    graph = _decode_route(torch, eng.decode, logits0, LM_PROMPT, caches,
+                          LM_STEPS)
     path = _counts()
     print(f"main-path launches (f: LM serve, prefill + {LM_STEPS} decode "
-          f"steps): {path}")
-    want = {"decode_attention": cfg.n_layers * LM_STEPS}
+          f"steps eager + {LM_STEPS} from the decode graph): {path}")
+    want = {"decode_attention": cfg.n_layers * (LM_STEPS + 2)}
     for key, count in path.items():
         if count != want.get(key, 0):
             raise AssertionError(f"LM serve: {key} launched {count} times, "
                                  f"want {want.get(key, 0)}")
-    gen_toks = torch.stack(out_toks, dim=1)
+    if [t.data_ptr() for seg in caches for layer in seg
+            for t in layer.values()] != ptrs:
+        raise AssertionError("LM serve: the decode graph moved a cache")
+    _same_routes(torch, eager, graph, "LM serve")
+    gen_toks = torch.stack(eager[0], dim=1)
+    first, logits = eager[1][0], eager[1][-1]
     if not (bool(torch.isfinite(logits).all())
             and bool(torch.isfinite(first).all())):
         raise AssertionError("LM serve: logits are not finite")
@@ -4339,14 +4442,17 @@ def _serve_lm(torch, np, dev):
     agree = int((ref.argmax(-1) == first.argmax(-1)).sum())
     print(f"lm: first decode step (int8 cache) vs prefill of prompt+token: "
           f"max|diff|/max|ref| = {rel:.6f}, argmax equal in {agree}/"
-          f"{LM_BATCH} rows")
+          f"{LM_BATCH} rows; graph route equals eager bit for bit over "
+          f"{LM_STEPS} steps (tokens and logits), caches in place")
     if rel >= 0.05:
         raise AssertionError(f"int8 decode strays from the prefill: {rel}")
     print(f"lm: generated tokens (first row) {gen_toks[0].tolist()}")
-    return dict(cfg=cfg, eng=eng, caches=caches, prefill_ms=prefill_ms,
-                steps_ms=steps_ms, decode_s=decode_s, path=path, rel=rel,
-                agree=agree, n_params=n_params, cache_bytes=cache_bytes,
-                last_pos=LM_PROMPT + LM_STEPS - 1, token=gen_toks[:, -1])
+    return dict(cfg=cfg, eng=eng, eager_step=eager_step, caches=caches,
+                prefill_ms=prefill_ms, steps_ms=eager[2], decode_s=eager[3],
+                graph_steps_ms=graph[2], graph_decode_s=graph[3], path=path,
+                rel=rel, agree=agree, n_params=n_params,
+                cache_bytes=cache_bytes, last_pos=LM_PROMPT + LM_STEPS - 1,
+                token=gen_toks[:, -1])
 
 
 def _served_args(torch, dev, lm, layer, seed):
@@ -4426,6 +4532,10 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
     n_layers = lm["cfg"].n_layers
     step_ms = statistics.median(lm["steps_ms"])
     tok_s = LM_BATCH * LM_STEPS / lm["decode_s"]
+    graph_step_ms = statistics.median(lm["graph_steps_ms"][1:])
+    graph_tok_s = LM_BATCH * LM_STEPS / lm["graph_decode_s"]
+    replay_ms = _median_ms(torch, lm["eng"]._decode_graph[1].replay,
+                           reps=10)
     print(f"time decode_attention (B8, served cache layer 0, B={b} S={s} "
           f"G={g} M={m} hd={hd}): kernel {ms:.5f} ms (graph of 50), "
           f"{ms_eager:.5f} ms (eager call); plain {plain_ms:.5f} ms (graph "
@@ -4440,7 +4550,11 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
           f"{LM_PROMPT} tokens {lm['prefill_ms']:.2f} ms; decode step "
           f"(eager, host clock to sync) median {step_ms:.3f} ms, min "
           f"{min(lm['steps_ms']):.3f}, first {lm['steps_ms'][0]:.3f}; "
-          f"{tok_s:.1f} tokens/s over {LM_STEPS} steps; B8 "
+          f"{tok_s:.1f} tokens/s over {LM_STEPS} steps; from the decode "
+          f"graph (host clock to sync, replays) median {graph_step_ms:.3f} "
+          f"ms, first (warm-up + capture) {lm['graph_steps_ms'][0]:.3f} ms, "
+          f"{graph_tok_s:.1f} tokens/s over {LM_STEPS} steps, replay alone "
+          f"{replay_ms:.3f} ms (CUDA events); B8 "
           f"{n_layers} x {ms:.5f} ms = {n_layers * ms:.3f} ms, "
           f"{100 * n_layers * ms / step_ms:.1f}% of a step; weights "
           f"{4 * lm['n_params'] / 1e9:.2f} GB at 3.35 TB/s = "
@@ -4457,7 +4571,278 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
                       "live": int(valid[0].sum())},
             "split": {"n_split": plan["n_split"], "chunk": plan["chunk"],
                       "grid": list(plan["grid"]), "kd": plan["kd"]},
-            "danube": danube}
+            "danube": danube,
+            "decode_step_ms": {"eager": step_ms, "graph": graph_step_ms,
+                               "graph_replay": replay_ms},
+            "tokens_per_s": {"eager": tok_s, "graph": graph_tok_s}}
+
+
+# -- phase 4n: the other six LM families through ServeEngine -------------------
+
+# (arch, layers served or None for all); one 80 GB card holds each with f32
+# weights: arctic at 1 of its 35 layers (56.3 GB; 2 layers are 110.7 GB),
+# deepseek at its 3 dense-prefix layers and 1 MoE layer of 61, without the
+# MTP head (60.4 GB; the MTP layer, itself MoE, is read by training only)
+LM_FAMILIES = (("recurrentgemma-2b", None), ("xlstm-1.3b", None),
+               ("whisper-base", None), ("phi-3-vision-4.2b", None),
+               ("arctic-480b", 1), ("deepseek-v3-671b", 4))
+FAMILY_MAX_LEN = 2048       # recurrentgemma's local window: its ring is full
+
+
+def _family_cfg(name, depth):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth, mtp=False)
+    return cfg
+
+
+def _int8_layer(caches):
+    """The first int8 GQA cache of a decode cache tree, its first layer
+    where the layers are stacked."""
+    todo = [caches]
+    while todo:
+        node = todo.pop(0)
+        if isinstance(node, dict) and "k_scale" in node:
+            return {k: (v[0] if node["k"].dim() == 5 else v)
+                    for k, v in node.items()}
+        if isinstance(node, dict):
+            todo += list(node.values())
+        elif isinstance(node, (list, tuple)):
+            todo += list(node)
+    return None
+
+
+def _time_b8_served(torch, da, args, label, smi):
+    """B8 on a served cache's layer: kernel (graph of 50), plain (graph of
+    10), ``scaled_dot_product_attention(enable_gqa=True)`` on the cache
+    dequantized beforehand (graph of 10), and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.models.attention import _inv_sqrt
+    q, kq, ks, vq, vs, valid = args
+    b, s, g, hd = kq.shape
+    m = q.shape[2]
+    scale = _inv_sqrt(hd)
+    ms = _graph_ms(torch, lambda: da.decode_attention_int8(*args,
+                                                            scale=scale))
+    plain_ms = _graph_ms(torch, lambda: da.decode_attention_int8_ref(
+        *args, scale=scale), inner=10)
+    kd = (kq.to(torch.float32) * ks).permute(0, 2, 1, 3).contiguous()
+    vd = (vq.to(torch.float32) * vs).permute(0, 2, 1, 3).contiguous()
+    qh = q.reshape(b, g * m, 1, hd)
+    mask = (valid > 0.5)[:, None, None, :]
+    library_ms = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True), inner=10)
+    bound_ms, bound_by, n_bytes, ops = _b8_bound(valid, b, s, g, m, hd)
+    plan = da.plan_for(q, kq, vq)
+    print(f"time decode_attention (B8, {label} served cache layer 0, B={b} "
+          f"S={s} G={g} M={m} hd={hd}, live={int(valid[0].sum())}): kernel "
+          f"{ms:.5f} ms (graph of 50); plain {plain_ms:.5f} ms (graph of "
+          f"10); library sdpa(enable_gqa) on the dequantized cache "
+          f"{library_ms:.5f} ms (graph of 10); bound {bound_ms:.6f} ms "
+          f"({bound_by}: {n_bytes} B, {ops} flops); split n_split="
+          f"{plan['n_split']} grid={plan['grid']} m_group={plan['m_group']} "
+          f"kd={plan['kd']} on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "shape": {"B": b, "S": s, "G": g, "M": m, "hd": hd},
+            "split": {"n_split": plan["n_split"], "grid": list(plan["grid"]),
+                      "m_group": plan["m_group"], "kd": plan["kd"]}}
+
+
+def _serve_lm_families(torch, np, dev, da, smi):
+    """Phase 4n: each family of ``LM_FAMILIES`` in turn, freed before the
+    next (``_serve_lm_family``). -> the rows phase 5 prints, and B8's
+    launches on their paths."""
+    import gc
+    rows, launches = [], 0
+    for name, depth in LM_FAMILIES:
+        row = _serve_lm_family(torch, np, dev, da, smi, name, depth)
+        launches += row["launches"]
+        rows.append(row)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"rows": rows, "launches": launches}
+
+
+def _serve_lm_family(torch, np, dev, da, smi, name, depth):
+    """One family at its published widths (``_family_cfg``; f32 params from
+    ``init_model`` on the card, seeded), served by ``ServeEngine`` as phase
+    4f serves Qwen3-4B: a prefill of 8 x 256 seeded tokens (whisper's
+    encoder over 8 x 1500 seeded frames, phi-3's frontend over 8 x 576
+    seeded patch embeddings first), its cache placed into a decode cache of
+    ``FAMILY_MAX_LEN`` slots (int8 K/V wherever there are GQA layers;
+    f32 latents and recurrent states), 16 greedy steps eagerly, then 16
+    from the decode graph on a fresh cache from the same prefill: the same
+    tokens and logits bit for bit, the caches in place. The counts are set
+    to 0 just before the prefill and read after the last step: B8 launches
+    once a GQA layer per eager step and at the graph's warm-up and capture,
+    nothing else launches. Then the first step against a prefill of prompt
+    + token (max|diff| / max|ref| < 0.05, as phase 4f; for MoE a prefill
+    that drops no unit: row by row, every expert with room for the whole
+    row), B8 against its plain version on the served int8 cache, and the
+    times. -> a row."""
+    import dataclasses
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _q8
+    from repro_torch.models.transformer import _layer_spec, tree_leaves
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = _family_cfg(name, depth)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = M.count_params(params)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)).to(dev)}
+    front = (LM_BATCH, cfg.n_frontend_tokens, cfg.frontend_dim)
+    n_front = 0
+    if cfg.encdec:
+        batch["frames"] = torch.from_numpy(0.1 * rng.standard_normal(
+            front, dtype=np.float32)).to(dev)
+    if cfg.frontend == "image_patches":
+        batch["patch_embeds"] = torch.from_numpy(0.1 * rng.standard_normal(
+            front, dtype=np.float32)).to(dev)
+        n_front = cfg.n_frontend_tokens
+    n_gqa = 0 if cfg.encdec else sum(
+        _layer_spec(cfg, i)[0] in ("attn", "local_attn")
+        for i in range(cfg.n_layers))
+    quant = n_gqa > 0
+
+    def fresh():
+        return M.init_decode_cache(cfg, LM_BATCH, FAMILY_MAX_LEN,
+                                   dtype=torch.float32, quantize_kv=quant,
+                                   device=dev)
+
+    eng = ServeEngine(cfg, params, batch=LM_BATCH, max_len=FAMILY_MAX_LEN)
+
+    def eager_step(token, pos, caches):
+        return M.decode_step(params, cfg, token, pos, caches)
+
+    caches = fresh()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(caches))
+    print(f"lm[{name}]: layers={cfg.n_layers}"
+          f"{'' if depth is None else ' (cut)'} d_model={cfg.d_model} "
+          f"heads={cfg.n_heads}/{cfg.n_kv_heads} blocks={cfg.block_pattern} "
+          f"vocab={cfg.vocab_size} params={n_params} "
+          f"({4 * n_params / 1e9:.2f} GB f32), init {init_s:.2f} s; decode "
+          f"cache {'int8' if quant else 'f32'} batch={LM_BATCH} slots="
+          f"{FAMILY_MAX_LEN}: {cache_bytes / 1e9:.3f} GB; front={n_front}")
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits0, pcache = eng.prefill(batch)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    _fill_quantized(_q8, caches, pcache)
+    pos0 = LM_PROMPT + n_front
+    eager = _decode_route(torch, eager_step, logits0, pos0, caches,
+                          LM_STEPS)
+    del caches
+    torch.cuda.empty_cache()
+    caches = _fill_quantized(_q8, fresh(), pcache)
+    del pcache
+    ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+    graph = _decode_route(torch, eng.decode, logits0, pos0, caches,
+                          LM_STEPS)
+    path = _counts()
+    print(f"main-path launches (n: {name}, prefill + {LM_STEPS} decode steps "
+          f"eager + {LM_STEPS} from the decode graph): {path}")
+    want = {"decode_attention": n_gqa * (LM_STEPS + 2)}
+    for key, count in path.items():
+        if count != want.get(key, 0):
+            raise AssertionError(f"{name}: {key} launched {count} times, "
+                                 f"want {want.get(key, 0)}")
+    if [t.data_ptr() for t in tree_leaves(caches)] != ptrs:
+        raise AssertionError(f"{name}: the decode graph moved a cache")
+    _same_routes(torch, eager, graph, name)
+    gen_toks = torch.stack(eager[0], dim=1)
+    first = eager[1][0]
+    for lg in (first, eager[1][-1]):
+        if lg.shape != (LM_BATCH, cfg.vocab_size) \
+                or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name}: logits {tuple(lg.shape)} not "
+                                 f"finite or not (B, V)")
+    if int(gen_toks.min()) < 0 or int(gen_toks.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{name}: a token outside the vocabulary")
+    full = dict(batch, tokens=torch.cat([batch["tokens"], gen_toks[:, :1]],
+                                        1))
+    if cfg.moe is None:
+        ref, _ = M.prefill(params, cfg, full)
+    else:
+        # a decode step at B=8 drops no MoE unit (an expert takes at most
+        # one unit a token, and its capacity is 8 at least); a prefill of
+        # 8 x 257 tokens at the configured factor drops the units past an
+        # expert's capacity (the reference's semantics: its own
+        # prefill-to-decode test allows 0.05 for MoE). So the decode is
+        # held to a prefill that drops nothing: row by row, at a factor
+        # that gives every expert room for all 257 tokens of the row
+        m = cfg.moe
+        ref_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=1.01 * m.n_experts / m.top_k))
+        ref = torch.cat([M.prefill(params, ref_cfg, {
+            k: v[r:r + 1] for k, v in full.items()})[0]
+            for r in range(LM_BATCH)])
+    rel = float((ref - first).abs().max() / ref.abs().max())
+    agree = int((ref.argmax(-1) == first.argmax(-1)).sum())
+    del ref
+    print(f"lm[{name}]: first decode step vs prefill of prompt+token: "
+          f"max|diff|/max|ref| = {rel:.6f}, argmax equal in {agree}/"
+          f"{LM_BATCH} rows; graph route equals eager bit for bit over "
+          f"{LM_STEPS} steps (tokens and logits), caches in place; tokens "
+          f"(first row) {gen_toks[0].tolist()}")
+    if rel >= 0.05:
+        raise AssertionError(f"{name}: decode strays from the prefill: {rel}")
+
+    b8 = None
+    layer = _int8_layer(caches)
+    if layer is not None:
+        b, s_, g, hd = layer["k"].shape
+        last = pos0 + LM_STEPS - 1
+        live = ((layer["pos"] >= 0) & (layer["pos"] <= last)).to(
+            torch.float32)[None].expand(b, s_)
+        q = torch.randn((b, g, cfg.n_heads // g, hd),
+                        generator=torch.Generator(device=dev).manual_seed(3),
+                        device=dev)
+        args = [q, layer["k"], layer["k_scale"], layer["v"],
+                layer["v_scale"], live]
+        err = _check_b8(torch, da, f"served_cache[{name}]", args,
+                        f"B={b} S={s_} G={g} M={q.shape[2]} hd={hd}")
+        b8 = dict(_time_b8_served(torch, da, args, name, smi),
+                  max_abs_err=err)
+    step_ms = statistics.median(eager[2])
+    graph_step_ms = statistics.median(graph[2][1:])
+    replay_ms = _median_ms(torch, eng._decode_graph[1].replay, reps=10)
+    row = {"arch": name, "layers": cfg.n_layers, "params": n_params,
+           "cache": "int8" if quant else "f32", "cache_bytes": cache_bytes,
+           "prefill_ms": prefill_ms, "decode_step_ms": {
+               "eager": step_ms, "graph": graph_step_ms,
+               "graph_first": graph[2][0], "graph_replay": replay_ms},
+           "tokens_per_s": {"eager": LM_BATCH * LM_STEPS / eager[3],
+                            "graph": LM_BATCH * LM_STEPS / graph[3]},
+           "rel_vs_prefill": rel, "argmax_agree": agree,
+           "launches": path["decode_attention"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "b8": b8}
+    print(f"time lm[{name}, f32, batch {LM_BATCH}]: prefill of "
+          f"{LM_PROMPT} tokens (+{cfg.n_frontend_tokens} frontend) "
+          f"{prefill_ms:.2f} ms; decode step eager (host clock to sync) "
+          f"median {step_ms:.3f} ms, from the graph {graph_step_ms:.3f} ms "
+          f"(first, warm-up + capture, {graph[2][0]:.3f} ms; replay alone "
+          f"{replay_ms:.3f} ms by CUDA events); "
+          f"{row['tokens_per_s']['eager']:.1f} tokens/s eager, "
+          f"{row['tokens_per_s']['graph']:.1f} from the graph; weights "
+          f"{4 * n_params / 1e9:.2f} GB at 3.35 TB/s = "
+          f"{1e3 * 4 * n_params / HBM_BYTES_PER_S:.3f} ms a step; peak "
+          f"memory {row['peak_gb']:.2f} GB on {smi}")
+    del eng, eager_step, params, caches, eager, graph, logits0
+    return row
 
 
 def _b8_bound(valid, b, s, g, m, hd):
@@ -4496,20 +4881,21 @@ def _time_b8_danube(torch, np, dev, da, smi):
             "bound_by": bound_by, "n_split": plan["n_split"]}
 
 
-def _profile_decode(torch, lm, smi):
+def _profile_decode(torch, lm, smi, route="eager"):
     """Where one decode step's device time goes: two more steps under
-    ``torch.profiler`` (after the counted run), kernels summed by name."""
+    ``torch.profiler`` (after the counted run), kernels summed by name,
+    eager ``decode_step`` or from the engine's decode graph (``route``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng, caches = lm["eng"], lm["caches"]
+    step = lm["eager_step"] if route == "eager" else lm["eng"].decode
+    caches = lm["caches"]
     token = lm["token"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(2):
-            logits, caches = eng.decode(token, lm["last_pos"] + 1 + i,
-                                        caches)
+            logits, caches = step(token, lm["last_pos"] + 1 + i, caches)
             token = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
@@ -4520,8 +4906,8 @@ def _profile_decode(torch, lm, smi):
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    print(f"profile lm decode (2 steps): kernels {busy:.3f} ms of device "
-          f"time in {wall_ms:.3f} ms wall (idle share "
+    print(f"profile lm decode ({route}, 2 steps): kernels {busy:.3f} ms of "
+          f"device time in {wall_ms:.3f} ms wall (idle share "
           f"{100 * (1 - busy / wall_ms):.1f}%, profiler on) on {smi}")
     for key, dev_ms, count in rows[:10]:
         print(f"  {dev_ms / 2:9.3f} ms a step ({100 * dev_ms / busy:5.1f}%) "

@@ -9,9 +9,12 @@ and the eviction fill, held bit for bit against their plain PyTorch
 versions; and the int8-KV decode attention B8, held to rtol 2e-4 /
 atol 2e-5), built with ``nvcc`` at first use.
 
-The LM side serves the dense GQA decoders (``models/``, ``configs/``,
-``serving/engine.py``): prefill, then decode over a float or int8 KV cache
-whose attention core is B8 on the card; ``launch.serve --backend lm``
+The LM side serves every config of the registry (``models/``,
+``configs/``, ``serving/engine.py``): dense and MoE GQA decoders, MLA, the
+recurrent blocks, Whisper's encoder-decoder and the image-patch frontend;
+prefill, then decode (on the card one CUDA graph a step) over caches
+written in place, an int8 KV cache's attention core B8; ``launch.serve
+--backend lm``
 puts a smoke-size qwen3-4b behind the switch. ``launch.serve --use-case
 finance`` serves the paper's second use case, and
 ``examples.finance_lowlatency`` parses its switch features from CSV

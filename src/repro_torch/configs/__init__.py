@@ -2,9 +2,7 @@
 
 Each module holds CONFIG (the exact published numbers) and smoke()
 (a reduced same-family config for CPU tests). The port keeps its own copy
-of ``repro.configs`` (data only), so the registry resolves every id; the
-model code serves the dense GQA ids (qwen3-4b, yi-6b, qwen2.5-32b,
-h2o-danube-1.8b) and raises ``NotImplementedError`` for the others.
+of ``repro.configs`` (data only); the model code serves every id.
 """
 
 from __future__ import annotations

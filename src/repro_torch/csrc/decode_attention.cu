@@ -4,7 +4,7 @@
 // _decode_attn_kernel (pallas_call at :77). One decode step of a GQA layer
 // over an int8 KV cache with per-(slot, head) f32 scales:
 //
-//   q (B, G, M, hd) f32            M = query heads per kv head
+//   q (B, G, M, hd) f32            M = query heads per kv head (any M)
 //   k_q, v_q (B, S, G, hd) int8    k_s, v_s (B, S, G, 1) f32
 //   valid (B, S) f32               1.0 = live slot of the ring cache
 //   out[b,g,m,:] = softmax_s(where(valid > .5, q.k_s * scale, -1e30)) @ v
@@ -20,18 +20,26 @@
 // behind: 537 M int8 values to turn into f32 and 2.1 G multiply-adds.
 //
 // Design: split S across CTAs (flash-decoding), then combine.
-//   - Grid (n_split, head groups, B). A CTA takes one chunk of slots of one
-//     batch row and every kv head (all G of them where G * lanes-per-head
-//     fits 256 threads; else the heads split over blockIdx.y). A slot's
+//   - Grid (n_split, head groups, B x query groups). A CTA takes one chunk
+//     of slots of one batch row and every kv head (all G of them where
+//     G * lanes-per-head fits 256 threads; else the heads split over
+//     blockIdx.y), for one group of at most 8 of the M query heads a kv
+//     head serves: a thread keeps a q row and an accumulator of KD floats
+//     per query head of its group, so the register budget is that of
+//     M <= 8 whatever M is. M > 8 splits into ceil(M / 8) equal groups
+//     (the last one short where 8 does not divide M: its missing heads
+//     hold q = 0 and write nothing); each group's CTA reads the same K/V
+//     rows, which its sibling has just brought into L2. A slot's
 //     G x hd int8 row and its G scales lie contiguous in the cache, so the
 //     CTA reads whole rows and whole scale sectors. The wrapper picks
 //     n_split from B, G, S and the SM count so that the grid fills the card
 //     (a chunk is a multiple of one sweep of the CTA's rows).
 //   - A group of lanes owns one (slot, head): hd/KD lanes hold KD dims each
 //     (KD = 16: one 16-byte load of K and of V; 8 where the cache's rows
-//     are only 8-byte aligned, or M > 4 leaves too few registers). The
-//     group is that count rounded up to a power of two, so its shuffles
-//     stay inside a warp; lanes past hd/KD hold zeros. The CTA's 256
+//     are only 8-byte aligned, or a group of more than 4 query heads
+//     leaves too few registers). The group is that count rounded up to
+//     a power of two, so its shuffles stay inside a warp; lanes past
+//     hd/KD hold zeros. The CTA's 256
 //     threads make rows of (head, lane) groups; each row walks its own
 //     slots of the chunk.
 //   - Loads in flight: each thread copies the bytes it will read itself
@@ -174,10 +182,12 @@ struct Args {
   const int8_t* vq;
   const float* vs;
   const float* valid;
-  float* out;       // (B, G, M, hd), written when n_split == 1
-  float* part_acc;  // (B, n_split, G, M, hd)
-  float* part_ml;   // (B, n_split, G, M, 2): the chunk's max and sum
+  float* out;       // (B, G, Mt, hd), written when n_split == 1
+  float* part_acc;  // (B, n_split, G, Mt, hd)
+  float* part_ml;   // (B, n_split, G, Mt, 2): the chunk's max and sum
   int S, G, hd, chunk, n_split;
+  int Mt, mgroups;  // query heads per kv head, and the groups of M they
+                    // split into (blockIdx.z = b * mgroups + group)
   Strides skq, sks, svq, svs;
   long long val_b, val_s;
   float scale;
@@ -197,7 +207,9 @@ decode_attention_split(Args a) {
 
   const Geom gm = geom(a.G, a.hd, KD);
   const int c = blockIdx.x;
-  const int b = blockIdx.z;
+  const int b = blockIdx.z / a.mgroups;
+  const int m0 = (blockIdx.z - b * a.mgroups) * M;   // the group's first head
+  const int mn = min(M, a.Mt - m0);                  // its heads that exist
   const int t = threadIdx.x;
   const int unit = t % (gm.hpc * gm.lps);
   const int row = t / (gm.hpc * gm.lps);
@@ -217,12 +229,13 @@ decode_attention_split(Args a) {
 
   float qr[M][KD];
   {
-    const float* qb = a.q + ((long long)b * a.G + (holds ? g : 0)) * M * a.hd
-                      + d0;
+    const float* qb = a.q + (((long long)b * a.G + (holds ? g : 0)) * a.Mt
+                             + m0) * a.hd + d0;
 #pragma unroll
     for (int m = 0; m < M; ++m)
 #pragma unroll
-      for (int j = 0; j < KD; ++j) qr[m][j] = holds ? qb[m * a.hd + j] : 0.f;
+      for (int j = 0; j < KD; ++j)
+        qr[m][j] = holds && m < mn ? qb[m * a.hd + j] : 0.f;
   }
   float m_run[M], l_run[M], acc[M][KD];
 #pragma unroll
@@ -395,9 +408,9 @@ decode_attention_split(Args a) {
              * ml_s[((r * gm.hpc + h) * M + m) * 2 + 1];
     gd_s[idx * 2] = gmax;
     gd_s[idx * 2 + 1] = den;
-    if (!final_out) {
+    if (!final_out && m < mn) {
       const long long o = (((long long)b * a.n_split + c) * a.G
-                           + blockIdx.y * gm.hpc + h) * M + m;
+                           + blockIdx.y * gm.hpc + h) * a.Mt + m0 + m;
       a.part_ml[o * 2] = gmax;
       a.part_ml[o * 2 + 1] = den;
     }
@@ -415,13 +428,14 @@ decode_attention_split(Args a) {
         red[row * width + hl * a.hd + d0 + j] = w * acc[m][j];
     }
     __syncthreads();
-    for (int i = t; i < heads * a.hd; i += kThreads) {
+    for (int i = t; i < (m < mn ? heads * a.hd : 0); i += kThreads) {
       const int h = i / a.hd, d = i - h * a.hd;
       float sum = 0.f;
       for (int r = 0; r < gm.rows; ++r) sum += red[r * width + i];
       const long long o = ((((long long)b * (final_out ? 1 : a.n_split)
                              + (final_out ? 0 : c)) * a.G
-                            + blockIdx.y * gm.hpc + h) * M + m) * a.hd + d;
+                            + blockIdx.y * gm.hpc + h) * a.Mt + m0 + m)
+                          * a.hd + d;
       if (final_out)
         a.out[o] = sum / fmaxf(gd_s[(h * M + m) * 2 + 1], 1e-30f);
       else
@@ -510,12 +524,13 @@ int launch_mk(const Args& a, int B, cudaStream_t stream) {
     }
     opted_in[device] = true;
   }
-  kernel<<<dim3(a.n_split, gm.hgroups, B), kThreads, smem, stream>>>(a);
+  kernel<<<dim3(a.n_split, gm.hgroups, B * a.mgroups), kThreads, smem,
+           stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return (int)e;
-  decode_attention_combine<<<(unsigned)(B * a.G * M), kCombineThreads,
+  decode_attention_combine<<<(unsigned)(B * a.G * a.Mt), kCombineThreads,
                              sizeof(float) * (a.n_split + 1), stream>>>(
-      a.part_acc, a.part_ml, a.out, a.n_split, a.G, M, a.hd);
+      a.part_acc, a.part_ml, a.out, a.n_split, a.G, a.Mt, a.hd);
   return (int)cudaGetLastError();
 }
 
@@ -523,18 +538,24 @@ int launch_mk(const Args& a, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// kd: dims per lane (16: 16-byte loads, M <= 4; 8: 8-byte loads); chunk:
-// slots per CTA; n_split: chunks per batch row (ceil(S / chunk)); part:
-// scratch of B * n_split * G * M * (hd + 2) f32 (unused when n_split == 1)
+// M: query heads per kv head; m_group: heads a CTA takes (1 to 8; M splits
+// into ceil(M / m_group) groups); kd: dims per lane (16: 16-byte loads,
+// m_group <= 4; 8: 8-byte loads); chunk: slots per CTA; n_split: chunks per
+// batch row (ceil(S / chunk)); part: scratch of B * n_split * G * M *
+// (hd + 2) f32 (unused when n_split == 1)
 int decode_attention_launch(const void* q, const void* kq, const void* ks,
                             const void* vq, const void* vs, const void* valid,
                             void* out, void* part, int B, int S, int G, int M,
-                            int hd, int kq_sb, int kq_ss, int kq_sg,
+                            int m_group, int hd, int kq_sb, int kq_ss, int kq_sg,
                             int ks_sb, int ks_ss, int ks_sg, int vq_sb,
                             int vq_ss, int vq_sg, int vs_sb, int vs_ss,
                             int vs_sg, int val_sb, int val_ss, int scale_bits,
                             int kd, int chunk, int n_split, void* stream) {
   if (B <= 0 || G <= 0) return 0;
+  if (M < 1 || m_group < 1 || m_group > 8 || (kd == 16 && m_group > 4))
+    return (int)cudaErrorInvalidValue;
+  const int mgroups = (M + m_group - 1) / m_group;
+  if ((long long)B * mgroups > 65535) return (int)cudaErrorInvalidValue;
   if (S <= 0 || (kd != 8 && kd != 16) || hd % kd != 0 || hd / kd < 1 ||
       hd / kd > 32 || chunk < 1 || n_split < 1 || n_split > 8192 ||
       (long long)(n_split - 1) * chunk >= S ||
@@ -556,6 +577,8 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
   a.hd = hd;
   a.chunk = chunk;
   a.n_split = n_split;
+  a.Mt = M;
+  a.mgroups = mgroups;
   a.skq = Strides{kq_sb, kq_ss, kq_sg};
   a.sks = Strides{ks_sb, ks_ss, ks_sg};
   a.svq = Strides{vq_sb, vq_ss, vq_sg};
@@ -565,7 +588,7 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
   memcpy(&a.scale, &scale_bits, sizeof(float));
   const cudaStream_t st = (cudaStream_t)stream;
   if (kd == 16) {
-    switch (M) {
+    switch (m_group) {
       case 1: return launch_mk<1, 16>(a, B, st);
       case 2: return launch_mk<2, 16>(a, B, st);
       case 3: return launch_mk<3, 16>(a, B, st);
@@ -573,7 +596,7 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
       default: return (int)cudaErrorInvalidValue;
     }
   }
-  switch (M) {
+  switch (m_group) {
     case 1: return launch_mk<1, 8>(a, B, st);
     case 2: return launch_mk<2, 8>(a, B, st);
     case 3: return launch_mk<3, 8>(a, B, st);

@@ -1,9 +1,12 @@
-"""Backend model substrate: the dense GQA decoder stack in PyTorch.
+"""Backend model substrate: every LM family of the registry in PyTorch
+(dense and MoE GQA decoders, MLA, the recurrent blocks, Whisper's
+encoder-decoder, the image-patch frontend).
 
-Pure-function style, as the reference: params are trees (dicts and lists)
-of tensors, every forward is a function of (params, batch). The decode
-step writes into its caches in place; over an int8 cache its attention
-core is the B8 kernel on the card.
+Pure-function style, as the reference: params are trees (dicts, lists and
+tuples) of tensors, every forward is a function of (params, batch). The
+decode step writes into its caches in place at a position held on the
+device; over an int8 cache its attention core is the B8 kernel on the
+card.
 """
 
 from repro_torch.models.config import ArchConfig, MLAConfig, MoEConfig

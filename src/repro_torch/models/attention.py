@@ -1,15 +1,17 @@
-"""GQA attention (+qk-norm, +bias, +sliding window), blockwise "flash"
-attention for long prefill, and the decode step over a float or int8 KV
-cache.
+"""Attention variants: GQA (+qk-norm, +bias, +sliding window), blockwise
+"flash" attention for long prefill, MLA (DeepSeek latent attention) with a
+naive and an *absorbed* decode path, and cross-attention for enc-dec.
 
-Port of the GQA part of ``repro/models/attention.py``. Shapes: hidden
-(B, S, D); per-head tensors (B, S, H, hd). The decode step updates the
-cache dict IN PLACE (the reference's caches are functional and its engine
-donates them; copying a 20 GB cache per step is not an option) and returns
-it. Over an int8 cache the attention core runs through the B8 kernel
-(``kernels.ops.decode_attention_int8``) on the card. MLA and
-cross-attention wait for their slices; ``hint_batch_heads`` (a sharding
-hint, a no-op without a mesh) is dropped.
+Port of ``repro/models/attention.py``. Shapes: hidden (B, S, D); per-head
+tensors (B, S, H, hd). A decode step updates its cache dict IN PLACE (the
+reference's caches are functional and its engine donates them; copying a
+20 GB cache per step is not an option) and returns it. Its position is a
+0-dim device tensor (``layers.as_position``): the slot, the cache writes
+(``index_copy_`` at a device index), the cache's positions and the live
+mask are computed on the device, so the step has no host sync and a CUDA
+graph can replay it. Over an int8 cache the attention core runs through
+the B8 kernel (``kernels.ops.decode_attention_int8``) on the card.
+``hint_batch_heads`` (a sharding hint, a no-op without a mesh) is dropped.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import torch
 
 from repro_torch.device import true_div
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init, rmsnorm
+from repro_torch.models.layers import (apply_rope, as_position, dense_init,
+                                       rmsnorm)
 
 F32 = torch.float32
 MASKED = -1e30          # the reference's masked score
@@ -52,6 +55,30 @@ def gqa_params(gen, cfg, *, device, lead=()):
         p["q_norm"] = torch.ones(lead + (hd,), dtype=F32, device=device)
         p["k_norm"] = torch.ones(lead + (hd,), dtype=F32, device=device)
     return p
+
+
+def mla_params(gen, cfg, *, device, lead=()):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    kw = dict(device=device, lead=lead)
+    lead = tuple(lead)
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), **kw),
+        "q_norm": torch.ones(lead + (m.q_lora_rank,), dtype=F32,
+                             device=device),
+        "wq_b": dense_init(gen, (m.q_lora_rank,
+                                 h * (m.qk_nope_dim + m.qk_rope_dim)), **kw),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_dim), **kw),
+        "kv_norm": torch.ones(lead + (m.kv_lora_rank,), dtype=F32,
+                              device=device),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank,
+                                  h * (m.qk_nope_dim + m.v_head_dim)), **kw),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), **kw),
+    }
+
+
+def cross_attn_params(gen, cfg, *, device, lead=()):
+    return gqa_params(gen, cfg, device=device, lead=lead)
 
 
 # ---------------------------------------------------------------------------
@@ -223,28 +250,28 @@ def _q8(v):
     return torch.round(vf / s).to(torch.int8), s
 
 
-def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
-    """x (B, 1, D), pos an int. Writes the new K/V into ``cache`` in place
-    and returns (out (B,1,D), cache)."""
+def gqa_decode(p, cfg, x, pos, cache, *, window=None):
+    """x (B, 1, D), pos a 0-dim device tensor (or an int). Writes the new
+    K/V into ``cache`` in place and returns (out (B,1,D), cache)."""
     b = x.shape[0]
-    pos = int(pos)
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    pos = as_position(pos, x.device)
+    positions = pos.expand(b, 1)
     q, k, v = _project_qkv(p, cfg, x, positions)
     size = cache["k"].shape[1]
-    slot = pos % size if window else pos
+    slot = (pos % size if window else pos).reshape(1)
     quantized = "k_scale" in cache
     if quantized:
         k_q, k_s = _q8(k)
         v_q, v_s = _q8(v)
-        cache["k"][:, slot] = k_q[:, 0]
-        cache["v"][:, slot] = v_q[:, 0]
-        cache["k_scale"][:, slot] = k_s[:, 0]
-        cache["v_scale"][:, slot] = v_s[:, 0]
+        cache["k"].index_copy_(1, slot, k_q)
+        cache["v"].index_copy_(1, slot, v_q)
+        cache["k_scale"].index_copy_(1, slot, k_s)
+        cache["v_scale"].index_copy_(1, slot, v_s)
     else:
-        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
     cpos = cache["pos"]
-    cpos[slot] = pos
+    cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
     valid = (cpos >= 0) & (cpos <= pos)
     if window is not None:
         valid = valid & (pos - cpos < window)
@@ -265,3 +292,135 @@ def gqa_decode(p, cfg, x, pos: int, cache, *, window=None):
         out = torch.einsum("bgmk,bkgd->bgmd", w, v_eff)
     out = out.reshape(b, 1, h * hd).to(x.dtype) @ p["wo"]
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2/V3 latent attention)
+# ---------------------------------------------------------------------------
+
+def _mla_q(p, cfg, x, positions):
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
+    q = q.reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p, cfg, x, positions):
+    m = cfg.mla
+    kv = x @ p["wkv_a"]
+    c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(c_kv, p["kv_norm"])
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]         # shared head
+    return c_kv, k_rope
+
+
+def mla_forward(p, cfg, x, positions):
+    """Full-sequence MLA (prefill). Cache = (c_kv, k_rope).
+
+    Long sequences (S >= 2048) run blockwise, as the reference's do: q/k
+    are assembled as concat(nope, rope) per head (the shared rope key
+    broadcast across heads) and fed through ``flash_attention``, never
+    materializing the (B, H, S, S) score tensor."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
+    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+    scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    if s >= 2048:
+        qf = torch.cat([q_nope, q_rope], dim=-1)
+        kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+            b, s, h, m.qk_rope_dim)], dim=-1)
+        out = flash_attention(qf, kf, v, scale=scale)
+    else:
+        sc = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
+        sc = torch.where(causal_mask(s, s, device=x.device)[:, None], sc,
+                         MASKED)
+        w = torch.softmax(sc, dim=-1).to(v.dtype)
+        out = torch.einsum("bhqk,bkhd->bqhd", w, v)
+    out = out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+    return out, (c_kv, k_rope)
+
+
+def init_mla_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device):
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim),
+                                  dtype=dtype, device=device)}
+
+
+def mla_decode(p, cfg, x, pos, cache, *, absorb=True):
+    """Single-token MLA decode over the compressed cache, written in place.
+
+    absorb=False (naive): expand every cached latent back to per-head K/V
+    each step. absorb=True: fold W_uk into the query and W_uv into the
+    output, so the attention runs in the latent space and the cache is
+    read once."""
+    m = cfg.mla
+    b = x.shape[0]
+    h = cfg.n_heads
+    pos = as_position(pos, x.device)
+    positions = pos.expand(b, 1)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)       # (B,1,H,*)
+    c_new, r_new = _mla_ckv(p, cfg, x, positions)       # (B,1,lora),(B,1,rope)
+    ckv, krp = cache["c_kv"], cache["k_rope"]
+    slot = pos.reshape(1)
+    ckv.index_copy_(1, slot, c_new.to(ckv.dtype))
+    krp.index_copy_(1, slot, r_new.to(krp.dtype))
+    s_max = ckv.shape[1]
+    valid = torch.arange(s_max, device=x.device) <= pos
+    scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h,
+                               m.qk_nope_dim + m.v_head_dim)
+    w_uk = wkv_b[..., :m.qk_nope_dim]                   # (lora, H, nope)
+    w_uv = wkv_b[..., m.qk_nope_dim:]                   # (lora, H, v)
+    ckv_f, krp_f = ckv.to(F32), krp.to(F32)
+    if absorb:
+        q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)
+        sc = (torch.einsum("bqhl,bkl->bhqk", q_abs, ckv_f)
+              + torch.einsum("bqhr,bkr->bhqk", q_rope, krp_f)) * scale
+        sc = torch.where(valid[None, None, None, :], sc, MASKED)
+        w = torch.softmax(sc, dim=-1)
+        ctx = torch.einsum("bhqk,bkl->bqhl", w, ckv_f)  # latent ctx
+        out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)
+    else:
+        kv = torch.einsum("bkl,lhe->bkhe", ckv_f, wkv_b)
+        k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
+        sc = (torch.einsum("bqhn,bkhn->bhqk", q_nope, k_nope)
+              + torch.einsum("bqhr,bkr->bhqk", q_rope, krp_f)) * scale
+        sc = torch.where(valid[None, None, None, :], sc, MASKED)
+        w = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bhqk,bkhv->bqhv", w, v)
+    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper decoder -> encoder states)
+# ---------------------------------------------------------------------------
+
+def cross_attention(p, cfg, x, enc_kv):
+    """x (B,S,D) queries; enc_kv = (k, v) precomputed from encoder output."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    k, v = (a.to(q.dtype) for a in enc_kv)     # a bf16 cache's, promoted
+    out = _sdpa(q, k, v, None, _inv_sqrt(hd))
+    return out.reshape(b, s, -1) @ p["wo"]
+
+
+def encode_cross_kv(p, cfg, enc_out):
+    b, t, _ = enc_out.shape
+    g, hd = cfg.n_kv_heads, cfg.head_dim
+    k = (enc_out @ p["wk"]).reshape(b, t, g, hd)
+    v = (enc_out @ p["wv"]).reshape(b, t, g, hd)
+    return k, v

@@ -3,8 +3,8 @@
 Port of ``repro/models/layers.py``. Weights are drawn from an explicit
 ``torch.Generator`` on an explicit device; the draws differ from
 ``jax.random`` for the same seed, so parity with the reference goes through
-``models.model.params_from_arrays``. The whisper-only ``gelu_mlp`` and
-``sinusoidal_positions`` wait for the whisper slice.
+``models.model.params_from_arrays``. ``gelu`` is ``jax.nn.gelu``'s default,
+the tanh approximation.
 """
 
 from __future__ import annotations
@@ -63,6 +63,17 @@ def norm_params(cfg, d, *, device, lead=()):
             "b": torch.zeros(shape, dtype=F32, device=device)}
 
 
+def as_position(pos, device) -> torch.Tensor:
+    """A decode position as a 0-dim int64 tensor on ``device``: a tensor is
+    taken as it is (on its own device, no copy), an int is written there by
+    a fill, never copied from the host. The decode step computes its slot,
+    its cache writes and its mask from it on the device, so a CUDA graph
+    can replay the step at any position."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(dtype=torch.int64)
+    return torch.full((), pos, dtype=torch.int64, device=device)
+
+
 # ---------------------------------------------------------------------------
 # rotary embeddings
 # ---------------------------------------------------------------------------
@@ -97,3 +108,32 @@ def swiglu_params(gen, d_model, d_ff, *, device, lead=()):
 def swiglu(p, x):
     h = F.silu(x @ p["gate"]) * (x @ p["up"])
     return h @ p["down"]
+
+
+def gelu(x):
+    """``jax.nn.gelu`` (approximate=True by default): the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp_params(gen, d_model, d_ff, *, device, lead=()):
+    lead = tuple(lead)
+    return {"up": dense_init(gen, (d_model, d_ff), device=device, lead=lead),
+            "up_b": torch.zeros(lead + (d_ff,), dtype=F32, device=device),
+            "down": dense_init(gen, (d_ff, d_model), device=device,
+                               lead=lead),
+            "down_b": torch.zeros(lead + (d_model,), dtype=F32,
+                                  device=device)}
+
+
+def gelu_mlp(p, x):
+    return gelu(x @ p["up"] + p["up_b"]) @ p["down"] + p["down_b"]
+
+
+def sinusoidal_positions(n_pos, dim, device=None):
+    """(n_pos, dim) f32: sines then cosines of pos / 10000^(2i/dim), made in
+    float64 numpy and rounded once, as the reference makes them."""
+    pos = np.arange(n_pos)[:, None]
+    i = np.arange(dim // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / dim)
+    out = np.concatenate([np.sin(angle), np.cos(angle)], axis=1)
+    return torch.from_numpy(out.astype(np.float32)).to(device)

@@ -1,13 +1,14 @@
 """Model registry: one uniform (init / prefill / decode) surface over the
-decoder families the port serves.
+three backbone families (decoder-only, enc-dec, VLM decoder).
 
-Port of ``repro/models/model.py`` for the dense GQA decoders
-(``models.transformer``); enc-dec and the other families raise
-``NotImplementedError`` (ROADMAP.md, A13), and ``loss_fn`` waits for the
+Port of ``repro/models/model.py``: enc-dec configs route to
+``models.whisper``, every other to ``models.transformer``; the server
+never branches on architecture internals. ``loss_fn`` waits for the
 training slice. ``params_from_arrays`` and ``cache_from_arrays`` carry the
 reference's pytrees (numpy leaves, as ``jax.tree.map(np.asarray, tree)``
-gives them) into the port: the two packages draw different weights from
-the same seed, so parity goes through them.
+gives them; whisper's cross K/V is a tuple) into the port: the two
+packages draw different weights from the same seed, so parity goes
+through them.
 """
 
 from __future__ import annotations
@@ -19,42 +20,54 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models import whisper as whi
 from repro_torch.models.config import ArchConfig
 
 
 def init_model(cfg: ArchConfig, gen=None, *, device=None):
     """Params from ``gen`` (a ``torch.Generator`` on ``device``, or an int
     seed; None seeds 0). device=None means CUDA."""
-    if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encdec {tfm.QUEUED}")
     if isinstance(gen, int):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(gen)
+    if cfg.encdec:
+        return whi.init_params(cfg, gen, device=device)
     return tfm.init_params(cfg, gen, device=device)
 
 
 def model_param_shapes(cfg: ArchConfig):
+    """Shape tree (``torch.Size`` leaves) without allocating."""
+    if cfg.encdec:
+        return tfm.tree_map(lambda a: a.shape,
+                            whi.init_params(cfg, device="meta"))
     return tfm.param_shapes(cfg)
 
 
 def prefill(params, cfg: ArchConfig, batch):
-    """-> (last-token logits (B, V), caches)."""
+    """batch: tokens (+ frames for enc-dec, + patch_embeds for the image
+    frontend) -> (last-token logits (B, V), caches)."""
     if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encdec {tfm.QUEUED}")
-    return tfm.forward_prefill(params, cfg, batch["tokens"])
+        return whi.forward_prefill(params, cfg, batch["tokens"],
+                                   batch["frames"])
+    return tfm.forward_prefill(params, cfg, batch["tokens"],
+                               patch_embeds=batch.get("patch_embeds"))
 
 
 def decode_step(params, cfg: ArchConfig, token, pos, caches):
-    """-> (logits (B, V), caches). The caches are updated in place."""
+    """-> (logits (B, V), caches). The caches are updated in place; ``pos``
+    is a 0-dim device tensor or an int."""
     if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encdec {tfm.QUEUED}")
+        return whi.forward_decode(params, cfg, token, pos, caches)
     return tfm.forward_decode(params, cfg, token, pos, caches)
 
 
 def init_decode_cache(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
                       quantize_kv=False, *, device=None):
+    """Enc-dec caches take no int8 K/V, as the reference's take none."""
     if cfg.encdec:
-        raise NotImplementedError(f"{cfg.name}: encdec {tfm.QUEUED}")
+        return whi.init_decode_cache(cfg, batch, max_len,
+                                     cfg.n_frontend_tokens, dtype,
+                                     device=device)
     return tfm.init_decode_cache(cfg, batch, max_len, dtype,
                                  quantize_kv=quantize_kv, device=device)
 
@@ -108,9 +121,9 @@ def _to_tensor(a, dev):
 
 def params_from_arrays(cfg: ArchConfig, tree, *, device=None):
     """The reference's params (a tree of numpy arrays) as the port's tree,
-    checked against ``param_shapes(cfg)``. device=None means CUDA."""
+    checked against ``model_param_shapes(cfg)``. device=None means CUDA."""
     dev = resolve_device(device)
-    _same_structure(tfm.param_shapes(cfg), tree)
+    _same_structure(model_param_shapes(cfg), tree)
     return tfm.tree_map(lambda a: _to_tensor(a, dev), tree)
 
 

@@ -1872,7 +1872,12 @@ def _b8_check(da, args):
 # S, then M x hd at B=2, G=2
 B8_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
              (2, 700, 2, 4, 128), (2, 1000, 2, 4, 128)] + [
-    (2, 1000, 2, m, hd) for m in (1, 4, 8) for hd in (16, 64, 80, 128)]
+    (2, 1000, 2, m, hd) for m in (1, 4, 8) for hd in (16, 64, 80, 128)] + [
+    # M past 8 (query groups over the grid), and the served shapes of
+    # recurrentgemma (M=10, hd=256, its 2048-slot window), arctic (M=7)
+    # and phi-3 (M=1, hd=96)
+    (2, 1000, 1, 10, 256), (2, 1000, 2, 16, 64), (2, 1000, 2, 9, 128),
+    (8, 2048, 1, 10, 256), (8, 2048, 8, 7, 128), (8, 2048, 32, 1, 96)]
 
 
 @pytest.mark.parametrize("mask", ["all", "ring", "dead"])
@@ -1948,8 +1953,8 @@ def test_decode_attention_cuda_never_takes_plain(cuda, monkeypatch):
     torch.cuda.synchronize()
     assert da.LAUNCHES["decode_attention"] == before + 1
     torch.testing.assert_close(got, want, rtol=da.RTOL, atol=da.ATOL)
-    with pytest.raises(ValueError):                   # M = 9
-        ops.decode_attention_int8(torch.zeros(2, 2, 9, 32, device=cuda),
+    with pytest.raises(ValueError):                   # M = 0
+        ops.decode_attention_int8(torch.zeros(2, 2, 0, 32, device=cuda),
                                   *args[1:], scale=0.2)
     with pytest.raises(ValueError):                   # k_q on the CPU
         ops.decode_attention_int8(args[0], args[1].cpu(), *args[2:],
@@ -1962,16 +1967,24 @@ def test_decode_attention_cuda_never_takes_plain(cuda, monkeypatch):
 def fill_quantized(dst, src):
     """Quantize the prefill K/V through the port's _q8 into the leading
     slots of an int8 decode cache, in place (the reference's
-    tests/test_int8_kv.py helper; tests/test_torch_lm.py uses it too)."""
+    tests/test_int8_kv.py helper; tests/test_torch_lm.py and
+    tests/test_torch_archs.py use it too); every other cache leaf (a float
+    K/V, an MLA latent, a recurrent state, Whisper's cross K/V) takes the
+    prefill's values in its leading slots."""
     from repro_torch.models.attention import _q8
-    if isinstance(dst, dict):
+    from repro_torch.serving.engine import _place_prefill_into_decode
+    if isinstance(dst, dict) and "k_scale" in dst:
         for key in ("k", "v"):
             q, sc = _q8(src[key])
             dst[key][tuple(slice(0, x) for x in q.shape)] = q
             dst[key + "_scale"][tuple(slice(0, x) for x in sc.shape)] = sc
         dst["pos"][..., :src["pos"].shape[-1]] = src["pos"]
         return dst
-    return [fill_quantized(d, s) for d, s in zip(dst, src)]
+    if isinstance(dst, dict):
+        return {k: fill_quantized(dst[k], src[k]) for k in dst}
+    if isinstance(dst, (list, tuple)):
+        return type(dst)(fill_quantized(d, s) for d, s in zip(dst, src))
+    return _place_prefill_into_decode(dst, src)
 
 
 # h2o-danube's smoke config has hd=16; "hd80" widens it to its published
@@ -2009,6 +2022,74 @@ def test_int8_decode_step_on_card_equals_cpu(cuda, arch):
     ref, got = out["cpu"][0], out["cuda"][0]
     assert float((ref - got).abs().max()) <= 1e-3 * float(ref.abs().max())
     assert torch.equal(ref.argmax(-1), got.argmax(-1))
+
+
+ALL_ARCHS = ["deepseek-v3-671b", "arctic-480b", "xlstm-1.3b", "qwen3-4b",
+             "qwen2.5-32b", "h2o-danube-1.8b", "yi-6b", "whisper-base",
+             "phi-3-vision-4.2b", "recurrentgemma-2b"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_decode_graph_equals_eager_bit_for_bit(cuda, arch):
+    """Every family at smoke size: four greedy steps through the engine's
+    decode graph (the first step eager as its warm-up, then the capture,
+    then replays) against four eager ``decode_step`` calls from the same
+    prefill, on an
+    int8 cache wherever there are GQA layers: the same tokens, logits and
+    caches bit for bit, every cache tensor where it was (its
+    ``data_ptr()``), and B8 launched once per GQA layer per eager step but
+    only at the warm-up and the capture on the graph route."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import _layer_spec, tree_leaves
+    from repro_torch.serving.engine import ServeEngine
+    cfg = get_smoke_config(arch)
+    params = M.init_model(cfg, 0, device=cuda)
+    rng = np.random.default_rng(0)
+    s, steps = 10, 4
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, s)).astype(np.int32)).to(cuda)}
+    front = (2, cfg.n_frontend_tokens, cfg.frontend_dim)
+    if cfg.encdec:
+        batch["frames"] = torch.from_numpy(
+            0.1 * rng.standard_normal(front).astype(np.float32)).to(cuda)
+    n_front = 0
+    if cfg.frontend == "image_patches":
+        batch["patch_embeds"] = torch.from_numpy(
+            0.1 * rng.standard_normal(front).astype(np.float32)).to(cuda)
+        n_front = cfg.n_frontend_tokens
+    n_gqa = 0 if cfg.encdec else sum(
+        _layer_spec(cfg, i)[0] in ("attn", "local_attn")
+        for i in range(cfg.n_layers))
+    logits0, pcache = M.prefill(params, cfg, batch)
+    eng = ServeEngine(cfg, params, batch=2, max_len=s + n_front + 8)
+    assert eng.graph
+    runs = {}
+    for route in ("eager", "graph"):
+        step = eng.decode if route == "graph" else (
+            lambda tok, pos, c: M.decode_step(params, cfg, tok, pos, c))
+        caches = fill_quantized(M.init_decode_cache(
+            cfg, 2, s + n_front + 8, dtype=torch.float32,
+            quantize_kv=n_gqa > 0, device=cuda), pcache)
+        ptrs = [t.data_ptr() for t in tree_leaves(caches)]
+        logits, toks, logs = logits0, [], []
+        before = da.LAUNCHES["decode_attention"]
+        for i in range(steps):
+            nxt = logits.argmax(-1).to(torch.int32)
+            logits, caches = step(nxt, s + n_front + i, caches)
+            toks.append(nxt)
+            logs.append(logits)
+        torch.cuda.synchronize()
+        launched = da.LAUNCHES["decode_attention"] - before
+        assert [t.data_ptr() for t in tree_leaves(caches)] == ptrs
+        runs[route] = (toks, logs, tree_leaves(caches), launched)
+    for a, b in zip(runs["eager"][0] + runs["eager"][1]
+                    + runs["eager"][2], runs["graph"][0] + runs["graph"][1]
+                    + runs["graph"][2]):
+        assert torch.equal(a, b)
+    assert runs["eager"][3] == n_gqa * steps
+    assert runs["graph"][3] == n_gqa * 2
 
 
 def test_analysis_hotpath_on_the_card(cuda):

@@ -61,6 +61,7 @@ def _oracle(args, scale, which):
 @pytest.mark.parametrize("which", ["ref", "pallas"])
 @pytest.mark.parametrize("b,s,g,m,hd", [
     (2, 64, 2, 4, 32), (1, 700, 1, 8, 64), (2, 1024, 4, 2, 16),
+    (2, 300, 1, 10, 256),           # recurrentgemma's local attention
 ])
 def test_plain_matches_jax(b, s, g, m, hd, which):
     args = _setup(b, s, g, m, hd)
@@ -120,8 +121,15 @@ def test_kernel_operand_checks():
         tda.check_operands(q, kq.to(torch.int16), ks, vq, vs, valid)
     with pytest.raises(ValueError):
         tda.check_operands(q, kq[:, :32], ks, vq, vs, valid)
-    with pytest.raises(ValueError):          # M = 9 > 8
-        tda.check_operands(torch.zeros(2, 2, 9, 32), kq, ks, vq, vs, valid)
+    with pytest.raises(ValueError):          # M = 0
+        tda.check_operands(torch.zeros(2, 2, 0, 32), kq, ks, vq, vs, valid)
+    for m in (9, 10, 16, 33):                # any M: groups of at most 8
+        tda.check_operands(torch.zeros(2, 2, m, 32), kq, ks, vq, vs, valid)
+    big = [a[:1].expand((40000,) + tuple(a.shape[1:]))
+           for a in (kq, ks, vq, vs, valid)]
+    tda.check_operands(torch.zeros(40000, 2, 8, 32), *big)
+    with pytest.raises(ValueError):          # B x query groups past the grid
+        tda.check_operands(torch.zeros(40000, 2, 9, 32), *big)
     tda.check_operands(torch.zeros(2, 2, 4, 24), kq[..., :24].contiguous(),
                        ks, vq[..., :24].contiguous(), vs, valid)
     with pytest.raises(ValueError):          # head dim 20: not a multiple of 8
@@ -142,11 +150,13 @@ def _wide(kq, ks, vq, vs, hd):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "yi-6b", "qwen2.5-32b",
-                                  "h2o-danube-1.8b"])
+                                  "h2o-danube-1.8b", "arctic-480b",
+                                  "phi-3-vision-4.2b", "recurrentgemma-2b"])
 def test_kernel_takes_every_served_config(arch):
-    """Each dense GQA config of the slice, at its published width, gives
-    the kernel operands it takes: its head dim (80 for h2o-danube) and its
-    query heads per kv head."""
+    """Each GQA config of the registry, at its published width, gives the
+    kernel operands it takes: its head dim (80 for h2o-danube, 96 for
+    phi-3, 256 for recurrentgemma) and its query heads per kv head (10 for
+    recurrentgemma's local attention)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     g, hd = cfg.n_kv_heads, cfg.head_dim
@@ -245,23 +255,32 @@ def test_split_merge_matches_dense(case, which):
                                         (8, 4096, 8, 4, 80),
                                         (2, 1, 2, 4, 128),
                                         (2, 1000, 2, 8, 80),
-                                        (1, 64, 64, 8, 256)])
+                                        (1, 64, 64, 8, 256),
+                                        (8, 2048, 1, 10, 256),
+                                        (8, 2048, 8, 7, 128),
+                                        (8, 2048, 32, 1, 96)]
+                         + [(2, 1000, 2, m, 64) for m in range(9, 17)])
 def test_launch_plan_covers_every_slot(b, s, g, m, hd):
     """The split the wrapper asks for: chunks of whole sweeps that cover S
-    with none empty, every head in some CTA, 16-byte loads only for M <= 4,
-    and at the served shape a grid of at least two CTAs per SM of an H100
-    (132 SMs)."""
+    with none empty, every head in some CTA, every query head in one
+    group of at most 8 (groups as equal as may be), 16-byte loads only for
+    groups of at most 4 heads, and at the served shape a grid of at least
+    two CTAs per SM of an H100 (132 SMs)."""
     plan = tda.launch_plan(b, s, g, m, hd, wide=True, sms=132)
     chunk, n_split = plan["chunk"], plan["n_split"]
     assert (n_split - 1) * chunk < s <= n_split * chunk
     assert chunk % (plan["rows"] * tda.SLOTS_PER_STAGE) == 0
-    assert plan["kd"] == (16 if m <= tda.WIDE_MAX_M else 8)
+    mg, groups = plan["m_group"], plan["m_groups"]
+    assert 1 <= mg <= tda.GROUP_M and (groups - 1) * mg < m <= groups * mg
+    assert groups == -(-m // tda.GROUP_M)
+    assert plan["kd"] == (16 if mg <= tda.WIDE_MAX_M and hd % 16 == 0
+                          else 8)
     lanes = plan["lanes_per_head"]
     assert lanes >= hd // plan["kd"] and lanes & (lanes - 1) == 0
     hgroups = plan["grid"][1]
     assert plan["heads_per_cta"] * hgroups >= g
     assert plan["rows"] * plan["heads_per_cta"] * lanes <= tda.THREADS
-    assert plan["grid"] == (n_split, hgroups, b)
+    assert plan["grid"] == (n_split, hgroups, b * groups)
     if (b, s) == (8, 32768):
         assert n_split * hgroups * b >= 2 * 132
     narrow = tda.launch_plan(b, s, g, m, hd, wide=False, sms=132)

@@ -307,18 +307,6 @@ def test_int8_kv_decode_close_and_halves_bytes():
 # registry, converters, launcher
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch_id", ["deepseek-v3-671b", "arctic-480b",
-                                     "xlstm-1.3b", "whisper-base",
-                                     "phi-3-vision-4.2b",
-                                     "recurrentgemma-2b"])
-def test_outside_the_slice_raises(arch_id):
-    cfg = get_smoke_config(arch_id)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_model(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_decode_cache(cfg, 1, 8, device="cpu")
-
-
 def test_param_count_and_converter_checks():
     from repro_torch.configs import get_config
     assert M.count_params(M.model_param_shapes(get_config("qwen3-4b"))) \
