@@ -234,6 +234,25 @@ Phases (any failure exits non-zero before the result line is printed):
         (for MoE one that drops no unit: row by row, each expert with room
         for the row); B8 against its plain version on each served int8
         cache.
+     o. LM training (after phase n, once its models are freed; no kernel
+        runs here: the training path reaches no Pallas kernel): for each of
+        the ten arch ids' smoke configs, params from a seed on the CPU
+        carried to the card, the loss, its metrics (the MTP loss on
+        deepseek's) and every leaf's grad on the card against the CPU port
+        on the same batch (loss rtol 1e-5, 1e-3 for MoE; grads within 1e-3
+        of each leaf's largest magnitude, 5e-3 RG-LRU, 5e-2 MoE), then one
+        whole train step on the card; then h2o-danube-1.8b at its published
+        width (1.83e9 f32 params from a seed) through
+        ``repro_torch.training.loop.train``: batch 8 x 256 from the token
+        pipeline, remat on, AdamW at the launcher's defaults, 6 steps with a
+        checkpoint at step 3 (``train`` also writes one at step 6) to a
+        temporary directory, the first loss finite and within 0.5 of
+        ln 32000; then the directory as a crash between the two saves
+        leaves it (step 6 removed, LATEST 3) and a restart that reruns steps
+        3-5: its losses within 1e-4 relative of the straight run's, its
+        params within 1e-3 of each leaf's largest magnitude (the leaves
+        bit-equal counted); then one more step under ``torch.profiler``.
+        Everything it built is freed before the results.
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -294,7 +313,12 @@ Phases (any failure exits non-zero before the result line is printed):
      against the single-device server in turns: each step's device time by
      replaying its graph (window, chunk at K=16, deferred step and flush
      at k=4) and ``serve_trace``'s ms and packets/s, the cost of the
-     collectives at D = 1.
+     collectives at D = 1. Then training (phase o): the step's ms (median
+     of steps 1-5, host clock to the metrics' read), tokens/s, its FLOP
+     bound at 67 TFLOP/s f32, ``max_memory_allocated``, the checkpoint's
+     snapshot, write and restore ms, and the profiled step's busy time,
+     idle share and kernels by name, each beside the card's name and power
+     limit.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -978,6 +1002,11 @@ def main() -> int:
     lm_row["families"] = lm_families["rows"]
     print("times (phase 5, the LM families): "
           + json.dumps(lm_families["rows"]))
+
+    # -- 4o. LM training: every family's smoke config, then h2o-danube-1.8b --
+    # (after phase 4n, once the served families' models are freed)
+    training = _train_lm(torch, np, dev, smi)
+    print("times (phase 5, LM training): " + json.dumps(training))
 
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
@@ -4913,6 +4942,316 @@ def _profile_decode(torch, lm, smi, route="eager"):
         print(f"  {dev_ms / 2:9.3f} ms a step ({100 * dev_ms / busy:5.1f}%) "
               f"x{count // 2} {key[:90]}")
 
+
+
+# -- phase 4o: LM training ----------------------------------------------------
+
+# every family's smoke config: one step on the card against the CPU port, at
+# the tolerances of tests/test_torch_training.py (loss rtol; grads per leaf
+# against the leaf's largest magnitude)
+TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ = 2, 12
+# h2o-danube-1.8b at its published width (24 layers, d_model 2560, 32 heads,
+# GQA kv=8, d_ff 6912, vocab 32,000; 1.83e9 f32 params): batch 8 x 256,
+# remat on, AdamW at the launcher's defaults, 6 steps with a checkpoint at
+# step 3, then a restart from it
+TRAIN_ARCH = "h2o-danube-1.8b"
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 6, 3
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_LOSS_RTOL = 1e-4       # the restart's losses against the straight run
+
+
+def _train_tolerances(cfg):
+    """(loss rtol, grad rel) of the family, tests/test_torch_training.py's."""
+    if cfg.moe is not None:
+        return 1e-3, 5e-2
+    if "rglru" in cfg.block_pattern:
+        return 1e-5, 5e-3
+    return 1e-5, 1e-3
+
+
+def _train_smoke_batch(np, cfg, seed):
+    rng = np.random.default_rng(seed)
+    b, s = TRAIN_SMOKE_BATCH, TRAIN_SMOKE_SEQ
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    stub = (b, cfg.n_frontend_tokens, cfg.frontend_dim)
+    if cfg.encdec:
+        out["frames"] = (0.1 * rng.standard_normal(stub)).astype(np.float32)
+    if cfg.frontend == "image_patches":
+        out["patch_embeds"] = (0.1 * rng.standard_normal(stub)).astype(
+            np.float32)
+    return out
+
+
+def _train_families(torch, np, dev, smi):
+    """One train step on the card for each arch id's smoke config, params
+    carried from the CPU port: the loss, every metric and every leaf's grad
+    against the CPU port's on the same batch (remat on), then the whole
+    step (``make_train_step``) on the card. -> rows by arch."""
+    from repro_torch.configs import ARCH_IDS, get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.training.loop import (TrainConfig, make_train_step,
+                                           value_and_grad)
+    from repro_torch.training.optim import init_opt_state, tree_flatten
+    rows = {}
+    for i, arch in enumerate(ARCH_IDS):
+        cfg = get_smoke_config(arch)
+        loss_rtol, grad_rel = _train_tolerances(cfg)
+        loss_of = (lambda p, b, cfg=cfg: M.loss_fn(p, cfg, b, remat=True))
+        params = M.init_model(cfg, i, device="cpu")
+        batch = {k: torch.from_numpy(v)
+                 for k, v in _train_smoke_batch(np, cfg, i).items()}
+        (loss, met), grads = value_and_grad(loss_of, params, batch)
+        card = tree_map(lambda a: a.detach().to(dev), params)
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        (closs, cmet), cgrads = value_and_grad(loss_of, card, card_batch)
+        torch.cuda.synchronize()
+        loss_err = abs(float(closs) - float(loss)) / abs(float(loss))
+        if loss_err > loss_rtol or set(cmet) != set(met):
+            raise AssertionError(f"train {arch}: card loss {float(closs)} "
+                                 f"against the CPU's {float(loss)}")
+        for k in met:
+            if abs(float(cmet[k]) - float(met[k])) > \
+                    loss_rtol * abs(float(met[k])) + 1e-7:
+                raise AssertionError(f"train {arch}: metric {k} "
+                                     f"{float(cmet[k])} != {float(met[k])}")
+        worst, worst_leaf = 0.0, ""
+        for (path, g), (_, cg) in zip(tree_flatten(grads),
+                                      tree_flatten(cgrads)):
+            scale = float(g.abs().max())
+            err = float((cg.cpu().double() - g.double()).abs().max())
+            rel = err / scale if scale else (0.0 if err == 0 else np.inf)
+            if rel > worst:
+                worst, worst_leaf = rel, "/".join(map(str, path))
+        if worst > grad_rel:
+            raise AssertionError(f"train {arch}: grad {worst_leaf} {worst} "
+                                 f"of its largest magnitude > {grad_rel}")
+        step = make_train_step(cfg, TrainConfig(
+            seq_len=TRAIN_SMOKE_SEQ, global_batch=TRAIN_SMOKE_BATCH))
+        state = init_opt_state(card)
+        _, state, _, smet = step(card, state, None, card_batch)
+        torch.cuda.synchronize()
+        if int(state["step"]) != 1 or not np.isfinite(
+                float(smet["loss_total"])):
+            raise AssertionError(f"train {arch}: the card's step failed")
+        if cfg.mtp and "mtp_xent" not in cmet:
+            raise AssertionError(f"train {arch}: no MTP loss")
+        rows[arch] = {"loss": float(closs), "loss_rel_err": loss_err,
+                      "grad_rel_err": worst, "grad_leaf": worst_leaf,
+                      "mtp_xent": (float(cmet["mtp_xent"]) if cfg.mtp
+                                   else None)}
+        print(f"case train {arch} on {smi}: loss {float(closs):.6f} (CPU "
+              f"{float(loss):.6f}, rel {loss_err:.2e} <= {loss_rtol}); grads "
+              f"{worst:.2e} of a leaf's largest magnitude ({worst_leaf}) <= "
+              f"{grad_rel}; a step on the card: loss "
+              f"{float(smet['loss_total']):.6f}"
+              + (f", mtp_xent {float(cmet['mtp_xent']):.6f}" if cfg.mtp
+                 else ""))
+    return rows
+
+
+def _timed(fn, into, key):
+    """``fn`` with each call's wall seconds appended to ``into[key]``."""
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            into.setdefault(key, []).append(time.perf_counter() - t0)
+    return run
+
+
+def _train_full_width(torch, np, dev, smi):
+    """h2o-danube-1.8b at its published width through
+    ``repro_torch.training.loop.train``: 6 steps with a checkpoint at step 3
+    (and, as ``train`` writes one every 3 steps, at step 6), then the
+    directory as a crash between the two saves leaves it (step 6 removed,
+    LATEST 3) and a restart that reruns steps 3-5. Its losses must equal the
+    straight run's within 1e-4 relative and its params within 1e-3 of each
+    leaf's largest magnitude; the first loss must be finite and near
+    ln(32000). Then one more step under ``torch.profiler``."""
+    import math
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import loop
+    from repro_torch.training.optim import (AdamWConfig, init_opt_state,
+                                            tree_leaves)
+    cfg = get_config(TRAIN_ARCH)
+    n_params = M.count_params(M.model_param_shapes(cfg))
+    # the launcher's AdamW defaults (launch/train.py) at 6 steps
+    opt = AdamWConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                      total_steps=TRAIN_STEPS)
+    io = {}
+    real = (ckpt.save_checkpoint, ckpt.restore_checkpoint,
+            ckpt.AsyncCheckpointer.save)
+    ckpt.save_checkpoint = _timed(real[0], io, "write")
+    loop.ckpt.restore_checkpoint = _timed(real[1], io, "restore")
+    ckpt.AsyncCheckpointer.save = _timed(real[2], io, "snapshot")
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, opt=opt, remat=True,
+                                ckpt_dir=d, ckpt_every=TRAIN_CKPT_EVERY,
+                                log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, hist = loop.train(cfg, tcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        straight_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        straight = [t.detach().cpu() for t in tree_leaves(params)]
+        del params
+        torch.cuda.empty_cache()
+        first = hist[0]["loss_total"]
+        if not (np.isfinite(first)
+                and abs(first - math.log(cfg.vocab_size)) < 0.5):
+            raise AssertionError(f"train {TRAIN_ARCH}: first loss {first}, "
+                                 f"ln V = {math.log(cfg.vocab_size):.4f}")
+        shutil.rmtree(os.path.join(d, f"step_{TRAIN_STEPS}"))
+        with open(os.path.join(d, "LATEST"), "w") as f:
+            f.write(str(TRAIN_CKPT_EVERY))
+        t0 = time.perf_counter()
+        again, hist2 = loop.train(cfg, tcfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+    finally:
+        (ckpt.save_checkpoint, loop.ckpt.restore_checkpoint,
+         ckpt.AsyncCheckpointer.save) = real
+        shutil.rmtree(d, ignore_errors=True)
+    if [h["step"] for h in hist2] != list(range(TRAIN_CKPT_EVERY,
+                                                TRAIN_STEPS)):
+        raise AssertionError(f"the restart ran steps "
+                             f"{[h['step'] for h in hist2]}")
+    loss_err = max(abs(a["loss_total"] - b["loss_total"]) / abs(b["loss_total"])
+                   for a, b in zip(hist2, hist[TRAIN_CKPT_EVERY:]))
+    worst, n_equal, leaves = 0.0, 0, tree_leaves(again)
+    for ref, got in zip(straight, leaves):
+        got = got.detach().cpu()
+        n_equal += int(torch.equal(ref, got))
+        scale = float(ref.abs().max())
+        worst = max(worst, float((got.double() - ref.double()).abs().max())
+                    / scale if scale else 0.0)
+    print(f"case train {TRAIN_ARCH} restart from step {TRAIN_CKPT_EVERY} "
+          f"on {smi}: "
+          f"losses {[round(h['loss_total'], 6) for h in hist2]} against "
+          f"{[round(h['loss_total'], 6) for h in hist[TRAIN_CKPT_EVERY:]]} "
+          f"(largest rel {loss_err:.2e} <= {TRAIN_LOSS_RTOL}); params "
+          f"{worst:.2e} of a leaf's largest magnitude (<= 1e-3), "
+          f"{n_equal} of {len(leaves)} leaves bit-equal")
+    if loss_err > TRAIN_LOSS_RTOL or worst > 1e-3:
+        raise AssertionError(f"train {TRAIN_ARCH}: the restart differs")
+    del straight
+
+    # one more step under the profiler, on the restart's params
+    pipe = TokenPipeline(cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         global_batch=TRAIN_BATCH, seed=0)
+    data = pipe.batch(TRAIN_STEPS)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    step = loop.make_train_step(cfg, tcfg)
+    state = init_opt_state(again)
+    prof_ms, rows = _profile_train_step(torch, step, again, state, batch,
+                                        smi)
+    del again, state, step, batch
+    torch.cuda.empty_cache()
+
+    step_ms = [1e3 * h["step_time"] for h in hist]
+    med = statistics.median(step_ms[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flop = _train_step_flop(cfg, M.init_model(cfg, device="meta"), tokens)
+    out = {
+        "arch": TRAIN_ARCH, "params": n_params,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": [h["loss_total"] for h in hist],
+        "restart_losses": [h["loss_total"] for h in hist2],
+        "step_ms": step_ms, "step_ms_median_1_5": med,
+        "tokens_per_s": tokens / (med / 1e3),
+        "flop_per_step": flop,
+        "bound_ms_f32": 1e3 * flop / FP32_OPS_PER_S,
+        "peak_bytes": peak, "straight_s": straight_s,
+        "restart_s": restart_s,
+        "snapshot_ms": [1e3 * t for t in io.get("snapshot", [])],
+        "write_ms": [1e3 * t for t in io.get("write", [])],
+        "restore_ms": [1e3 * t for t in io.get("restore", [])],
+        "restart_loss_rel_err": loss_err, "restart_param_rel_err": worst,
+        "restart_leaves_bit_equal": n_equal,
+        "profile": prof_ms, "top_kernels": rows}
+    print(f"time train {TRAIN_ARCH} ({n_params / 1e9:.3f} B f32 params, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, remat): step "
+          f"{med:.2f} ms (median of steps 1-5; step 0 {step_ms[0]:.2f} ms), "
+          f"{out['tokens_per_s']:.1f} tokens/s, bound "
+          f"{out['bound_ms_f32']:.2f} ms ({flop:.3e} FLOP at 67 TFLOP/s "
+          f"f32) on {smi}")
+    print(f"memory train {TRAIN_ARCH}: max_memory_allocated "
+          f"{peak / 1e9:.2f} GB on {smi}")
+    print(f"time train checkpoint: snapshot to host "
+          f"{out['snapshot_ms']} ms, write {out['write_ms']} ms, restore "
+          f"{out['restore_ms']} ms on {smi}")
+    return out
+
+
+def _train_step_flop(cfg, like, tokens):
+    """Model FLOP of one train step with remat, from the param tree
+    ``like``: 6 N T over the matmul weights (the stacked segments' matrices,
+    3 dims with the layer's, and the LM head; the embedding is a gather,
+    the norms' weights scale), 2 N T more for the segments' forward that
+    remat repeats (the head is not recomputed), and attention's QK and PV
+    products (2 flops each) forward, backward (twice the forward) and
+    repeated."""
+    from repro_torch.training.optim import tree_leaves
+    seg = sum(a.numel() for a in tree_leaves(like["segments"])
+              if a.dim() >= 3)
+    head = (like["embed"] if cfg.tie_embeddings else like["lm_head"]).numel()
+    attn = cfg.n_layers * 2 * 2 * TRAIN_BATCH * TRAIN_SEQ ** 2 \
+        * cfg.n_heads * cfg.head_dim
+    return 6 * (seg + head) * tokens + 2 * seg * tokens + 4 * attn
+
+
+def _profile_train_step(torch, step, params, state, batch, smi):
+    """One train step under ``torch.profiler``: the card's busy time (the
+    union of its kernels' intervals), the step's wall, the idle share and
+    the kernels summed by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step(params, state, None, batch)          # warm: allocator, cuBLAS
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, state, None, batch)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    busy, summed, n = _device_busy_ms(torch, prof)
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"profile train step: {busy:.3f} ms of device time busy "
+          f"({summed:.3f} summed over {n} events) in {wall:.3f} ms wall, "
+          f"idle share {100 * (1 - busy / wall):.1f}% (profiler on) on {smi}")
+    for key, ms, count in rows[:12]:
+        print(f"  {ms:9.3f} ms ({100 * ms / total:5.1f}%) x{count} "
+              f"{key[:90]}")
+    return ({"busy_ms": busy, "wall_ms": wall,
+             "idle_share": 1 - busy / wall},
+            [{"kernel": k[:120], "ms": ms, "count": c}
+             for k, ms, c in rows[:12]])
+
+
+def _train_lm(torch, np, dev, smi):
+    """Phase 4o: every family's smoke config against the CPU port, then
+    h2o-danube-1.8b at its published width; frees what it built."""
+    families = _train_families(torch, np, dev, smi)
+    full = _train_full_width(torch, np, dev, smi)
+    torch.cuda.empty_cache()
+    return {"families": families, "full_width": full}
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -73,13 +73,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     from repro_torch.device import resolve_device
     dev = resolve_device(args.device)       # no card: fails here, loudly
     _register_all(dev)
-    import torch.distributed as dist
-    had_group = dist.is_initialized()
-    try:
+    from repro_torch.analysis.hotpath import own_group
+    with own_group():
         report = run_rules(sections=args.section)
-    finally:
-        if not had_group and dist.is_initialized():
-            dist.destroy_process_group()    # the one-rank group it started
     if args.json:
         print(json.dumps(report.to_json(), indent=2, sort_keys=True))
     else:

@@ -178,6 +178,21 @@ def server_carries(srv) -> Dict[str, object]:
 # -- targets ----------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def own_group():
+    """Destroys, on the way out, a default process group started inside
+    (the one-rank group ``_default_mesh`` starts when none runs), so the
+    audit leaves the process as it found it; a group that was running
+    before is left alone."""
+    import torch.distributed as dist
+    had_group = dist.is_initialized()
+    try:
+        yield
+    finally:
+        if not had_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def _default_mesh(dev: torch.device):
     """The one-rank group's mesh (started when no group exists), or at
     four ranks the (2, 2) mesh, or every rank on 'shard'. -> (mesh,
@@ -389,10 +404,13 @@ def audit_target(t: Target, geometry: Optional[dict] = None) -> Record:
 def audit(targets: Optional[List[Target]] = None, *, geometry=None,
           device=None, **kw) -> List[Record]:
     """Records for ``targets`` (default: ``build_targets(geometry,
-    device=device, **kw)``)."""
-    if targets is None:
+    device=device, **kw)``, whose one-rank group, when it starts one, is
+    destroyed before this returns)."""
+    if targets is not None:
+        return [audit_target(t, geometry) for t in targets]
+    with own_group():
         targets = build_targets(geometry, device=device, **kw)
-    return [audit_target(t, geometry) for t in targets]
+        return [audit_target(t, geometry) for t in targets]
 
 
 @functools.lru_cache(maxsize=None)
@@ -540,8 +558,12 @@ def _selftest_dtypes() -> List[Finding]:
 def _selftest_collectives() -> List[Finding]:
     """Seeded census violations: a doubled psum, a doubled reduce-scatter,
     and a rank-1 scatter that must not count as the lane-slab readout."""
+    with own_group():
+        return _seeded_census_findings(_selftest_device())
+
+
+def _seeded_census_findings(dev: torch.device) -> List[Finding]:
     from repro_torch.distributed import collectives as C
-    dev = _selftest_device()
     mesh, _ = _default_mesh(dev)
     grp = mesh.get_group("shard")
     n = 4 * mesh.size(0) ** 2          # rows that scatter over 'shard' twice

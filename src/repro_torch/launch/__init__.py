@@ -1,1 +1,1 @@
-"""Launchers: the serve entry point."""
+"""Launchers: the serve and train entry points."""

@@ -1,14 +1,14 @@
-"""Model registry: one uniform (init / prefill / decode) surface over the
-three backbone families (decoder-only, enc-dec, VLM decoder).
+"""Model registry: one uniform (init / training loss / prefill / decode)
+surface over the three backbone families (decoder-only, enc-dec, VLM
+decoder).
 
 Port of ``repro/models/model.py``: enc-dec configs route to
-``models.whisper``, every other to ``models.transformer``; the server
-never branches on architecture internals. ``loss_fn`` waits for the
-training slice. ``params_from_arrays`` and ``cache_from_arrays`` carry the
-reference's pytrees (numpy leaves, as ``jax.tree.map(np.asarray, tree)``
-gives them; whisper's cross K/V is a tuple) into the port: the two
-packages draw different weights from the same seed, so parity goes
-through them.
+``models.whisper``, every other to ``models.transformer``; the trainer and
+the server never branch on architecture internals. ``params_from_arrays``
+and ``cache_from_arrays`` carry the reference's pytrees (numpy leaves, as
+``jax.tree.map(np.asarray, tree)`` gives them; whisper's cross K/V is a
+tuple) into the port: the two packages draw different weights from the
+same seed, so parity goes through them.
 """
 
 from __future__ import annotations
@@ -18,10 +18,15 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import mean, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whi
 from repro_torch.models.config import ArchConfig
+
+F32 = torch.float32
+
+MOE_AUX_WEIGHT = 0.01
+MTP_WEIGHT = 0.3
 
 
 def init_model(cfg: ArchConfig, gen=None, *, device=None):
@@ -41,6 +46,39 @@ def model_param_shapes(cfg: ArchConfig):
         return tfm.tree_map(lambda a: a.shape,
                             whi.init_params(cfg, device="meta"))
     return tfm.param_shapes(cfg)
+
+
+def _xent(logits, labels):
+    """Mean token cross-entropy, f32 logsumexp minus the gold logit (the
+    mean as the reference's jitted ``jnp.mean``, ``device.mean``)."""
+    logits = logits.to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return mean(lse - gold)
+
+
+def loss_fn(params, cfg: ArchConfig, batch, *, remat=True):
+    """batch: tokens/labels (+frames or patch_embeds). -> (loss, metrics),
+    every metric a 0-dim f32 tensor."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    if cfg.encdec:
+        logits, aux = whi.forward_train(params, cfg, tokens, batch["frames"],
+                                        remat=remat)
+    else:
+        logits, aux = tfm.forward_train(
+            params, cfg, tokens,
+            patch_embeds=batch.get("patch_embeds"), remat=remat)
+    labels = torch.as_tensor(labels, device=logits.device)
+    loss = _xent(logits, labels)
+    total = loss + MOE_AUX_WEIGHT * aux["moe_aux"]
+    metrics = {"xent": loss, "moe_aux": aux["moe_aux"]}
+    if "mtp_logits" in aux:
+        # MTP head predicts token t+2: logits t covers label t+1
+        mtp = _xent(aux["mtp_logits"], labels[:, 1:])
+        total = total + MTP_WEIGHT * mtp
+        metrics["mtp_xent"] = mtp
+    metrics["loss"] = total
+    return total, metrics
 
 
 def prefill(params, cfg: ArchConfig, batch):

@@ -3,9 +3,8 @@
 Port of ``repro/models/transformer.py`` for every decoder family of the
 registry: GQA attention (``attn``, or ``local_attn`` with a window), MLA,
 RG-LRU, mLSTM and sLSTM blocks, with a dense SwiGLU, MoE or no FFN, the
-image-patch frontend and the MTP head's params. (Whisper, the enc-dec
-family, is ``models.whisper``.) The MTP forward, ``forward_train`` and
-``decode_cache_shapes`` wait for the training slice.
+image-patch frontend and DeepSeek's MTP head. (Whisper, the enc-dec
+family, is ``models.whisper``.)
 
 Layer plan
 ----------
@@ -14,14 +13,17 @@ where the per-layer spec sequence is periodic with the block pattern. Each
 segment's params and caches keep the reference's layout — a list over the
 period's layers whose leaves are stacked on a leading period dim — so
 ``models.model.params_from_arrays`` is a tree map. Where the reference
-scans over periods, the port loops over the period index.
+scans over periods, the port loops over the period index; with ``remat``
+each period of such a segment runs under ``torch.utils.checkpoint``, as the
+reference wraps its scan body in ``jax.checkpoint``.
 
 Per-layer wiring (pre-norm residual):
   x = x + Block(norm1(x))          Block in {gqa, local gqa, MLA, RG-LRU,
                                              mLSTM, sLSTM}
   x = x + FFN(norm2(x))            FFN in {swiglu, moe, none}
 
-Two entry modes share the layer code:
+Three entry modes share the layer code:
+  train    full sequence, no caches, returns (logits, aux)
   prefill  full sequence, returns (last logits, caches)
   decode   one token + caches, returns (logits, caches); the caches are
            updated IN PLACE (a layer's cache is a view of the stacked
@@ -34,6 +36,7 @@ Two entry modes share the layer code:
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
@@ -173,13 +176,27 @@ def tree_leaves(tree):
     return out
 
 
+def period_trees(tree, n: int):
+    """A tree whose leaves are stacked on a leading dim of ``n`` as ``n``
+    trees of views, one ``unbind`` a leaf: a decode step's in-place cache
+    writes reach the stack. Under autograd that matters too: the backward
+    of ``unbind`` stacks the ``n`` grads once, where slicing ``a[i]`` a
+    period would zero-fill a grad of the whole stack for every period."""
+    unbound = [a.unbind(0) for a in tree_leaves(tree)]
+    out = []
+    for i in range(n):
+        it = iter([u[i] for u in unbound])
+        out.append(tree_map(lambda _: next(it), tree))
+    return out
+
+
 def param_shapes(cfg: ArchConfig):
     """Shape tree (``torch.Size`` leaves) without allocating."""
     return tree_map(lambda a: a.shape, init_params(cfg, device="meta"))
 
 
 # ---------------------------------------------------------------------------
-# per-layer forward (mode in {"prefill", "decode"})
+# per-layer forward (mode in {"train", "prefill", "decode"})
 # ---------------------------------------------------------------------------
 
 _RECURRENT = {"rglru": (rec.rglru_block, rec.rglru_block_decode),
@@ -201,16 +218,21 @@ def _block_apply(p, cfg, kind, x, positions, mode, cache, pos):
             return att.gqa_decode(p, cfg, x, pos, cache, window=w)
         y, kv = att.gqa_prefill(p, cfg, x, positions, window=w,
                                 flash=x.shape[1] >= 2048)
+        if mode == "train":
+            return y, None
         return y, _kv_to_cache(cfg, kv, positions, w)
     if kind == "mla":
         if mode == "decode":
             return att.mla_decode(p, cfg, x, pos, cache)
         y, (c_kv, k_rope) = att.mla_forward(p, cfg, x, positions)
+        if mode == "train":
+            return y, None
         return y, {"c_kv": c_kv, "k_rope": k_rope}
     block, block_decode = _RECURRENT[kind]
     if mode == "decode":
         return block_decode(p, cfg, x, cache)
-    return block(p, cfg, x)
+    y, state = block(p, cfg, x)
+    return y, (state if mode == "prefill" else None)
 
 
 def _kv_to_cache(cfg, kv, positions, window):
@@ -261,10 +283,28 @@ def _period_apply(period_params, cfg, specs, x, positions, mode,
 # stack forward
 # ---------------------------------------------------------------------------
 
-def _run_segments(params, cfg, x, positions, mode, caches, pos):
-    """caches: list aligned with segments (None in prefill mode). In decode
-    mode each layer sees views of the stacked cache tensors and writes into
-    them; the returned caches are the same objects. -> (x, caches, aux)."""
+def checkpointed(fn, remat: bool):
+    """``fn`` recomputed in the backward pass instead of keeping its
+    activations (``jax.checkpoint``): only its inputs are saved. Without
+    ``remat``, or with grad off (prefill), ``fn`` itself."""
+    if not remat:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
+
+
+def _run_segments(params, cfg, x, positions, mode, caches, pos,
+                  remat=False):
+    """caches: list aligned with segments (None in train and prefill mode).
+    In decode mode each layer sees views of the stacked cache tensors and
+    writes into them; the returned caches are the same objects. With
+    ``remat`` each period of a segment of several periods is checkpointed,
+    where the reference checkpoints its scan body. -> (x, caches, aux)."""
     new_caches = []
     aux_total = torch.zeros((), dtype=F32, device=x.device)
     for si, seg in enumerate(layer_plan(cfg)):
@@ -277,11 +317,22 @@ def _run_segments(params, cfg, x, positions, mode, caches, pos):
             new_caches.append(nc)
             aux_total = aux_total + aux
             continue
+        n = seg["n_periods"]
+        if mode == "train":
+            def body(xc, pp, specs=specs):
+                xc, _, aux = _period_apply(pp, cfg, specs, xc, positions,
+                                           mode, None, None)
+                return xc, aux
+            body = checkpointed(body, remat)
+            for pp in period_trees(seg_p, n):
+                x, aux = body(x, pp)
+                aux_total = aux_total + aux
+            new_caches.append(None)
+            continue
         per_period = []
-        for i in range(seg["n_periods"]):
-            pp = tree_map(lambda a, i=i: a[i], seg_p)
-            pc = (None if seg_cache is None
-                  else tree_map(lambda a, i=i: a[i], seg_cache))
+        period_caches = ([None] * n if seg_cache is None
+                         else period_trees(seg_cache, n))
+        for pp, pc in zip(period_trees(seg_p, n), period_caches):
             x, nc, aux = _period_apply(pp, cfg, specs, x, positions, mode,
                                        pc, pos)
             aux_total = aux_total + aux
@@ -315,6 +366,42 @@ def _tokens(params, tokens):
     return torch.as_tensor(tokens, device=params["embed"].device).long()
 
 
+def _positions(b, s, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward_train(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
+                  remat=True):
+    """tokens (B, S) -> (logits (B, S_text_out, V), aux losses dict).
+
+    With an image frontend, logits cover only the text positions. With
+    ``cfg.mtp`` the dict also holds ``mtp_logits`` (B, S - 1, V)."""
+    tokens = _tokens(params, tokens)
+    if patch_embeds is not None:
+        patch_embeds = torch.as_tensor(patch_embeds)
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens, patch_embeds)
+    positions = _positions(b, x.shape[1], x.device)
+    x, _, aux = _run_segments(params, cfg, x, positions, "train", None, None,
+                              remat)
+    n_front = x.shape[1] - s
+    xt = x[:, n_front:]
+    logits = _logits(params, cfg, xt)
+    out_aux = {"moe_aux": aux}
+    if cfg.mtp:
+        # DeepSeek-V3 MTP: one extra layer predicts token t+2 from
+        # concat(h_t, embed(token_{t+1})), sharing the embedding/head.
+        emb_next = params["embed"][tokens]
+        h_in = torch.cat([xt[:, :-1], emb_next[:, 1:]], dim=-1)
+        h = h_in @ params["mtp"]["proj"]
+        h, _, _ = _period_apply([params["mtp"]["layer"]], cfg,
+                                (_layer_spec(cfg, cfg.n_layers - 1),),
+                                h, positions[:, 1:], "train", None, None)
+        out_aux["mtp_logits"] = _logits(
+            {**params, "final_norm": params["mtp"]["norm"]}, cfg, h)
+    return logits, out_aux
+
+
 def forward_prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None):
     """tokens (B, S) (+ patch_embeds (B, n_front, frontend_dim) for the
     image frontend, which go first) -> (last-position logits (B, V),
@@ -324,8 +411,7 @@ def forward_prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None):
         patch_embeds = torch.as_tensor(patch_embeds)
     x = _embed(params, cfg, tokens, patch_embeds)
     b, s = x.shape[:2]
-    positions = torch.arange(s, dtype=torch.int32,
-                             device=x.device).expand(b, s)
+    positions = _positions(b, s, x.device)
     x, caches, _ = _run_segments(params, cfg, x, positions, "prefill",
                                  None, None)
     return _logits(params, cfg, x[:, -1]), caches
@@ -366,8 +452,9 @@ def _layer_cache(cfg, spec, batch, max_len, dtype, quantize_kv=False, *,
 def init_decode_cache(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
                       quantize_kv=False, *, device=None):
     """Segment-aligned decode caches: stacked leaves (n_periods, ...) for a
-    segment of several periods. device=None means CUDA."""
-    dev = resolve_device(device)
+    segment of several periods. device=None means CUDA; ``meta`` allocates
+    nothing (``decode_cache_shapes``)."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     caches = []
     for seg in layer_plan(cfg):
         per = [_layer_cache(cfg, s, batch, max_len, dtype, quantize_kv,
@@ -380,3 +467,9 @@ def init_decode_cache(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16,
             caches.append(tree_map(
                 lambda a, n=n: a.expand((n,) + tuple(a.shape)).clone(), per))
     return caches
+
+
+def decode_cache_shapes(cfg: ArchConfig, batch, max_len, dtype=torch.bfloat16):
+    """The decode cache tree as ``meta`` tensors (shape and dtype, nothing
+    allocated), the counterpart of the reference's ``eval_shape``."""
+    return init_decode_cache(cfg, batch, max_len, dtype, device="meta")

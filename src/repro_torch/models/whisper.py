@@ -13,7 +13,9 @@ The decode cache is the reference's: ``{"self": {k, v, pos} stacked over
 layers, "cross": (K, V)}`` with the cross K/V a tuple of
 (L, B, n_frames, G, hd) tensors. A decode step writes the self-attention
 cache in place (position on the device, as ``attention.gqa_decode``) and
-reads the cross K/V. ``forward_train`` waits for the training slice.
+reads the cross K/V. ``forward_train`` is the teacher-forced decoder;
+with ``remat`` each encoder and decoder layer is checkpointed, as the
+reference wraps its scan bodies in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as att
 from repro_torch.models.config import ArchConfig
+from repro_torch.models.transformer import checkpointed, period_trees
 from repro_torch.models.layers import (as_position, dense_init, gelu_mlp,
                                        gelu_mlp_params, layernorm,
                                        sinusoidal_positions)
@@ -75,22 +78,21 @@ def _ln(p, x):
     return layernorm(x, p["w"], p["b"])
 
 
-def _layer(tree, i):
-    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
-            for k, v in tree.items()}
-
-
-def encode(params, cfg: ArchConfig, frames):
+def encode(params, cfg: ArchConfig, frames, *, remat=True):
     """frames (B, T, D) -> encoder states (B, T, D)."""
     b, t, d = frames.shape
     x = frames + sinusoidal_positions(t, d, frames.device)[None]
     zero_pos = torch.zeros((b, t), dtype=torch.int32, device=frames.device)
-    for i in range(cfg.n_encoder_layers):
-        lp = _layer(params["enc_layers"], i)
+
+    def body(x, lp):
         h, _ = att.gqa_forward(lp["attn"], cfg, _ln(lp["norm1"], x),
                                zero_pos, bidirectional=True)
         x = x + h
-        x = x + gelu_mlp(lp["mlp"], _ln(lp["norm2"], x))
+        return x + gelu_mlp(lp["mlp"], _ln(lp["norm2"], x))
+
+    body = checkpointed(body, remat)
+    for lp in period_trees(params["enc_layers"], cfg.n_encoder_layers):
+        x = body(x, lp)
     return _ln(params["enc_norm"], x)
 
 
@@ -101,11 +103,13 @@ def _dec_layer(lp, cfg, x, positions, enc_kv, mode, cache, pos):
     else:
         h, kv = att.gqa_prefill(lp["self"], cfg, _ln(lp["norm1"], x),
                                 positions, flash=x.shape[1] >= 2048)
-        new_self = _prefill_cache(kv, positions)
+        new_self = _prefill_cache(kv, positions) if mode == "prefill" else None
     x = x + h
     x = x + att.cross_attention(lp["cross"], cfg, _ln(lp["norm2"], x), enc_kv)
     x = x + gelu_mlp(lp["mlp"], _ln(lp["norm3"], x))
-    return x, {"self": new_self, "cross": enc_kv}
+    new_cache = (None if mode == "train"
+                 else {"self": new_self, "cross": enc_kv})
+    return x, new_cache
 
 
 def _prefill_cache(kv, positions):
@@ -115,6 +119,28 @@ def _prefill_cache(kv, positions):
 
 def _logits(params, x):
     return _ln(params["final_norm"], x) @ params["embed"].T
+
+
+def forward_train(params, cfg: ArchConfig, tokens, frames, *, remat=True):
+    """Teacher-forced decoder over stub-encoded audio. tokens (B, S),
+    frames (B, T, D) -> (logits (B, S, V), aux)."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    enc = encode(params, cfg, torch.as_tensor(frames, device=dev))
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
+
+    def body(x, lp):
+        enc_kv = att.encode_cross_kv(lp["cross"], cfg, enc)
+        x, _ = _dec_layer(lp, cfg, x, positions, enc_kv, "train", None, None)
+        return x
+
+    body = checkpointed(body, remat)
+    for lp in period_trees(params["dec_layers"], cfg.n_layers):
+        x = body(x, lp)
+    logits = _logits(params, x)
+    return logits, {"moe_aux": torch.zeros((), dtype=F32, device=dev)}
 
 
 def forward_prefill(params, cfg: ArchConfig, tokens, frames):
@@ -127,8 +153,7 @@ def forward_prefill(params, cfg: ArchConfig, tokens, frames):
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     per_layer = []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
+    for lp in period_trees(params["dec_layers"], cfg.n_layers):
         enc_kv = att.encode_cross_kv(lp["cross"], cfg, enc)
         x, cache = _dec_layer(lp, cfg, x, positions, enc_kv, "prefill",
                               None, None)
@@ -147,12 +172,12 @@ def forward_decode(params, cfg: ArchConfig, token, pos, caches):
     token = torch.as_tensor(token, device=dev).long()
     x = params["embed"][token][:, None, :]
     pos = as_position(pos, dev)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["dec_layers"], i)
-        cache = {"self": {k: v[i] for k, v in caches["self"].items()},
-                 "cross": tuple(a[i] for a in caches["cross"])}
-        x, _ = _dec_layer(lp, cfg, x, None, cache["cross"], "decode", cache,
-                          pos)
+    n = cfg.n_layers
+    for lp, self_c, cross in zip(period_trees(params["dec_layers"], n),
+                                 period_trees(caches["self"], n),
+                                 period_trees(caches["cross"], n)):
+        x, _ = _dec_layer(lp, cfg, x, None, cross, "decode",
+                          {"self": self_c, "cross": cross}, pos)
     return _logits(params, x[:, 0]), caches
 
 

@@ -540,6 +540,58 @@ def test_collectives_catch_a_doubled_merge(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the audit's one-rank group: started for the sharded rows, then destroyed
+# ---------------------------------------------------------------------------
+
+def _no_group_yet():
+    if dist.is_initialized():
+        pytest.fail("a default process group is already running")
+
+
+def test_audit_destroys_the_group_it_started():
+    _no_group_yet()
+    recs = hotpath.audit(device="cpu", tiers=("ShardedStreamingServer",))
+    assert recs and not dist.is_initialized()
+    assert hotpath._selftest_collectives()
+    assert not dist.is_initialized()
+
+
+def test_audit_then_a_one_rank_sharded_server_in_one_process():
+    """What a worker that runs this file before ``test_torch_shard.py``
+    does: the audit, then a D = 1 server on a one-rank group of its own."""
+    from repro_torch.distributed.sharding import flow_shard_mesh
+    from repro_torch.serving.shard_serving import ShardedStreamingServer
+    from repro_torch.serving.stream_serving import probe_window
+    _no_group_yet()
+    hotpath.audit(device="cpu")
+    mesh = flow_shard_mesh(device="cpu")
+    try:
+        assert dist.get_world_size() == 1 and dist.get_backend() == "gloo"
+        g = hotpath.PROBE
+        srv = ShardedStreamingServer(
+            hotpath.probe_artifact("cpu"), hotpath.traceable_backend,
+            mesh=mesh, n_buckets=g["n_buckets"], window=g["window"],
+            capacity=g["capacity"], threshold=g["threshold"], device="cpu")
+        pred, _ = srv.step(probe_window(g["window"], g["n_buckets"],
+                                        g["seed"], device="cpu"))
+        assert tuple(pred.shape) == (g["window"],)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_audit_leaves_a_group_it_did_not_start():
+    from repro_torch.distributed.sharding import flow_shard_mesh
+    _no_group_yet()
+    flow_shard_mesh(device="cpu")
+    try:
+        hotpath.audit(device="cpu", tiers=("ShardedStreamingServer",))
+        hotpath._selftest_collectives()
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # parity with the reference's contracts
 # ---------------------------------------------------------------------------
 

@@ -2109,3 +2109,168 @@ def test_analysis_hotpath_on_the_card(cuda):
         if r.row["probe"] in ("window", "defer"):
             assert r.launches.get("stream_update") == 1, r.label
             assert r.launches.get("evict_fill") == 1, r.label
+
+
+# -- LM training on the card ------------------------------------------------------
+
+def _train_from(cfg, params, tcfg_kw, d, device):
+    """``train`` resumed from a step-0 checkpoint of ``params`` in ``d``, so
+    the card and the CPU start from the same weights (each device's own
+    generator draws others); whisper gets the launcher's zero frames."""
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training.loop import TrainConfig, train
+    from repro_torch.training.optim import init_opt_state
+    ckpt.save_checkpoint(str(d), 0, (params, init_opt_state(params)))
+    extra = None
+    if cfg.encdec:
+        extra = {"frames": torch.zeros(
+            (tcfg_kw["global_batch"], cfg.n_frontend_tokens,
+             cfg.frontend_dim), device=device)}
+    return train(cfg, TrainConfig(ckpt_dir=str(d), **tcfg_kw),
+                 extra_batch=extra, verbose=False, device=device)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "h2o-danube-1.8b",
+                                  "whisper-base", "xlstm-1.3b"])
+def test_train_on_card_equals_cpu(cuda, arch, tmp_path):
+    """Three steps of ``train`` at the smoke config on the card against the
+    CPU port from the same weights: each step's loss within rtol 1e-5, the
+    final params within 1e-3 of each leaf's largest magnitude. The MoE
+    families are held by the next test."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optim import AdamWConfig, tree_leaves
+    cfg = get_smoke_config(arch)
+    params = M.init_model(cfg, 0, device="cpu")
+    kw = dict(steps=3, seq_len=16, global_batch=2, ckpt_every=100,
+              opt=AdamWConfig(lr_peak=2e-3, warmup_steps=2, total_steps=10))
+    p_cpu, h_cpu = _train_from(cfg, params, kw, tmp_path / "cpu", "cpu")
+    p_card, h_card = _train_from(cfg, params, kw, tmp_path / "card", "cuda")
+    for a, b in zip(h_cpu, h_card):
+        np.testing.assert_allclose(b["loss_total"], a["loss_total"],
+                                   rtol=1e-5)
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)):
+        bound = 1e-3 * float(a.detach().abs().max())
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= bound
+
+
+def _optimizer_spy(monkeypatch, fed=None):
+    """Record the grads the train step hands ``adamw_update`` (CPU copies),
+    and with ``fed`` apply fed[i] in their place at the i-th call."""
+    from repro_torch.training import loop
+    from repro_torch.training.optim import (adamw_update, tree_leaves,
+                                            tree_unflatten)
+    seen = []
+
+    def update(cfg, params, grads, state):
+        seen.append([g.detach().cpu().clone() for g in tree_leaves(grads)])
+        if fed is not None:
+            dev = tree_leaves(params)[0].device
+            grads = tree_unflatten(grads, [g.to(dev)
+                                           for g in fed[len(seen) - 1]])
+        return adamw_update(cfg, params, grads, state)
+
+    monkeypatch.setattr(loop, "adamw_update", update)
+    return seen
+
+
+@pytest.mark.parametrize("arch, micro", [("deepseek-v3-671b", 1),
+                                         ("arctic-480b", 2)])
+def test_moe_train_on_card_equals_cpu_fed_the_cards_grads(
+        cuda, arch, micro, tmp_path, monkeypatch):
+    """Three steps of ``train`` of a MoE family at lr 2e-3 on the card, then
+    on the CPU from the same weights with the card's grads fed to the
+    optimizer in place of its own: each step's loss within rtol 1e-3 and
+    the CPU's grads within 5e-2 of each leaf's largest magnitude of the
+    card's (the MoE tolerances), the final params within 2^-18 (the AdamW
+    card-vs-CPU bound of 2^-20 below, over three updates). A straight run
+    parts past the loss tolerance after one update: a grad that rounds to
+    the other side of zero moves its weight 2 lr, and the router's top-k
+    turns that into a step in the loss (ROADMAP C3); feeding the card's
+    grads holds the update on every leaf at every step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    from repro_torch.training.optim import AdamWConfig, tree_leaves
+    cfg = get_smoke_config(arch)
+    assert cfg.moe is not None
+    params = M.init_model(cfg, 0, device="cpu")
+    kw = dict(steps=3, seq_len=16, global_batch=2, microbatches=micro,
+              ckpt_every=100,
+              opt=AdamWConfig(lr_peak=2e-3, warmup_steps=2, total_steps=10))
+    card_grads = _optimizer_spy(monkeypatch)
+    p_card, h_card = _train_from(cfg, params, kw, tmp_path / "card", "cuda")
+    cpu_grads = _optimizer_spy(monkeypatch, fed=card_grads)
+    p_cpu, h_cpu = _train_from(cfg, params, kw, tmp_path / "cpu", "cpu")
+    assert len(card_grads) == len(cpu_grads) == 3
+    for i, (a, b) in enumerate(zip(h_cpu, h_card)):
+        np.testing.assert_allclose(b["loss_total"], a["loss_total"],
+                                   rtol=1e-3, err_msg=f"step {i}")
+        for g_cpu, g_card in zip(cpu_grads[i], card_grads[i]):
+            bound = 5e-2 * float(g_cpu.abs().max())
+            assert float((g_card - g_cpu).abs().max()) <= bound, i
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_card)):
+        bound = 2.0 ** -18 * float(a.detach().abs().max())
+        assert float((b.detach().cpu() - a.detach()).abs().max()) <= bound
+
+
+def _f32_ulps(a, b):
+    """Largest distance of two f32 tensors in ulps."""
+    def key(t):
+        i = t.detach().cpu().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max()) if a.numel() else 0
+
+
+def test_adamw_and_int8_compress_on_card_equal_cpu(cuda):
+    """int8 compression on the card against the CPU: the dequantized
+    grads bit for bit; the residual ``acc - q * scale`` within one rounding
+    of the product (CUDA's ``addcmul`` rounds ``q * scale`` before the
+    subtraction, the CPU's fuses the two). The AdamW update: the learning
+    rate within 2 ulps (the schedule's cosine and the bias corrections'
+    powers come from each device's own math library), params and moments
+    within 2^-20 of each leaf's largest magnitude (a few roundings: where
+    ``b1 * m + (1 - b1) * g`` cancels, one rounding more or less is many
+    ulps of the small result)."""
+    from repro_torch.models.transformer import tree_map
+    from repro_torch.training import grad_compress as gc
+    from repro_torch.training.optim import AdamWConfig, adamw_update
+    rng = np.random.default_rng(0)
+    mk = lambda scale: {"w": torch.from_numpy(
+        (scale * rng.standard_normal((513, 7))).astype(np.float32)),
+        "b": [torch.from_numpy((scale * rng.standard_normal(300)).astype(
+            np.float32))]}
+    params, grads, m = mk(1.0), mk(0.5), mk(0.1)
+    v = tree_map(lambda a: a.abs() * 0.01, mk(1.0))
+    state = {"m": m, "v": v, "step": torch.tensor(6, dtype=torch.int32)}
+    on = lambda t: tree_map(lambda a: a.clone().to("cuda"), t)
+    card = (on(params), on(grads), on(state))
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=5, total_steps=50)
+    sent, err = gc.int8_compress(grads, m)
+    csent, cerr = gc.int8_compress(card[1], card[2]["m"])
+    for a, b in zip(tree_leaves_all(sent), tree_leaves_all(csent)):
+        assert torch.equal(a, b.cpu())
+    for d, a, b in zip(tree_leaves_all(sent), tree_leaves_all(err),
+                       tree_leaves_all(cerr)):
+        bound = float(d.abs().max()) * 2.0 ** -23
+        assert float((a - b.cpu()).abs().max()) <= bound
+    _, _, met = adamw_update(cfg, params, grads, state)
+    _, _, cmet = adamw_update(cfg, *card)
+    assert _f32_ulps(met["lr"], cmet["lr"]) <= 2
+    assert int(state["step"]) == int(card[2]["step"]) == 7
+    for a, b in zip(tree_leaves_all(params, state["m"], state["v"]),
+                    tree_leaves_all(card[0], card[2]["m"], card[2]["v"])):
+        bound = float(a.abs().max()) * 2.0 ** -20
+        assert float((a - b.cpu()).abs().max()) <= bound
+
+
+def tree_leaves_all(*trees):
+    from repro_torch.training.optim import tree_leaves
+    return [leaf for t in trees for leaf in tree_leaves(t)]
+
+
+def test_train_launcher_defaults_to_the_card_and_fails_loudly_without_one():
+    from repro_torch.launch.train import main
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default runs on it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--arch", "qwen3-4b", "--smoke", "--steps", "1"])
