@@ -253,6 +253,17 @@ Phases (any failure exits non-zero before the result line is printed):
         params within 1e-3 of each leaf's largest magnitude (the leaves
         bit-equal counted); then one more step under ``torch.profiler``.
         Everything it built is freed before the results.
+     p. the LM mesh path (after phase o, on its checkpoint directory):
+        steps 0-2 of phase o's run again through ``train(mesh=
+        make_host_mesh())`` on a (1, 1) NCCL mesh (phase l's one-rank
+        group), the losses bit-equal to phase o's and every param leaf
+        after step 3 bit-equal to its step-3 checkpoint; that checkpoint
+        (params + m + v) restored with ``shardings=`` onto the mesh,
+        bit-equal to the plain restore; the dry run's h2o-danube-1.8b
+        ``train_4k`` and qwen3-4b ``decode_32k`` (int8 KV) cells on a fake
+        16 x 16 mesh, each in a subprocess, each record's scan correction
+        equal to its measured collective bytes; the analytic model's
+        roofline at phase o's batch and length beside its measured step.
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -318,7 +329,10 @@ Phases (any failure exits non-zero before the result line is printed):
      bound at 67 TFLOP/s f32, ``max_memory_allocated``, the checkpoint's
      snapshot, write and restore ms, and the profiled step's busy time,
      idle share and kernels by name, each beside the card's name and power
-     limit.
+     limit; then the mesh path (phase p): the mesh step's ms against phase
+     o's, the sharded and plain restores' ms, each dry-run cell's wall and
+     record, and the analytic roofline's compute and memory terms beside
+     the measured step and ``_train_step_flop``'s bound.
   6. a JSON line of every kernel with its numbers, the card's name and
      power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -1005,8 +1019,19 @@ def main() -> int:
 
     # -- 4o. LM training: every family's smoke config, then h2o-danube-1.8b --
     # (after phase 4n, once the served families' models are freed)
-    training = _train_lm(torch, np, dev, smi)
-    print("times (phase 5, LM training): " + json.dumps(training))
+    # -- 4p. the LM mesh path: the mesh train step and the resharding
+    # restore against 4o's run, the dry run, the roofline beside 4o's step
+    import shutil
+    import tempfile
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        training = _train_lm(torch, np, dev, smi, ckpt_dir)
+        print("times (phase 5, LM training): " + json.dumps(training))
+        mesh = _lm_mesh(torch, np, dev, smi, here, ckpt_dir,
+                        training["full_width"])
+        print("times (phase 5, the LM mesh path): " + json.dumps(mesh))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
@@ -5062,37 +5087,40 @@ def _timed(fn, into, key):
     return run
 
 
-def _train_full_width(torch, np, dev, smi):
+def _train_opt():
+    """The launcher's AdamW defaults (launch/train.py) at 6 steps."""
+    from repro_torch.training.optim import AdamWConfig
+    return AdamWConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                       total_steps=TRAIN_STEPS)
+
+
+def _train_full_width(torch, np, dev, smi, d):
     """h2o-danube-1.8b at its published width through
     ``repro_torch.training.loop.train``: 6 steps with a checkpoint at step 3
-    (and, as ``train`` writes one every 3 steps, at step 6), then the
-    directory as a crash between the two saves leaves it (step 6 removed,
-    LATEST 3) and a restart that reruns steps 3-5. Its losses must equal the
+    (and, as ``train`` writes one every 3 steps, at step 6) in ``d``, then
+    the directory as a crash between the two saves leaves it (step 6
+    removed, LATEST 3) and a restart that reruns steps 3-5 (``d`` keeps
+    the step-3 checkpoint for phase 4p). Its losses must equal the
     straight run's within 1e-4 relative and its params within 1e-3 of each
     leaf's largest magnitude; the first loss must be finite and near
     ln(32000). Then one more step under ``torch.profiler``."""
     import math
     import shutil
-    import tempfile
     from repro_torch.configs import get_config
     from repro_torch.data.lm_pipeline import TokenPipeline
     from repro_torch.models import model as M
     from repro_torch.training import checkpoint as ckpt
     from repro_torch.training import loop
-    from repro_torch.training.optim import (AdamWConfig, init_opt_state,
-                                            tree_leaves)
+    from repro_torch.training.optim import init_opt_state, tree_leaves
     cfg = get_config(TRAIN_ARCH)
     n_params = M.count_params(M.model_param_shapes(cfg))
-    # the launcher's AdamW defaults (launch/train.py) at 6 steps
-    opt = AdamWConfig(lr_peak=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
-                      total_steps=TRAIN_STEPS)
+    opt = _train_opt()
     io = {}
     real = (ckpt.save_checkpoint, ckpt.restore_checkpoint,
             ckpt.AsyncCheckpointer.save)
     ckpt.save_checkpoint = _timed(real[0], io, "write")
     loop.ckpt.restore_checkpoint = _timed(real[1], io, "restore")
     ckpt.AsyncCheckpointer.save = _timed(real[2], io, "snapshot")
-    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         tcfg = loop.TrainConfig(steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
                                 global_batch=TRAIN_BATCH, opt=opt, remat=True,
@@ -5123,7 +5151,6 @@ def _train_full_width(torch, np, dev, smi):
     finally:
         (ckpt.save_checkpoint, loop.ckpt.restore_checkpoint,
          ckpt.AsyncCheckpointer.save) = real
-        shutil.rmtree(d, ignore_errors=True)
     if [h["step"] for h in hist2] != list(range(TRAIN_CKPT_EVERY,
                                                 TRAIN_STEPS)):
         raise AssertionError(f"the restart ran steps "
@@ -5245,13 +5272,208 @@ def _profile_train_step(torch, step, params, state, batch, smi):
              for k, ms, c in rows[:12]])
 
 
-def _train_lm(torch, np, dev, smi):
+def _train_lm(torch, np, dev, smi, d):
     """Phase 4o: every family's smoke config against the CPU port, then
-    h2o-danube-1.8b at its published width; frees what it built."""
+    h2o-danube-1.8b at its published width, checkpointing into ``d``; frees
+    what it built."""
     families = _train_families(torch, np, dev, smi)
-    full = _train_full_width(torch, np, dev, smi)
+    full = _train_full_width(torch, np, dev, smi, d)
     torch.cuda.empty_cache()
     return {"families": families, "full_width": full}
+
+
+
+# -- phase 4p: the LM mesh path ------------------------------------------------
+
+MESH_STEPS = 3
+DRYRUN_CELLS = (("h2o-danube-1.8b", "train_4k", ()),
+                ("qwen3-4b", "decode_32k", ("--int8-kv",)))
+
+
+def _mesh_train(torch, np, dev, smi, d, full):
+    """Phase 4o's run again through ``train(mesh=make_host_mesh())`` on a
+    (1, 1) NCCL mesh (phase 4l's one-rank group, or one started and
+    destroyed here): 3 steps, the losses bit-equal to 4o's steps 0-2 and the
+    params after step 3 bit-equal to 4o's step-3 checkpoint in ``d``; then
+    that checkpoint restored with ``shardings=`` onto the mesh, bit-equal
+    to the plain restore."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (named_sharding_tree,
+                                                  opt_state_specs,
+                                                  param_specs)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import loop
+    from repro_torch.training.optim import (init_opt_state, tree_flatten,
+                                            tree_leaves)
+    cfg = get_config(TRAIN_ARCH)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(dev)
+    try:
+        tcfg = loop.TrainConfig(steps=MESH_STEPS, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, opt=_train_opt(),
+                                remat=True, log_every=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, hist = loop.train(cfg, tcfg, seed=0, mesh=mesh, device=dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss_total"] for h in hist]
+        step_ms = [1e3 * h["step_time"] for h in hist]
+        want = full["losses"][:MESH_STEPS]
+        print(f"case mesh train {TRAIN_ARCH} on a (1, 1) {dist.get_backend()} "
+              f"mesh on {smi}: "
+              f"losses {losses} against phase 4o's {want}: "
+              f"{'bit-equal' if losses == want else 'DIFFERENT'}")
+        if losses != want:
+            raise AssertionError("the mesh train step differs from 4o's")
+        step_dir = os.path.join(d, f"step_{MESH_STEPS}")
+        with open(os.path.join(step_dir, "manifest.json")) as f:
+            files = {e["name"]: e["file"] for e in
+                     json.load(f)["leaves"]}
+        n_equal, n_leaves = 0, 0
+        for path, leaf in tree_flatten(params):
+            name = "/".join(str(k) for k in ("0",) + path)
+            ref = torch.from_numpy(np.load(os.path.join(step_dir,
+                                                        files[name])))
+            n_equal += int(torch.equal(leaf.full_tensor().cpu(), ref))
+            n_leaves += 1
+        print(f"case mesh train {TRAIN_ARCH}: params after step "
+              f"{MESH_STEPS} against 4o's step-{MESH_STEPS} checkpoint: "
+              f"{n_equal} of {n_leaves} leaves bit-equal")
+        if n_equal != n_leaves:
+            raise AssertionError("the mesh's params differ from 4o's")
+        del params
+        torch.cuda.empty_cache()
+
+        like = M.init_model(cfg, device="meta")
+        like = (like, init_opt_state(like))
+        shapes = M.model_param_shapes(cfg)
+        shardings = named_sharding_tree(mesh, (
+            param_specs(shapes, mesh), opt_state_specs(shapes, mesh)))
+        t0 = time.perf_counter()
+        placed, _ = ckpt.restore_checkpoint(d, like, step=MESH_STEPS,
+                                            shardings=shardings)
+        torch.cuda.synchronize()
+        sharded_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        plain, _ = ckpt.restore_checkpoint(d, like, step=MESH_STEPS,
+                                           device=dev)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        pairs = list(zip(tree_leaves(plain), tree_leaves(placed)))
+        same = sum(int(torch.equal(a, b.to_local())) for a, b in pairs)
+        print(f"case mesh restore {TRAIN_ARCH} step {MESH_STEPS} "
+              f"(params + m + v) with shardings= on the (1, 1) mesh: {same} "
+              f"of {len(pairs)} leaves bit-equal to the plain restore; "
+              f"restore {sharded_ms:.1f} ms (plain {plain_ms:.1f} ms) on "
+              f"{smi}")
+        if same != len(pairs):
+            raise AssertionError("the resharding restore differs")
+        del placed, plain, pairs
+        torch.cuda.empty_cache()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    med = statistics.median(step_ms[1:])
+    print(f"time mesh train {TRAIN_ARCH} (batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, remat, (1, 1) mesh): step {med:.2f} ms (median of "
+          f"steps 1-{MESH_STEPS - 1}; step 0 {step_ms[0]:.2f} ms) against "
+          f"phase 4o's {full['step_ms_median_1_5']:.2f} ms without a mesh; "
+          f"max_memory_allocated {peak / 1e9:.2f} GB on {smi}")
+    return {"losses": losses, "step_ms": step_ms, "step_ms_median": med,
+            "no_mesh_step_ms_median": full["step_ms_median_1_5"],
+            "peak_bytes": peak, "leaves_bit_equal": n_equal,
+            "restore_sharded_ms": sharded_ms, "restore_plain_ms": plain_ms}
+
+
+def _dry_runs(here, smi):
+    """The dry run's two cells on the fake 16 x 16 mesh, each in a
+    subprocess (a fake default group cannot share this process with the
+    NCCL one): its JSON line and wall time, and the record's scan
+    correction equal to its measured collective bytes."""
+    import shutil
+    import tempfile
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(here, "src"))
+    rows = {}
+    try:
+        for arch, shape, flags in DRYRUN_CELLS:
+            cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--out", out, *flags]
+            t0 = time.perf_counter()
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=600, env=env, cwd=here)
+            wall = time.perf_counter() - t0
+            if r.returncode != 0:
+                raise AssertionError(f"dry run {arch} {shape} failed:\n"
+                                     f"{r.stderr[-3000:]}")
+            line = r.stdout.strip().splitlines()[-1]
+            with open(os.path.join(out, f"{arch}__{shape}__16x16.json")) as f:
+                rec = json.load(f)
+            if rec["collective_bytes_corrected"] != \
+                    rec["collectives"]["total"]:
+                raise AssertionError(f"dry run {arch} {shape}: the scan "
+                                     f"correction differs from the total")
+            print(f"dryrun {arch} {shape} {' '.join(flags)} "
+                  f"({wall:.1f} s wall, host CPU, on the machine of {smi}): "
+                  f"{line}")
+            rows[f"{arch} {shape}"] = {
+                "wall_s": wall, "line": json.loads(line),
+                "memory": rec["memory"], "collectives": rec["collectives"],
+                "cost_measured": rec["cost_measured"],
+                "analytic": rec["analytic"], "roofline": rec["roofline"]}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return rows
+
+
+def _roofline_beside_step(full, smi):
+    """The analytic model's roofline at phase 4o's own batch and length on
+    one card (``HW``), beside 4o's measured step and its
+    ``_train_step_flop`` bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.roofline.analysis import HW, roofline_terms
+    from repro_torch.roofline.analytic import forward_flops, step_hbm_bytes
+    cfg = get_config(TRAIN_ARCH)
+    n = M.count_params(M.model_param_shapes(cfg))
+    flops = forward_flops(cfg, TRAIN_SEQ, TRAIN_BATCH) * 4.0    # remat
+    by = step_hbm_bytes(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, 1, n,
+                        remat=True, model_shards=1)
+    terms = roofline_terms({"flops": flops, "bytes accessed": by},
+                           {"total": 0.0}, hw=HW)
+    bound_ms = 1e3 * max(terms["compute_s"], terms["memory_s"])
+    print(f"roofline train {TRAIN_ARCH} (analytic model, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat, one card): compute "
+          f"{1e3 * terms['compute_s']:.2f} ms ({flops:.4e} FLOP at "
+          f"{HW['peak_flops'] / 1e12:.0f} TFLOP/s f32), memory "
+          f"{1e3 * terms['memory_s']:.2f} ms ({by:.4e} B at "
+          f"{HW['hbm_bw'] / 1e12:.2f} TB/s), bound {bound_ms:.2f} ms; "
+          f"_train_step_flop's bound {full['bound_ms_f32']:.2f} ms "
+          f"(analytic {bound_ms / full['bound_ms_f32']:.3f}x it: the head's "
+          f"recompute and full S x S attention); measured step "
+          f"{full['step_ms_median_1_5']:.2f} ms "
+          f"({full['step_ms_median_1_5'] / bound_ms:.3f}x the analytic "
+          f"bound) on {smi}")
+    return {"analytic_flops": flops, "analytic_bytes": by,
+            "compute_ms": 1e3 * terms["compute_s"],
+            "memory_ms": 1e3 * terms["memory_s"], "bound_ms": bound_ms,
+            "train_step_flop_bound_ms": full["bound_ms_f32"],
+            "measured_step_ms": full["step_ms_median_1_5"]}
+
+
+def _lm_mesh(torch, np, dev, smi, here, d, full):
+    """Phase 4p: the mesh train step and the resharding restore on the
+    card, the dry run's two cells, the analytic roofline beside the
+    measured step."""
+    out = {"mesh_train": _mesh_train(torch, np, dev, smi, d, full)}
+    out["dryrun"] = _dry_runs(here, smi)
+    out["roofline"] = _roofline_beside_step(full, smi)
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

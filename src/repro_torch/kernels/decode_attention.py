@@ -182,8 +182,10 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
     valid (B,S) f32 -> (B,G,M,hd) f32.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    and raises on operands it does not take."""
-    if not on_kernel_path(q):
+    and raises on operands it does not take. A ``meta`` tensor (or a
+    ``DTensor`` over meta tensors: the dry run, where only shapes flow) takes
+    the plain version too, which then computes shapes and nothing else."""
+    if q.device.type == "meta" or not on_kernel_path(q):
         return decode_attention_int8_ref(q, k_q, k_s, v_q, v_s, valid,
                                          scale=scale)
     check_operands(q, k_q, k_s, v_q, v_s, valid)

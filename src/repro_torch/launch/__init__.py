@@ -1,1 +1,2 @@
-"""Launchers: the serve and train entry points."""
+"""Launchers: the serve and train entry points, and the dry run over a
+fake production mesh (``dryrun``, with ``mesh`` and ``shapes``)."""

@@ -11,7 +11,10 @@ reference's caches are functional and its engine donates them; copying a
 mask are computed on the device, so the step has no host sync and a CUDA
 graph can replay it. Over an int8 cache the attention core runs through
 the B8 kernel (``kernels.ops.decode_attention_int8``) on the card.
-``hint_batch_heads`` (a sharding hint, a no-op without a mesh) is dropped.
+On ``DTensor`` params the projections pass ``hint_batch_heads`` (batch
+over the batch axes, heads over 'model' when they divide), as the
+reference's do, and their head splits go through ``sharding.reshape``;
+both are identity on plain tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import true_div
+from repro_torch.distributed.sharding import (dense, hint_batch_heads,
+                                              is_sharded, per_shard,
+                                              replicate_dim, reshape,
+                                              write_row_)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, as_position, dense_init,
                                        rmsnorm)
@@ -93,9 +100,9 @@ def _project_qkv(p, cfg, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, g, hd)
-    v = v.reshape(b, s, g, hd)
+    q = hint_batch_heads(reshape(q, b, s, h, hd))
+    k = hint_batch_heads(reshape(k, b, s, g, hd))
+    v = hint_batch_heads(reshape(v, b, s, g, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
@@ -104,17 +111,35 @@ def _project_qkv(p, cfg, x, positions):
     return q, k, v
 
 
+def _heads_like_q(q, k, v):
+    """k/v with each query head's own copy of its group's k/v (G = H), so
+    that attention splits over q's heads: on a mesh a group count that
+    does not divide 'model' cannot be split over it."""
+    h, g = q.shape[2], k.shape[2]
+    if h == g:
+        return k, v
+
+    def expand(a):
+        b, s, _, d = a.shape
+        return hint_batch_heads(reshape(
+            a[:, :, :, None].expand(b, s, g, h // g, d), b, s, h, d))
+    return expand(k), expand(v)
+
+
 def _sdpa(q, k, v, mask, scale):
     """q (B,Sq,H,hd), k/v (B,Sk,G,hd) grouped attention with bool mask."""
+    if is_sharded(q):
+        return per_shard(lambda q, k, v: _sdpa(q, k, v, mask, scale),
+                         q, *_heads_like_q(q, k, v))
     b, sq, h, hd = q.shape
     g = k.shape[2]
-    q = q.reshape(b, sq, g, h // g, hd)
+    q = reshape(q, b, sq, g, h // g, hd)
     scores = torch.einsum("bqgmd,bkgd->bgmqk", q, k) * scale
     if mask is not None:
         scores = torch.where(mask[:, None, None, :, :], scores, MASKED)
     w = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bgmqk,bkgd->bqgmd", w, v)
-    return out.reshape(b, sq, h, hd)
+    return reshape(out, b, sq, h, hd)
 
 
 def causal_mask(sq, sk, window=None, offset=0, device=None):
@@ -134,7 +159,7 @@ def gqa_forward(p, cfg, x, positions, *, window=None, bidirectional=False):
     mask = None if bidirectional else causal_mask(s, s, window,
                                                   device=x.device)
     out = _sdpa(q, k, v, mask, _inv_sqrt(cfg.head_dim))
-    return out.reshape(x.shape[0], s, -1) @ p["wo"], (k, v)
+    return dense(reshape(out, x.shape[0], s, -1), p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -152,6 +177,10 @@ def flash_attention(q, k, v, *, window=None, q_block=1024, k_block=1024,
     (causally masked out); padded query rows are sliced off. v's head dim
     may differ from q/k's.
     """
+    if is_sharded(q):
+        return per_shard(lambda q, k, v: flash_attention(
+            q, k, v, window=window, q_block=q_block, k_block=k_block,
+            scale=scale), q, *_heads_like_q(q, k, v))
     b, s_orig, h, hd = q.shape
     g = k.shape[2]
     hd_v = v.shape[-1]
@@ -172,8 +201,8 @@ def flash_attention(q, k, v, *, window=None, q_block=1024, k_block=1024,
     dev = q.device
     outs = []
     for qi in range(nq):
-        q_i = q[:, qi * q_block:(qi + 1) * q_block].reshape(
-            b, q_block, g, h // g, hd)
+        q_i = reshape(q[:, qi * q_block:(qi + 1) * q_block],
+                      b, q_block, g, h // g, hd)
         m_run = torch.full((b, g, h // g, q_block), MASKED, dtype=F32,
                            device=dev)
         l_run = torch.zeros((b, g, h // g, q_block), dtype=F32, device=dev)
@@ -197,7 +226,7 @@ def flash_attention(q, k, v, *, window=None, q_block=1024, k_block=1024,
                 "bgmqk,bkgd->bgmqd", pexp, v_i.to(F32))
             m_run = m_new
         out = acc / torch.clamp(l_run[..., None], min=1e-30)
-        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_block, h, hd_v))
+        outs.append(reshape(out.permute(0, 3, 1, 2, 4), b, q_block, h, hd_v))
     out = torch.cat(outs, dim=1).to(q.dtype)
     return out[:, :s_orig]
 
@@ -211,7 +240,7 @@ def gqa_prefill(p, cfg, x, positions, *, window=None, flash=True):
         s = x.shape[1]
         out = _sdpa(q, k, v, causal_mask(s, s, window, device=x.device),
                     _inv_sqrt(cfg.head_dim))
-    return out.reshape(x.shape[0], x.shape[1], -1) @ p["wo"], (k, v)
+    return dense(reshape(out, x.shape[0], x.shape[1], -1), p["wo"]), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +264,13 @@ def init_gqa_cache(cfg, batch, max_len, dtype=torch.bfloat16, window=None,
         c["v_scale"] = torch.zeros((batch, size, g, 1), dtype=F32,
                                    device=device)
     return c
+
+
+def _live(valid, scores):
+    """The (S,) live mask broadcast to the scores' (..., S) shape. On a mesh
+    the (small) mask is gathered whole first: DTensor mis-shards a
+    broadcast or an expand of a sharded dim."""
+    return replicate_dim(valid, 0)[None, None, None, :].expand(scores.shape)
 
 
 def _q8(v):
@@ -263,21 +299,23 @@ def gqa_decode(p, cfg, x, pos, cache, *, window=None):
     if quantized:
         k_q, k_s = _q8(k)
         v_q, v_s = _q8(v)
-        cache["k"].index_copy_(1, slot, k_q)
-        cache["v"].index_copy_(1, slot, v_q)
-        cache["k_scale"].index_copy_(1, slot, k_s)
-        cache["v_scale"].index_copy_(1, slot, v_s)
+        write_row_(cache["k"], 1, slot, k_q)
+        write_row_(cache["v"], 1, slot, v_q)
+        write_row_(cache["k_scale"], 1, slot, k_s)
+        write_row_(cache["v_scale"], 1, slot, v_s)
     else:
-        cache["k"].index_copy_(1, slot, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot, v.to(cache["v"].dtype))
+        write_row_(cache["k"], 1, slot, k.to(cache["k"].dtype))
+        write_row_(cache["v"], 1, slot, v.to(cache["v"].dtype))
     cpos = cache["pos"]
-    cpos.index_copy_(0, slot, pos.reshape(1).to(cpos.dtype))
+    write_row_(cpos, 0, slot, pos.reshape(1).to(cpos.dtype))
     valid = (cpos >= 0) & (cpos <= pos)
     if window is not None:
         valid = valid & (pos - cpos < window)
     g, hd = cfg.n_kv_heads, cfg.head_dim
     h = cfg.n_heads
-    qh = q.reshape(b, g, h // g, hd)
+    # on a mesh the query's heads whole (a step's q is small): some
+    # releases of DTensor will not flatten the einsums' sharded heads
+    qh = replicate_dim(reshape(q, b, g, h // g, hd), 1)
     scale = _inv_sqrt(hd)
     if quantized:
         live = valid.to(F32)[None, :].expand(b, size)
@@ -287,10 +325,10 @@ def gqa_decode(p, cfg, x, pos, cache, *, window=None):
     else:
         k_eff, v_eff = cache["k"].to(F32), cache["v"].to(F32)
         scores = torch.einsum("bgmd,bkgd->bgmk", qh, k_eff) * scale
-        scores = torch.where(valid[None, None, None, :], scores, MASKED)
+        scores = torch.where(_live(valid, scores), scores, MASKED)
         w = torch.softmax(scores, dim=-1)
         out = torch.einsum("bgmk,bkgd->bgmd", w, v_eff)
-    out = out.reshape(b, 1, h * hd).to(x.dtype) @ p["wo"]
+    out = dense(reshape(out, b, 1, h * hd).to(x.dtype), p["wo"])
     return out, cache
 
 
@@ -302,8 +340,8 @@ def _mla_q(p, cfg, x, positions):
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
-    q = rmsnorm(x @ p["wq_a"], p["q_norm"]) @ p["wq_b"]
-    q = q.reshape(b, s, h, m.qk_nope_dim + m.qk_rope_dim)
+    q = dense(rmsnorm(x @ p["wq_a"], p["q_norm"]), p["wq_b"])
+    q = reshape(q, b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -331,7 +369,7 @@ def mla_forward(p, cfg, x, positions):
     h = cfg.n_heads
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
-    kv = (c_kv @ p["wkv_b"]).reshape(b, s, h, m.qk_nope_dim + m.v_head_dim)
+    kv = reshape(dense(c_kv, p["wkv_b"]), b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
     scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
     if s >= 2048:
@@ -339,15 +377,28 @@ def mla_forward(p, cfg, x, positions):
         kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
             b, s, h, m.qk_rope_dim)], dim=-1)
         out = flash_attention(qf, kf, v, scale=scale)
+    elif is_sharded(q_nope):
+        # on each device's (batch, head) shards; the shared rope key goes
+        # with every head and each shard reads its first copy
+        out = per_shard(lambda qn, qr, kn, kr, vv: _mla_scores_out(
+            qn, qr, kn, kr[:, :, 0], vv, scale), q_nope, q_rope, k_nope,
+            k_rope[:, :, None, :].expand(b, s, h, m.qk_rope_dim), v)
     else:
-        sc = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
-              + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
-        sc = torch.where(causal_mask(s, s, device=x.device)[:, None], sc,
-                         MASKED)
-        w = torch.softmax(sc, dim=-1).to(v.dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, v)
-    out = out.reshape(b, s, h * m.v_head_dim) @ p["wo"]
+        out = _mla_scores_out(q_nope, q_rope, k_nope, k_rope, v, scale)
+    out = dense(reshape(out, b, s, h * m.v_head_dim), p["wo"])
     return out, (c_kv, k_rope)
+
+
+def _mla_scores_out(q_nope, q_rope, k_nope, k_rope, v, scale):
+    """Causal MLA attention of a short sequence: k_rope (B, S, rope) is
+    shared by every head. -> (B, S, H, v_head_dim)."""
+    s = q_nope.shape[1]
+    sc = (torch.einsum("bqhd,bkhd->bhqk", q_nope, k_nope)
+          + torch.einsum("bqhd,bkd->bhqk", q_rope, k_rope)) * scale
+    sc = torch.where(causal_mask(s, s, device=q_nope.device)[:, None], sc,
+                     MASKED)
+    w = torch.softmax(sc, dim=-1).to(v.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
 def init_mla_cache(cfg, batch, max_len, dtype=torch.bfloat16, *, device):
@@ -374,13 +425,13 @@ def mla_decode(p, cfg, x, pos, cache, *, absorb=True):
     c_new, r_new = _mla_ckv(p, cfg, x, positions)       # (B,1,lora),(B,1,rope)
     ckv, krp = cache["c_kv"], cache["k_rope"]
     slot = pos.reshape(1)
-    ckv.index_copy_(1, slot, c_new.to(ckv.dtype))
-    krp.index_copy_(1, slot, r_new.to(krp.dtype))
+    write_row_(ckv, 1, slot, c_new.to(ckv.dtype))
+    write_row_(krp, 1, slot, r_new.to(krp.dtype))
     s_max = ckv.shape[1]
     valid = torch.arange(s_max, device=x.device) <= pos
     scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    wkv_b = p["wkv_b"].reshape(m.kv_lora_rank, h,
-                               m.qk_nope_dim + m.v_head_dim)
+    wkv_b = reshape(p["wkv_b"], m.kv_lora_rank, h,
+                    m.qk_nope_dim + m.v_head_dim)
     w_uk = wkv_b[..., :m.qk_nope_dim]                   # (lora, H, nope)
     w_uv = wkv_b[..., m.qk_nope_dim:]                   # (lora, H, v)
     ckv_f, krp_f = ckv.to(F32), krp.to(F32)
@@ -388,7 +439,7 @@ def mla_decode(p, cfg, x, pos, cache, *, absorb=True):
         q_abs = torch.einsum("bqhn,lhn->bqhl", q_nope, w_uk)
         sc = (torch.einsum("bqhl,bkl->bhqk", q_abs, ckv_f)
               + torch.einsum("bqhr,bkr->bhqk", q_rope, krp_f)) * scale
-        sc = torch.where(valid[None, None, None, :], sc, MASKED)
+        sc = torch.where(_live(valid, sc), sc, MASKED)
         w = torch.softmax(sc, dim=-1)
         ctx = torch.einsum("bhqk,bkl->bqhl", w, ckv_f)  # latent ctx
         out = torch.einsum("bqhl,lhv->bqhv", ctx, w_uv)
@@ -397,10 +448,10 @@ def mla_decode(p, cfg, x, pos, cache, *, absorb=True):
         k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
         sc = (torch.einsum("bqhn,bkhn->bhqk", q_nope, k_nope)
               + torch.einsum("bqhr,bkr->bhqk", q_rope, krp_f)) * scale
-        sc = torch.where(valid[None, None, None, :], sc, MASKED)
+        sc = torch.where(_live(valid, sc), sc, MASKED)
         w = torch.softmax(sc, dim=-1)
         out = torch.einsum("bhqk,bkhv->bqhv", w, v)
-    out = out.reshape(b, 1, h * m.v_head_dim).to(x.dtype) @ p["wo"]
+    out = dense(reshape(out, b, 1, h * m.v_head_dim).to(x.dtype), p["wo"])
     return out, cache
 
 
@@ -412,15 +463,15 @@ def cross_attention(p, cfg, x, enc_kv):
     """x (B,S,D) queries; enc_kv = (k, v) precomputed from encoder output."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, hd)
+    q = reshape(dense(x, p["wq"]), b, s, h, hd)
     k, v = (a.to(q.dtype) for a in enc_kv)     # a bf16 cache's, promoted
     out = _sdpa(q, k, v, None, _inv_sqrt(hd))
-    return out.reshape(b, s, -1) @ p["wo"]
+    return dense(reshape(out, b, s, -1), p["wo"])
 
 
 def encode_cross_kv(p, cfg, enc_out):
     b, t, _ = enc_out.shape
     g, hd = cfg.n_kv_heads, cfg.head_dim
-    k = (enc_out @ p["wk"]).reshape(b, t, g, hd)
-    v = (enc_out @ p["wv"]).reshape(b, t, g, hd)
+    k = reshape(dense(enc_out, p["wk"]), b, t, g, hd)
+    v = reshape(dense(enc_out, p["wv"]), b, t, g, hd)
     return k, v

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import mean
+from repro_torch.distributed.sharding import dense
 
 F32 = torch.float32
 
@@ -106,8 +107,8 @@ def swiglu_params(gen, d_model, d_ff, *, device, lead=()):
 
 
 def swiglu(p, x):
-    h = F.silu(x @ p["gate"]) * (x @ p["up"])
-    return h @ p["down"]
+    h = F.silu(dense(x, p["gate"])) * dense(x, p["up"])
+    return dense(h, p["down"])
 
 
 def gelu(x):
@@ -126,7 +127,7 @@ def gelu_mlp_params(gen, d_model, d_ff, *, device, lead=()):
 
 
 def gelu_mlp(p, x):
-    return gelu(x @ p["up"] + p["up_b"]) @ p["down"] + p["down_b"]
+    return dense(gelu(dense(x, p["up"]) + p["up_b"]), p["down"]) + p["down_b"]
 
 
 def sinusoidal_positions(n_pos, dim, device=None):

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import mean, resolve_device
+from repro_torch.distributed.sharding import is_sharded, lay_as, settle
 from repro_torch.models import transformer as tfm
 from repro_torch.models import whisper as whi
 from repro_torch.models.config import ArchConfig
@@ -52,8 +53,21 @@ def _xent(logits, labels):
     """Mean token cross-entropy, f32 logsumexp minus the gold logit (the
     mean as the reference's jitted ``jnp.mean``, ``device.mean``)."""
     logits = logits.to(F32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if is_sharded(logits):
+        # vocab-parallel (Megatron's): each device reduces its vocab slice
+        # and the slices' max and sums are combined; the gold logit is its
+        # slice's pick (zeros elsewhere) summed. DTensor would gather the
+        # vocab for logsumexp, and a gather's backward builds the whole
+        # (B, S, V) grad on every device.
+        top = settle(logits.detach().amax(-1, keepdim=True))
+        lse = (top + torch.log(settle(torch.exp(logits - top).sum(
+            -1, keepdim=True))))[..., 0]
+        ids = torch.arange(logits.shape[-1], device=logits.device)
+        hit = lay_as(labels.long()[..., None] == ids, logits)
+        gold = settle(torch.where(hit, logits, 0.0).sum(-1))
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     return mean(lse - gold)
 
 

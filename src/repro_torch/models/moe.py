@@ -11,8 +11,10 @@ are never dropped. The load-balance aux loss (Switch: E * sum_e f_e p_e)
 is returned for the training loss.
 
 Departures from the reference, each kept on purpose:
-- The sharding hints (``shard_hint``, ``_ambient_mesh``) are no-ops
-  without a mesh and are dropped.
+- The sharding hints are the reference's (``shard_hint``: the experts'
+  buffers over 'model', the combined tokens over the batch axes), read
+  from the tensors' own mesh where the reference reads its ambient one;
+  each is identity without a mesh.
 - The combine. The reference scatter-adds each unit's bf16 row into a bf16
   accumulator, ``acc.at[buf_tok].add(yflat)``, one unit after another in
   buffer order (ascending slot: ascending expert id for a token), rounding
@@ -32,6 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import mean
+from repro_torch.distributed.sharding import (hint_batch, is_sharded, reshape,
+                                              shard_hint)
 from repro_torch.models.layers import dense_init, swiglu, swiglu_params
 
 F32 = torch.float32
@@ -62,6 +66,13 @@ def _capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
     return max(8, ((cap + 7) // 8) * 8)   # pad to 8 for lane alignment
 
 
+def _rows(table, ids):
+    """``table[ids]``; on a mesh ``F.embedding``, whose backward DTensor
+    shards (an index's backward, ``index_put``, it does not in every
+    PyTorch release)."""
+    return F.embedding(ids, table) if is_sharded(table) else table[ids]
+
+
 def moe_forward(p, cfg, x):
     """x (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
     m = cfg.moe
@@ -69,11 +80,12 @@ def moe_forward(p, cfg, x):
     t = b * s
     e, k = m.n_experts, m.top_k
     dev = x.device
-    xf = x.reshape(t, d)
+    xf = reshape(x, t, d)
     cap = _capacity(t, k, e, m.capacity_factor)
 
     # --- router ------------------------------------------------------------
-    logits = xf.to(F32) @ p["router"].to(F32)                    # (T, E)
+    # on a mesh each token's routing reads all its experts' logits
+    logits = hint_batch(xf.to(F32) @ p["router"].to(F32))       # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = torch.topk(probs, k, dim=-1)                # (T, K)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
@@ -104,24 +116,27 @@ def moe_forward(p, cfg, x):
     # gather tokens -> (E, C, D) in bf16; the sentinel t hits the zero row
     xd = xf.to(BF16)
     xpad = torch.cat([xd, xd.new_zeros((1, d))], dim=0)
-    xe = xpad[buf_tok].reshape(e, cap, d).to(F32)
+    xe = shard_hint(reshape(_rows(xpad, buf_tok), e, cap, d),
+                    "model", None, None)                 # EP: experts over 'model'
+    xe = xe.to(F32)
 
     # --- expert FFN (stacked SwiGLU; bf16 x f32 promotes to f32) ------------
     h = F.silu(torch.bmm(xe, p["w_gate"])) * torch.bmm(xe, p["w_up"])
     ye = torch.bmm(h, p["w_down"]).to(BF16)                      # (E, C, D)
+    ye = shard_hint(ye, "model", None, None)
 
     # --- combine: each token's kept rows in slot order, added in bf16 -------
-    yflat = (ye.reshape(e * cap, d).to(F32) * buf_w[:, None]).to(BF16)
+    yflat = (reshape(ye, e * cap, d).to(F32) * buf_w[:, None]).to(BF16)
     ypad = torch.cat([yflat, yflat.new_zeros((1, d))], dim=0)
     order = torch.sort(slot.reshape(t, k), dim=1).values         # (T, K)
-    rows = ypad[order]                                           # (T, K, D)
+    rows = _rows(ypad, order)                                    # (T, K, D)
     acc = rows[:, 0]
     for j in range(1, k):
         acc = acc + rows[:, j]
-    out = acc.to(F32)
+    out = hint_batch(acc.to(F32))         # the tokens over the batch axes
 
     if m.n_shared:
         out = out + swiglu(p["shared"], xf).to(F32)
     if m.dense_residual:
         out = out + swiglu(p["dense"], xf).to(F32)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return reshape(out, b, s, d).to(x.dtype), aux

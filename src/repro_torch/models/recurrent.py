@@ -31,11 +31,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import mean, true_div
+from repro_torch.distributed.sharding import (dense, elementwise,
+                                              is_sharded, map_with_path,
+                                              per_shard, replicate_dim,
+                                              reshape, settle)
 from repro_torch.models.layers import dense_init, gelu
 
 F32 = torch.float32
+
+
+def _logsigmoid(x):
+    """``F.logsigmoid``; on a ``DTensor`` a shard at a time (DTensor has no
+    strategy for its backward)."""
+    return elementwise(F.logsigmoid, x)
 
 
 def _zeros(lead, shape, device, dtype=F32):
@@ -57,15 +68,42 @@ def conv1d_params(gen, width, channels, *, device, lead=()):
             "b": _zeros(lead, (channels,), device)}
 
 
+def _per_channel(fn, x, p):
+    """``fn(x, w, b)`` for a depthwise (per-channel) op over x (B, S, C) and
+    taps w (width, C), b (C,). On a mesh each device runs it on its batch
+    and channel shards of x, the sequence whole, with the taps laid out as
+    x's channels (DTensor refuses the taps' row reads and ``flip`` in some
+    releases); the result is laid out as x. Plain tensors go straight to
+    ``fn``."""
+    w, b = p["w"], p["b"]
+    if not is_sharded(x):
+        return fn(x, w, b)
+    mesh = x.device_mesh
+    x = settle(replicate_dim(x, 1))
+    lay = tuple(x.placements)
+    chan = [isinstance(q, Shard) and q.dim == 2 for q in lay]
+    batch = [isinstance(q, Shard) and q.dim == 0 for q in lay]
+
+    def local(t, dim):
+        want = tuple(Shard(dim) if c else Replicate() for c in chan)
+        grad = tuple(Shard(dim) if c else (Partial() if bt else Replicate())
+                     for c, bt in zip(chan, batch))
+        return t.redistribute(mesh, want).to_local(grad_placements=grad)
+    out = fn(x.to_local(), local(w, 1), local(b, 0))
+    return map_with_path(lambda _, t: DTensor.from_local(
+        t, mesh, lay, run_check=False), out)
+
+
 def causal_conv1d(p, x):
     """x (B, S, C) -> (B, S, C); y_t = b + sum_w W[w] * x_{t-w}."""
-    width = p["w"].shape[0]
-    s = x.shape[1]
-    y = torch.zeros_like(x) + p["b"]
-    for w in range(width):
-        shifted = F.pad(x, (0, 0, w, 0))[:, :s]
-        y = y + shifted * p["w"][w]
-    return y
+    def conv(x, taps, bias):
+        s = x.shape[1]
+        y = torch.zeros_like(x) + bias
+        for w in range(taps.shape[0]):
+            shifted = F.pad(x, (0, 0, w, 0))[:, :s]
+            y = y + shifted * taps[w]
+        return y
+    return _per_channel(conv, x, p)
 
 
 def causal_conv1d_decode(p, x1, conv_state):
@@ -73,16 +111,19 @@ def causal_conv1d_decode(p, x1, conv_state):
     first). Returns (y1, new_state): the new state is a fresh tensor, so
     the caller may write it over ``conv_state``."""
     window = torch.cat([conv_state.to(x1.dtype), x1], dim=1)  # (B, width, C)
-    # window[:, -1] is x_t and must pair with W[0] (shift 0): flip taps
-    y = p["b"] + torch.einsum("bwc,wc->bc", window,
-                              p["w"].flip(0))[:, None, :]
-    return y, window[:, 1:]
+
+    def step(window, taps, bias):
+        # window[:, -1] is x_t and must pair with W[0] (shift 0): flip taps
+        y = bias + torch.einsum("bwc,wc->bc", window,
+                                taps.flip(0))[:, None, :]
+        return y, window[:, 1:]
+    return _per_channel(step, window, p)
 
 
 def conv_tail(x, width):
     """Last width-1 positions of x (left-padded if S < width-1)."""
     pad = max(0, (width - 1) - x.shape[1])
-    xp = F.pad(x, (0, 0, pad, 0))
+    xp = F.pad(x, (0, 0, pad, 0)) if pad else x
     return xp[:, -(width - 1):]
 
 
@@ -117,8 +158,8 @@ def rglru_params(gen, cfg, *, device, lead=()):
 
 def _rglru_scan_coeffs(p, u):
     """u (B,S,W) conv output -> (a, gated_input) for the linear scan."""
-    r = torch.sigmoid(u @ p["w_rg"] + p["b_rg"])
-    i = torch.sigmoid(u @ p["w_ig"] + p["b_ig"])
+    r = torch.sigmoid(dense(u, p["w_rg"]) + p["b_rg"])
+    i = torch.sigmoid(dense(u, p["w_ig"]) + p["b_ig"])
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r            # (B,S,W) <= 0
     a = torch.exp(log_a)
     # sqrt(1 - a^2) computed stably from log a
@@ -147,7 +188,7 @@ def rglru_block(p, cfg, x):
     g = gelu(x @ p["in_g"])
     a, v = _rglru_scan_coeffs(p, u.to(F32))
     h = linear_scan(a, v)
-    y = (h * g.to(F32)).to(x.dtype) @ p["out"]
+    y = dense((h * g.to(F32)).to(x.dtype), p["out"])
     state = {"h": h[:, -1], "conv": conv_tail(xin, cfg.conv1d_width)}
     return y, state
 
@@ -166,7 +207,7 @@ def rglru_block_decode(p, cfg, x, state):
     g = gelu(x @ p["in_g"])
     a, v = _rglru_scan_coeffs(p, u.to(F32))
     h = a[:, 0] * state["h"] + v[:, 0]
-    y = (h[:, None] * g.to(F32)).to(x.dtype) @ p["out"]
+    y = dense((h[:, None] * g.to(F32)).to(x.dtype), p["out"])
     state["h"].copy_(h)
     state["conv"].copy_(conv_state)
     return y, state
@@ -216,13 +257,13 @@ def _mlstm_qkv_gates(p, cfg, x):
     b, s, w = u.shape
     nh = cfg.n_heads
     hd = w // nh
-    ch = c.reshape(b, s, nh, hd)
+    ch = reshape(c, b, s, nh, hd)
     q = _blockdiag(ch, p["wq"])
     k = _inv_scale_k(_blockdiag(ch, p["wk"]), hd)
-    v = _blockdiag(u.reshape(b, s, nh, hd), p["wv"])
-    g = c @ p["w_if"] + p["b_if"]                                # (B,S,2H)
+    v = _blockdiag(reshape(u, b, s, nh, hd), p["wv"])
+    g = dense(c, p["w_if"]) + p["b_if"]                          # (B,S,2H)
     log_i = g[..., :nh].to(F32)                                  # pre-act ~ log i
-    log_f = F.logsigmoid(g[..., nh:].to(F32))                    # f = sigmoid
+    log_f = _logsigmoid(g[..., nh:].to(F32))                    # f = sigmoid
     return q, k, v, z, c, log_i, log_f
 
 
@@ -231,7 +272,7 @@ def _headnorm(h, gain):
     var = mean(h * h, dim=-1).unsqueeze(-1)
     hn = h * torch.rsqrt(var + 1e-6)
     b, s = h.shape[:2]
-    return hn.reshape(b, s, -1) * gain
+    return reshape(hn, b, s, -1) * gain
 
 
 MLSTM_CHUNK = 256
@@ -288,7 +329,7 @@ def mlstm_block(p, cfg, x):
     h = torch.cat(hs, dim=1)                             # (B,S,H,hd)
 
     hn = _headnorm(h, p["gn"]) + c.to(F32) * p["skip"]
-    y = (hn * F.silu(z.to(F32))).to(x.dtype) @ p["down"]
+    y = dense((hn * F.silu(z.to(F32))).to(x.dtype), p["down"])
     state = {"C": C, "n": n, "m": m_st,
              "conv": conv_tail(x @ p["up_u"], cfg.conv1d_width)}
     return y, state
@@ -316,13 +357,13 @@ def mlstm_block_decode(p, cfg, x, state):
     cact = F.silu(cval)
     w = u.shape[-1]
     hd = w // nh
-    ch = cact.reshape(b, 1, nh, hd)
+    ch = reshape(cact, b, 1, nh, hd)
     q = _blockdiag(ch, p["wq"])[:, 0].to(F32)
     k = _inv_scale_k(_blockdiag(ch, p["wk"])[:, 0], hd).to(F32)
-    v = _blockdiag(u.reshape(b, 1, nh, hd), p["wv"])[:, 0].to(F32)
-    g = (cact @ p["w_if"] + p["b_if"])[:, 0]                     # (B,2H)
+    v = _blockdiag(reshape(u, b, 1, nh, hd), p["wv"])[:, 0].to(F32)
+    g = (dense(cact, p["w_if"]) + p["b_if"])[:, 0]               # (B,2H)
     log_i = g[:, :nh].to(F32)
-    log_f = F.logsigmoid(g[:, nh:].to(F32))
+    log_f = _logsigmoid(g[:, nh:].to(F32))
 
     m_old = state["m"]
     m_new = torch.maximum(log_f + m_old, log_i)                  # (B,H)
@@ -336,7 +377,7 @@ def mlstm_block_decode(p, cfg, x, state):
                         torch.exp(-m_new))
     h = (num / den[..., None])[:, None]                          # (B,1,H,hd)
     hn = _headnorm(h, p["gn"]) + cact.to(F32) * p["skip"]
-    y = (hn * F.silu(z.to(F32))).to(x.dtype) @ p["down"]
+    y = dense((hn * F.silu(z.to(F32))).to(x.dtype), p["down"])
     state["C"].copy_(C)
     state["n"].copy_(n)
     state["m"].copy_(m_new)
@@ -379,12 +420,12 @@ def _slstm_step(p, cfg, xg, carry):
     nh = cfg.n_heads
     d = c.shape[1]
     hd = d // nh
-    hh = h.reshape(b, nh, hd)
-    rec = torch.einsum("bhd,hde->bhe", hh, p["w_rec"]).reshape(b, 4 * d)
+    hh = reshape(h, b, nh, hd)
+    rec = reshape(torch.einsum("bhd,hde->bhe", hh, p["w_rec"]), b, 4 * d)
     g = xg + rec
     zt = torch.tanh(g[:, :d])
     log_i = g[:, d:2 * d].to(F32)
-    log_f = F.logsigmoid(g[:, 2 * d:3 * d].to(F32))
+    log_f = _logsigmoid(g[:, 2 * d:3 * d].to(F32))
     o = torch.sigmoid(g[:, 3 * d:])
     m_new = torch.maximum(log_f + m, log_i)
     i_sc = torch.exp(log_i - m_new)
@@ -404,29 +445,37 @@ def slstm_init_state(cfg, batch, dtype=F32, *, device):
 
 
 def _slstm_ffn(p, h):
-    return (gelu(h @ p["ffn_gate"]) * (h @ p["ffn_up"])) @ p["ffn_down"]
+    return dense(gelu(dense(h, p["ffn_gate"])) * dense(h, p["ffn_up"]),
+                 p["ffn_down"])
 
 
 def _slstm_out(p, cfg, h, dtype):
     """Head-wise RMS norm of h (B,S,D), the gain, then the GeGLU FFN."""
     b, s, d = h.shape
-    hh = h.reshape(b, s, cfg.n_heads, -1)
+    hh = reshape(h, b, s, cfg.n_heads, -1)
     var = mean(hh * hh, dim=-1).unsqueeze(-1)
-    hn = (hh * torch.rsqrt(var + 1e-6)).reshape(b, s, d) * p["gn"]
+    hn = reshape(hh * torch.rsqrt(var + 1e-6), b, s, d) * p["gn"]
     return _slstm_ffn(p, hn.to(dtype))
 
 
-def slstm_block(p, cfg, x):
-    """Sequential scan over time. x (B,S,D) -> (y, state)."""
-    b, s, _ = x.shape
-    xg = x @ p["w_in"] + p["b_in"]                               # (B,S,4D)
-    carry = slstm_init_state(cfg, b, device=x.device)
+def _slstm_scan(w_rec, cfg, xg):
+    """The time loop over the input gates xg (B, S, 4D) -> (h (B, S, D),
+    the final carry)."""
+    carry = slstm_init_state(cfg, xg.shape[0], device=xg.device)
     hs = []
-    for t in range(s):
-        carry = _slstm_step(p, cfg, xg[:, t], carry)
+    for t in range(xg.shape[1]):
+        carry = _slstm_step({"w_rec": w_rec}, cfg, xg[:, t], carry)
         hs.append(carry["h"])
-    y = _slstm_out(p, cfg, torch.stack(hs, dim=1), x.dtype)
-    return y, carry
+    return torch.stack(hs, dim=1), carry
+
+
+def slstm_block(p, cfg, x):
+    """Sequential scan over time. x (B,S,D) -> (y, state). On a mesh the
+    loop runs on each device's batch shard (``per_shard``)."""
+    xg = x @ p["w_in"] + p["b_in"]                               # (B,S,4D)
+    h, carry = per_shard(lambda w, g: _slstm_scan(w, cfg, g), xg,
+                         heads=False, params=(p["w_rec"],))
+    return _slstm_out(p, cfg, h, x.dtype), carry
 
 
 def slstm_block_decode(p, cfg, x, state):

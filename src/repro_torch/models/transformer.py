@@ -36,9 +36,13 @@ Three entry modes share the layer code:
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (dense, gather_data,
+                                              hint_batch, is_sharded,
+                                              replicate_dim)
 from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
@@ -182,7 +186,7 @@ def period_trees(tree, n: int):
     writes reach the stack. Under autograd that matters too: the backward
     of ``unbind`` stacks the ``n`` grads once, where slicing ``a[i]`` a
     period would zero-fill a grad of the whole stack for every period."""
-    unbound = [a.unbind(0) for a in tree_leaves(tree)]
+    unbound = [replicate_dim(a, 0).unbind(0) for a in tree_leaves(tree)]
     out = []
     for i in range(n):
         it = iter([u[i] for u in unbound])
@@ -253,16 +257,20 @@ def _kv_to_cache(cfg, kv, positions, window):
 def _layer_apply(p, cfg, spec, x, positions, mode, cache, pos):
     """-> (x, new_cache, aux)."""
     block, ffn = spec
-    h = apply_norm(cfg, p["norm1"], x)
+    p = gather_data(p)
+    # on a mesh, each norm's output enters its block with the batch sharded
+    # and d_model whole (Megatron's layout); identity on a plain tensor
+    h = hint_batch(apply_norm(cfg, p["norm1"], x))
     y, new_cache = _block_apply(p["block"], cfg, block, h, positions,
                                 mode, cache, pos)
     x = x + y
     aux = torch.zeros((), dtype=F32, device=x.device)
     if ffn == "dense":
-        x = x + swiglu(p["ffn"], apply_norm(cfg, p["norm2"], x))
+        x = x + swiglu(p["ffn"], hint_batch(apply_norm(cfg, p["norm2"], x)))
     elif ffn == "moe":
         y, aux = moe_mod.moe_forward(p["ffn"], cfg,
-                                     apply_norm(cfg, p["norm2"], x))
+                                     hint_batch(apply_norm(cfg, p["norm2"],
+                                                           x)))
         x = x + y
     return x, new_cache, aux
 
@@ -347,19 +355,31 @@ def _run_segments(params, cfg, x, positions, mode, caches, pos,
     return x, new_caches, aux_total
 
 
+def embed_lookup(table, ids):
+    """``table[ids]``. On a mesh the row width is gathered first (the FSDP
+    gather of the embedding's 'data' dim), so the rows come out sharded as
+    the ids are, where DTensor would rather gather the ids and run the rest
+    of the model on the whole batch on every device; and the lookup is
+    ``F.embedding``, whose backward DTensor shards (an index's backward,
+    ``index_put``, it does not in every PyTorch release)."""
+    if is_sharded(table):
+        return hint_batch(F.embedding(ids, replicate_dim(table, -1)))
+    return table[ids]
+
+
 def _embed(params, cfg, tokens, patch_embeds=None):
-    x = params["embed"][tokens]                      # (B, S, D)
+    x = embed_lookup(params["embed"], tokens)         # (B, S, D)
     if cfg.frontend == "image_patches" and patch_embeds is not None:
         pe = patch_embeds.to(device=x.device, dtype=x.dtype) \
-            @ params["patch_proj"]
-        x = torch.cat([pe, x], dim=1)
+            @ gather_data(params["patch_proj"])
+        x = torch.cat([hint_batch(pe), x], dim=1)
     return x
 
 
 def _logits(params, cfg, x):
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = hint_batch(apply_norm(cfg, gather_data(params["final_norm"]), x))
     head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return x @ head
+    return x @ gather_data(head)
 
 
 def _tokens(params, tokens):
@@ -391,9 +411,9 @@ def forward_train(params, cfg: ArchConfig, tokens, *, patch_embeds=None,
     if cfg.mtp:
         # DeepSeek-V3 MTP: one extra layer predicts token t+2 from
         # concat(h_t, embed(token_{t+1})), sharing the embedding/head.
-        emb_next = params["embed"][tokens]
+        emb_next = embed_lookup(params["embed"], tokens)
         h_in = torch.cat([xt[:, :-1], emb_next[:, 1:]], dim=-1)
-        h = h_in @ params["mtp"]["proj"]
+        h = dense(h_in, gather_data(params["mtp"]["proj"]))
         h, _, _ = _period_apply([params["mtp"]["layer"]], cfg,
                                 (_layer_spec(cfg, cfg.n_layers - 1),),
                                 h, positions[:, 1:], "train", None, None)
@@ -421,7 +441,7 @@ def forward_decode(params, cfg: ArchConfig, token, pos, caches):
     """token (B,) int, pos a 0-dim device tensor (or an int) -> (logits
     (B, V), caches updated in place)."""
     token = _tokens(params, token)
-    x = params["embed"][token][:, None, :]           # (B, 1, D)
+    x = embed_lookup(params["embed"], token)[:, None, :]   # (B, 1, D)
     pos = as_position(pos, x.device)
     x, _, _ = _run_segments(params, cfg, x, None, "decode", caches, pos)
     return _logits(params, cfg, x[:, 0]), caches

@@ -23,9 +23,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_data, hint_batch
 from repro_torch.models import attention as att
 from repro_torch.models.config import ArchConfig
-from repro_torch.models.transformer import checkpointed, period_trees
+from repro_torch.models.transformer import (checkpointed, embed_lookup,
+                                            period_trees)
 from repro_torch.models.layers import (as_position, dense_init, gelu_mlp,
                                        gelu_mlp_params, layernorm,
                                        sinusoidal_positions)
@@ -81,10 +83,11 @@ def _ln(p, x):
 def encode(params, cfg: ArchConfig, frames, *, remat=True):
     """frames (B, T, D) -> encoder states (B, T, D)."""
     b, t, d = frames.shape
-    x = frames + sinusoidal_positions(t, d, frames.device)[None]
+    x = hint_batch(frames + sinusoidal_positions(t, d, frames.device)[None])
     zero_pos = torch.zeros((b, t), dtype=torch.int32, device=frames.device)
 
     def body(x, lp):
+        lp = gather_data(lp)
         h, _ = att.gqa_forward(lp["attn"], cfg, _ln(lp["norm1"], x),
                                zero_pos, bidirectional=True)
         x = x + h
@@ -118,7 +121,8 @@ def _prefill_cache(kv, positions):
 
 
 def _logits(params, x):
-    return _ln(params["final_norm"], x) @ params["embed"].T
+    return (hint_batch(_ln(gather_data(params["final_norm"]), x))
+            @ gather_data(params["embed"].T))
 
 
 def forward_train(params, cfg: ArchConfig, tokens, frames, *, remat=True):
@@ -128,10 +132,11 @@ def forward_train(params, cfg: ArchConfig, tokens, frames, *, remat=True):
     tokens = torch.as_tensor(tokens, device=dev).long()
     enc = encode(params, cfg, torch.as_tensor(frames, device=dev))
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
 
     def body(x, lp):
+        lp = gather_data(lp)
         enc_kv = att.encode_cross_kv(lp["cross"], cfg, enc)
         x, _ = _dec_layer(lp, cfg, x, positions, enc_kv, "train", None, None)
         return x
@@ -150,10 +155,11 @@ def forward_prefill(params, cfg: ArchConfig, tokens, frames):
     tokens = torch.as_tensor(tokens, device=dev).long()
     enc = encode(params, cfg, torch.as_tensor(frames, device=dev))
     b, s = tokens.shape
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     positions = torch.arange(s, dtype=torch.int32, device=dev).expand(b, s)
     per_layer = []
     for lp in period_trees(params["dec_layers"], cfg.n_layers):
+        lp = gather_data(lp)
         enc_kv = att.encode_cross_kv(lp["cross"], cfg, enc)
         x, cache = _dec_layer(lp, cfg, x, positions, enc_kv, "prefill",
                               None, None)
@@ -170,13 +176,13 @@ def forward_decode(params, cfg: ArchConfig, token, pos, caches):
     caches: the self-attention caches written in place)."""
     dev = params["embed"].device
     token = torch.as_tensor(token, device=dev).long()
-    x = params["embed"][token][:, None, :]
+    x = embed_lookup(params["embed"], token)[:, None, :]
     pos = as_position(pos, dev)
     n = cfg.n_layers
     for lp, self_c, cross in zip(period_trees(params["dec_layers"], n),
                                  period_trees(caches["self"], n),
                                  period_trees(caches["cross"], n)):
-        x, _ = _dec_layer(lp, cfg, x, None, cross, "decode",
+        x, _ = _dec_layer(gather_data(lp), cfg, x, None, cross, "decode",
                           {"self": self_c, "cross": cross}, pos)
     return _logits(params, x[:, 0]), caches
 
@@ -184,8 +190,8 @@ def forward_decode(params, cfg: ArchConfig, token, pos, caches):
 def init_decode_cache(cfg: ArchConfig, batch, max_len, n_frames,
                       dtype=torch.bfloat16, *, device=None):
     """Self-attn caches + cross-KV slots, stacked over decoder layers.
-    device=None means CUDA."""
-    dev = resolve_device(device)
+    device=None means CUDA; ``meta`` allocates nothing."""
+    dev = torch.device("meta") if str(device) == "meta" else resolve_device(device)
     g, hd = cfg.n_kv_heads, cfg.head_dim
     n = cfg.n_layers
     self_c = att.init_gqa_cache(cfg, batch, max_len, dtype, device=dev)

@@ -18,9 +18,12 @@ Fault-tolerance properties:
   * the async writer overlaps serialization with training (the step only
     blocks on the previous snapshot's completion).
 
-``restore_checkpoint`` takes a ``device`` where the reference takes
-``shardings``: restoring onto a mesh of several devices waits for the
-port's LM sharding (ROADMAP A-ix item 4).
+``restore_checkpoint`` takes a ``device``, or the reference's
+``shardings``: a tree of ``distributed.sharding.NamedSharding`` that places
+each leaf as a ``DTensor`` on its mesh. That is the elastic path: the
+writer's mesh does not matter, since a checkpoint holds whole arrays (a
+``DTensor`` leaf is gathered whole when it is saved), and each rank reads
+the whole ``.npy`` and keeps its own slice, with no collective.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.device import resolve_device
 from repro_torch.models.transformer import tree_map
@@ -47,7 +53,10 @@ def _tree_paths(tree):
 
 def _host(leaf) -> np.ndarray:
     """A host copy of a leaf, which later in-place updates do not reach
-    (``.cpu()`` of a CPU tensor, and ``np.asarray``, would share it)."""
+    (``.cpu()`` of a CPU tensor, and ``np.asarray``, would share it); a
+    ``DTensor`` is gathered whole."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.array(leaf, copy=True)
@@ -100,13 +109,32 @@ def latest_step(directory: str) -> Optional[int]:
         return int(f.read().strip())
 
 
+def _place(arr: np.ndarray, sh, dtype) -> DTensor:
+    """This rank's slice of the whole array ``arr``, as a ``DTensor``
+    placed by the ``NamedSharding`` ``sh``: sliced on the host, then moved
+    to the mesh's device (no collective)."""
+    from repro_torch.distributed.sharding import mesh_device
+    shape, offset = compute_local_shape_and_global_offset(
+        arr.shape, sh.mesh, sh.placements)
+    local = arr[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    t = torch.from_numpy(np.array(local, copy=True)).to(
+        device=mesh_device(sh.mesh), dtype=dtype)
+    return DTensor.from_local(t, sh.mesh, sh.placements, run_check=False,
+                              shape=torch.Size(arr.shape),
+                              stride=torch.empty(arr.shape,
+                                                 device="meta").stride())
+
+
 def restore_checkpoint(directory: str, tree_like, *,
-                       step: Optional[int] = None, device=None):
+                       step: Optional[int] = None, device=None,
+                       shardings=None):
     """Restore into the structure of ``tree_like`` (a tree of tensors, meta
     tensors allocating nothing). -> (tree, step).
 
     Each leaf takes ``tree_like``'s dtype and lands on ``device``, or with
-    device=None on its ``tree_like`` leaf's device (CUDA for a meta leaf)."""
+    device=None on its ``tree_like`` leaf's device (CUDA for a meta leaf).
+    ``shardings``: a matching tree of ``NamedSharding``; each leaf then is a
+    ``DTensor`` holding this rank's slice on its mesh's device."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -115,14 +143,19 @@ def restore_checkpoint(directory: str, tree_like, *,
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
     names, leaves = _tree_paths(tree_like)
+    flat_sh = ([leaf for _, leaf in tree_flatten(shardings)]
+               if shardings is not None else [None] * len(leaves))
     by_name = {e["name"]: e for e in manifest["leaves"]}
     out = []
-    for name, ref in zip(names, leaves):
+    for name, ref, sh in zip(names, leaves, flat_sh):
         e = by_name[name]
         arr = np.load(os.path.join(d, e["file"]))
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"shape mismatch for {name}: "
                              f"{arr.shape} vs {tuple(ref.shape)}")
+        if sh is not None:
+            out.append(_place(arr, sh, ref.dtype))
+            continue
         dev = device
         if dev is None:
             dev = None if ref.device.type == "meta" else ref.device

@@ -12,9 +12,15 @@ kept on purpose:
   ``microbatches`` as the jitted reference does, by a product with the f32
   reciprocal (ROADMAP C3).
 - Metrics cross to the host in one transfer a step.
-- ``mesh=`` raises ``NotImplementedError``: placing params, batches and
-  optimizer state over a mesh waits for the port's LM sharding (ROADMAP
-  A-ix item 4).
+- ``mesh=`` (a ``DeviceMesh`` with dims ('data', 'model'), or
+  ('pod', 'data', 'model')) runs the same step on ``DTensor`` s, under
+  ``implicit_replication`` (the model's plain constants, rope tables and
+  masks, count as replicated): params and the error state placed by
+  ``param_specs``, the optimizer state by ``opt_state_specs`` and each
+  batch by ``batch_specs``, where the reference jits the step with those
+  ``in_shardings``. A leaf that is not yet a ``DTensor`` is placed on the
+  way in (every rank holds it whole and keeps its slice). On a mesh of
+  one device the step is bit-equal to ``mesh=None``.
 - ``train`` draws the initial weights from ``torch.Generator(seed)`` on the
   device, which differ from the reference's ``PRNGKey(seed)`` draws (C3's
   RNG entry); a restart restores them from the checkpoint instead.
@@ -28,8 +34,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+
 from repro_torch.data.lm_pipeline import TokenPipeline
 from repro_torch.device import mean, resolve_device
+from repro_torch.distributed.sharding import (batch_specs, distribute_tree,
+                                              named_sharding_tree,
+                                              opt_state_specs, param_specs)
 from repro_torch.models import model as M
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import grad_compress as gc
@@ -80,12 +93,10 @@ def _micro(a, n, i):
 def make_train_step(cfg, tcfg: TrainConfig, mesh=None, batch_shapes=None):
     """Build the (params, opt_state, err_state, batch) -> (params,
     opt_state, err_state, metrics) step; params and opt_state are updated
-    in place and returned."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a train step over a mesh waits for the port's LM sharding "
-            "(ROADMAP A-ix item 4); call make_train_step with mesh=None")
-
+    in place and returned. With ``mesh`` the step runs on ``DTensor`` s
+    placed over it (the module docstring); ``batch_shapes`` (a dict of
+    leaves with shapes) fixes the batch's specs, which are otherwise read
+    from each batch."""
     def loss_of(params, batch):
         return M.loss_fn(params, cfg, batch, remat=tcfg.remat)
 
@@ -125,13 +136,38 @@ def make_train_step(cfg, tcfg: TrainConfig, mesh=None, batch_shapes=None):
         metrics = {**metrics, **om, "loss_total": loss}
         return params, opt_state, err_state, metrics
 
-    return step
+    if mesh is None:
+        return step
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh with dims ('data', "
+                        f"'model') or ('pod', 'data', 'model'), got "
+                        f"{type(mesh).__name__}")
+    shapes = M.model_param_shapes(cfg)
+    psh = named_sharding_tree(mesh, param_specs(shapes, mesh))
+    osh = named_sharding_tree(mesh, opt_state_specs(shapes, mesh))
+    bsh = (named_sharding_tree(mesh, batch_specs(mesh, batch_shapes))
+           if batch_shapes is not None else None)
+
+    def mesh_step(params, opt_state, err_state, batch):
+        params = distribute_tree(params, psh)
+        opt_state = distribute_tree(opt_state, osh)
+        if err_state is not None:
+            err_state = distribute_tree(err_state, psh)
+        batch = distribute_tree(batch, bsh or named_sharding_tree(
+            mesh, batch_specs(mesh, batch)))
+        with implicit_replication():
+            return step(params, opt_state, err_state, batch)
+
+    return mesh_step
 
 
 def _host_metrics(metrics) -> dict:
-    """Every metric as a Python float, in one device-to-host transfer."""
+    """Every metric as a Python float, in one device-to-host transfer (a
+    ``DTensor`` metric gathered whole first)."""
     keys = list(metrics)
-    vals = torch.stack([metrics[k].to(F32) for k in keys]).cpu().tolist()
+    vals = [metrics[k] for k in keys]
+    vals = [v.full_tensor() if isinstance(v, DTensor) else v for v in vals]
+    vals = torch.stack([v.to(F32) for v in vals]).cpu().tolist()
     return dict(zip(keys, vals))
 
 
@@ -139,6 +175,13 @@ def train(cfg, tcfg: TrainConfig, *, seed=0, mesh=None, extra_batch=None,
           verbose=True, device=None):
     """Run the loop on ``device`` (None: CUDA, raising without a card).
     Returns (params, history).
+
+    mesh: a ``DeviceMesh`` on ``device``'s type; the initial params (every
+    rank draws the same ones from ``seed``), the optimizer and error state
+    and each step's batch are placed over it, a restart restores onto it
+    (``restore_checkpoint(shardings=)``), and the returned params are
+    ``DTensor`` s. A checkpoint holds whole arrays, so it restores on any
+    mesh or none.
 
     extra_batch: dict of static per-batch tensors (frames / patch_embeds
     stubs) merged into every step's batch.
@@ -150,12 +193,24 @@ def train(cfg, tcfg: TrainConfig, *, seed=0, mesh=None, extra_batch=None,
     latest = ckpt.latest_step(tcfg.ckpt_dir) if tcfg.ckpt_dir else None
     if latest is not None:               # restart path
         like = M.init_model(cfg, device="meta")
+        like = (like, init_opt_state(like))
+        shardings = None
+        if mesh is not None:
+            shapes = M.model_param_shapes(cfg)
+            shardings = named_sharding_tree(mesh, (
+                param_specs(shapes, mesh), opt_state_specs(shapes, mesh)))
         (params, opt_state), start_step = ckpt.restore_checkpoint(
-            tcfg.ckpt_dir, (like, init_opt_state(like)), step=latest,
-            device=dev)
+            tcfg.ckpt_dir, like, step=latest, device=dev,
+            shardings=shardings)
     else:
         params = M.init_model(cfg, seed, device=dev)
         opt_state = init_opt_state(params)
+        if mesh is not None:
+            shapes = M.model_param_shapes(cfg)
+            params = distribute_tree(params, named_sharding_tree(
+                mesh, param_specs(shapes, mesh)))
+            opt_state = distribute_tree(opt_state, named_sharding_tree(
+                mesh, opt_state_specs(shapes, mesh)))
     err_state = (gc.init_error_state(params)
                  if tcfg.grad_compress != "none" else None)
 
