@@ -264,6 +264,19 @@ Phases (any failure exits non-zero before the result line is printed):
         16 x 16 mesh, each in a subprocess, each record's scan correction
         equal to its measured collective bytes; the analytic model's
         roofline at phase o's batch and length beside its measured step.
+     q. temperature sampling (after phase 5's LM times, on phase f's
+        Qwen3-4B params while they are alive): ``greedy_generate`` on 8 x 64
+        seeded tokens, 16 new, with a float decode cache (no kernel on its
+        path: every count must stay 0); temperature 0.0 with a generator and
+        0.7 without one equal the greedy tokens; two runs at 0.7 from
+        ``torch.Generator('cuda').manual_seed(0)`` identical (seed 1's
+        differences printed); the first step's ``sample_tokens`` on the
+        card equal to the CPU's on the same logits and noise at T in {0.3,
+        0.7, 1.7}; 2^20 draws over V=16 at T=0.7 from ``gumbel_noise`` on
+        the card against ``softmax(logits / 0.7)``, the chi-square below
+        its 1 - 1e-4 quantile (15 dof); ``confusion_matrix`` of phase a's
+        first 2048 served predictions on the card equal to a numpy
+        ``np.add.at`` count, ``macro_f1`` equal to the CPU port's.
      Each classify must launch its switch kernel once, the predictions must
      equal those of the same server on the plain path, the switch's answers
      must equal CPU ``table_predict`` on 64 rows (confidence within 2 ulps
@@ -290,10 +303,13 @@ Phases (any failure exits non-zero before the result line is printed):
      version, ``scaled_dot_product_attention(enable_gqa=True)`` on an
      already-dequantized cache (the library yardstick, dequant left out),
      the bound and the split it chose; B8 at h2o-danube-1.8b's shape
-     (B=8, S=4096, G=8, M=4, hd=80) with its bound; the prefill, the decode
+     (B=8, S=4096, G=8, M=4, hd=80) with its plain version, SDPA on the
+     dequantized cache and its bound; the prefill, the decode
      step (eager and from the graph, medians; the graph's replay alone),
      tokens/s and B8's share of a step; then two more decode steps under
      ``torch.profiler`` on each route, kernels summed by name; for each
+     sampling (phase q): one eager decode step with a sampled token choice
+     against one with the argmax, and the choice alone; for each
      family of phase n its prefill, decode step eager and from the graph,
      tokens/s, and B8 on its served cache (kernel, plain, SDPA on the
      dequantized cache, bound). This
@@ -1006,6 +1022,10 @@ def main() -> int:
     kernel_rows.append(lm_row)
     _profile_decode(torch, lm, smi)
     _profile_decode(torch, lm, smi, route="graph")
+
+    # -- 4q. temperature sampling on phase 4f's params, the metrics ----------
+    sampling = _sample_lm(torch, np, dev, lm, runs["auto"], smi)
+    print("times (phase 5, sampling and metrics): " + json.dumps(sampling))
     del lm
     torch.cuda.empty_cache()
 
@@ -4672,7 +4692,6 @@ def _time_b8_served(torch, da, args, label, smi):
     """B8 on a served cache's layer: kernel (graph of 50), plain (graph of
     10), ``scaled_dot_product_attention(enable_gqa=True)`` on the cache
     dequantized beforehand (graph of 10), and the bound."""
-    import torch.nn.functional as F
     from repro_torch.models.attention import _inv_sqrt
     q, kq, ks, vq, vs, valid = args
     b, s, g, hd = kq.shape
@@ -4682,12 +4701,7 @@ def _time_b8_served(torch, da, args, label, smi):
                                                             scale=scale))
     plain_ms = _graph_ms(torch, lambda: da.decode_attention_int8_ref(
         *args, scale=scale), inner=10)
-    kd = (kq.to(torch.float32) * ks).permute(0, 2, 1, 3).contiguous()
-    vd = (vq.to(torch.float32) * vs).permute(0, 2, 1, 3).contiguous()
-    qh = q.reshape(b, g * m, 1, hd)
-    mask = (valid > 0.5)[:, None, None, :]
-    library_ms = _graph_ms(torch, lambda: F.scaled_dot_product_attention(
-        qh, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True), inner=10)
+    library_ms = _time_b8_library(torch, args, scale)
     bound_ms, bound_by, n_bytes, ops = _b8_bound(valid, b, s, g, m, hd)
     plan = da.plan_for(q, kq, vq)
     print(f"time decode_attention (B8, {label} served cache layer 0, B={b} "
@@ -4924,15 +4938,33 @@ def _time_b8_danube(torch, np, dev, da, smi):
                                                             scale=scale))
     plain_ms = _graph_ms(torch, lambda: da.decode_attention_int8_ref(
         *args, scale=scale), inner=10)
+    library_ms = _time_b8_library(torch, args, scale)
     bound_ms, bound_by, n_bytes, _ = _b8_bound(args[5], 8, 4096, 8, 4, 80)
     plan = da.plan_for(args[0], args[1], args[3])
     print(f"time decode_attention (B8, h2o-danube shape B=8 S=4096 G=8 M=4 "
           f"hd=80, holes): kernel {ms:.5f} ms (graph of 50); plain "
-          f"{plain_ms:.5f} ms (graph of 10); bound {bound_ms:.6f} ms "
-          f"({bound_by}: {n_bytes} B); split n_split={plan['n_split']} "
-          f"grid={plan['grid']} kd={plan['kd']} on {smi}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "n_split": plan["n_split"]}
+          f"{plain_ms:.5f} ms (graph of 10); library sdpa(enable_gqa) on the "
+          f"dequantized cache {library_ms:.5f} ms (graph of 10); bound "
+          f"{bound_ms:.6f} ms ({bound_by}: {n_bytes} B); split n_split="
+          f"{plan['n_split']} grid={plan['grid']} kd={plan['kd']} on {smi}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "n_split": plan["n_split"]}
+
+
+def _time_b8_library(torch, args, scale) -> float:
+    """``scaled_dot_product_attention(enable_gqa=True)`` on B8's operands
+    with the cache dequantized beforehand (the dequant left out), device
+    time by a graph of 10: the library yardstick of every B8 row."""
+    import torch.nn.functional as F
+    q, kq, ks, vq, vs, valid = args
+    b, s, g, hd = kq.shape
+    kd = (kq.to(torch.float32) * ks).permute(0, 2, 1, 3).contiguous()
+    vd = (vq.to(torch.float32) * vs).permute(0, 2, 1, 3).contiguous()
+    qh = q.reshape(b, g * q.shape[2], 1, hd)
+    mask = (valid > 0.5)[:, None, None, :]
+    return _graph_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=mask, scale=scale, enable_gqa=True), inner=10)
 
 
 def _profile_decode(torch, lm, smi, route="eager"):
@@ -4967,6 +4999,175 @@ def _profile_decode(torch, lm, smi, route="eager"):
         print(f"  {dev_ms / 2:9.3f} ms a step ({100 * dev_ms / busy:5.1f}%) "
               f"x{count // 2} {key[:90]}")
 
+
+
+# -- phase 4q: temperature sampling and the metrics ---------------------------
+
+SAMPLE_BATCH, SAMPLE_PROMPT, SAMPLE_STEPS = 8, 64, 16
+SAMPLE_T = 0.7
+CHI2_DRAWS, CHI2_VOCAB = 1 << 20, 16
+
+
+def _sample_lm(torch, np, dev, lm, served, smi):
+    """Phase 4q on phase 4f's Qwen3-4B params (still alive): greedy_generate
+    on 8 x 64 seeded tokens, 16 new, with a float decode cache. (a) T=0.0
+    with a generator and T=0.7 with none equal the greedy tokens; (b) two
+    runs at T=0.7 from ``torch.Generator('cuda').manual_seed(0)`` are
+    identical (and seed 1's differences printed); (e) no kernel launches in
+    those runs (counts set to 0 before, read after); (c) the first step's
+    ``sample_tokens`` on the card equals the CPU's on copies of the same
+    logits and noise at T in {0.3, 0.7, 1.7}, and at T=0.7 the seeded run's
+    first tokens; (d) 2^20 draws over V=16 at T=0.7 from ``gumbel_noise`` on
+    the card against ``softmax(logits / 0.7)``: chi-square below its
+    1 - 1e-4 quantile; (f) ``confusion_matrix`` of phase 4a's first 2048
+    served predictions on the card equals a numpy ``np.add.at`` count and
+    ``macro_f1`` the CPU port's. Then a sampled eager step against a greedy
+    one. -> the numbers phase 6 prints."""
+    from scipy import stats
+    from repro_torch.ml import confusion_matrix, macro_f1
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import (_place_prefill_into_decode,
+                                            greedy_generate, gumbel_noise,
+                                            sample_tokens)
+
+    cfg, params = lm["cfg"], lm["eng"].params
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (SAMPLE_BATCH, SAMPLE_PROMPT)).astype(
+            np.int32)).to(dev)
+    batch = {"tokens": toks}
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def generate(**kw):
+        return greedy_generate(cfg, params, batch, n_new=SAMPLE_STEPS, **kw)
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    greedy = generate()
+    zero_t = generate(temperature=0.0, generator=gen(0))
+    no_gen = generate(temperature=SAMPLE_T)
+    runs = [generate(temperature=SAMPLE_T, generator=gen(seed))
+            for seed in (0, 0, 1)]
+    torch.cuda.synchronize()
+    path = _counts()
+    print(f"main-path launches (q: greedy_generate, float cache, 6 runs of "
+          f"{SAMPLE_STEPS} steps): {path}")
+    if any(path.values()):                                          # (e)
+        raise AssertionError(f"sampling: a kernel launched on a float "
+                             f"cache: {path}")
+    if not (torch.equal(zero_t, greedy) and torch.equal(no_gen, greedy)):
+        raise AssertionError("sampling: a fallback left the greedy path")
+    if not torch.equal(runs[0], runs[1]):                           # (b)
+        raise AssertionError("sampling: one seed gave two token streams")
+    n_tok = runs[0].numel()
+    seed1_diff = int((runs[0] != runs[2]).sum())
+    for out in (greedy, runs[0]):
+        if (out.shape != (SAMPLE_BATCH, SAMPLE_STEPS)
+                or out.dtype != torch.int32 or int(out.min()) < 0
+                or int(out.max()) >= cfg.vocab_size):
+            raise AssertionError("sampling: tokens of the wrong shape, "
+                                 "dtype or range")
+    greedy_diff = int((runs[0] != greedy).sum())
+    print(f"sampling: T=0.0 with a generator and T={SAMPLE_T} without one "
+          f"equal greedy over {n_tok} tokens; T={SAMPLE_T} seed 0 twice "
+          f"identical; seed 1 differs from seed 0 in {seed1_diff}/{n_tok} "
+          f"tokens, seed 0 from greedy in {greedy_diff}/{n_tok}")
+
+    # (c) the first step on the card against the CPU, same logits and noise
+    logits, pcache = M.prefill(params, cfg, batch)
+    noise = gumbel_noise(tuple(logits.shape), gen(0), dev)
+    for temperature in (0.3, SAMPLE_T, 1.7):
+        card = sample_tokens(logits, temperature, noise)
+        cpu = sample_tokens(logits.cpu(), temperature, noise.cpu())
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"sampling: card != CPU at T={temperature}")
+        if temperature == SAMPLE_T and not torch.equal(card, runs[0][:, 0]):
+            raise AssertionError("sampling: the first step is not the "
+                                 "seeded run's first token")
+    print("sampling: the first step's sample_tokens on the card equals the "
+          "CPU's bit for bit at T in (0.3, 0.7, 1.7), and the seeded run's "
+          "first tokens")
+
+    # (d) the card's own draws against the softmax
+    lg = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        CHI2_VOCAB).astype(np.float32)).to(dev)
+    draws = sample_tokens(lg.expand(CHI2_DRAWS, CHI2_VOCAB), SAMPLE_T,
+                          gumbel_noise((CHI2_DRAWS, CHI2_VOCAB), gen(3), dev))
+    counts = torch.bincount(draws.long(), minlength=CHI2_VOCAB).cpu().numpy()
+    p = torch.softmax(lg.double() / SAMPLE_T, dim=-1).cpu().numpy()
+    chi2 = float((((counts - CHI2_DRAWS * p) ** 2) / (CHI2_DRAWS * p)).sum())
+    limit = float(stats.chi2.ppf(1 - 1e-4, CHI2_VOCAB - 1))
+    print(f"sampling: {CHI2_DRAWS} draws over V={CHI2_VOCAB} at "
+          f"T={SAMPLE_T} on the card: chi-square {chi2:.4f} against "
+          f"softmax(logits / {SAMPLE_T}), limit {limit:.4f} "
+          f"(1 - 1e-4 quantile, {CHI2_VOCAB - 1} dof)")
+    if not chi2 < limit:
+        raise AssertionError(f"sampling: chi-square {chi2} >= {limit}")
+
+    # (f) the metrics at the served batch
+    pred = served["pred"][:2048]
+    y = np.asarray(served["y_test"][:2048]).astype(np.int64)
+    cm = confusion_matrix(torch.as_tensor(y, device=dev), pred, 2)
+    want = np.zeros(4, np.int64)
+    np.add.at(want, y * 2 + pred.cpu().numpy().astype(np.int64), 1)
+    if (cm.device != pred.device or cm.dtype != torch.int32
+            or not np.array_equal(cm.cpu().numpy(), want.reshape(2, 2))):
+        raise AssertionError(f"confusion_matrix on the card {cm.tolist()} "
+                             f"!= numpy {want.reshape(2, 2).tolist()}")
+    f1_card = macro_f1(torch.as_tensor(y, device=dev), pred, 2)
+    f1_cpu = macro_f1(y, pred.cpu(), 2)
+    if f1_card != f1_cpu:
+        raise AssertionError(f"macro_f1 on the card {f1_card!r} != CPU "
+                             f"{f1_cpu!r}")
+    print(f"metrics (phase 4a's first 2048 served rows): confusion_matrix "
+          f"{cm.tolist()} on the card equals numpy's; macro_f1 {f1_card!r} "
+          f"equals the CPU port's")
+
+    # one decode step with its token choice, sampled against greedy, eager
+    max_len = SAMPLE_PROMPT + SAMPLE_STEPS + 1
+    caches = _place_prefill_into_decode(M.init_decode_cache(
+        cfg, SAMPLE_BATCH, max_len, dtype=torch.float32, device=dev), pcache)
+    del pcache
+    g = gen(5)
+
+    def sampled():
+        nxt = sample_tokens(logits, SAMPLE_T, gumbel_noise(
+            tuple(logits.shape), g, dev))
+        M.decode_step(params, cfg, nxt, SAMPLE_PROMPT, caches)
+
+    def greedy_step():
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        M.decode_step(params, cfg, nxt, SAMPLE_PROMPT, caches)
+
+    step_ms = {"sampled": [], "greedy": []}
+    for _ in range(5):                           # in turns: the host moves
+        step_ms["sampled"].append(_median_ms(torch, sampled, reps=3,
+                                             warmup=1))
+        step_ms["greedy"].append(_median_ms(torch, greedy_step, reps=3,
+                                            warmup=1))
+    choice_ms = {
+        "sampled": _median_ms(torch, lambda: sample_tokens(
+            logits, SAMPLE_T, gumbel_noise(tuple(logits.shape), g, dev))),
+        "greedy": _median_ms(torch, lambda: torch.argmax(
+            logits, dim=-1).to(torch.int32))}
+    out = {"sampled_step_ms": statistics.median(step_ms["sampled"]),
+           "greedy_step_ms": statistics.median(step_ms["greedy"]),
+           "sampled_choice_ms": choice_ms["sampled"],
+           "greedy_choice_ms": choice_ms["greedy"], "chi2": chi2,
+           "chi2_limit": limit, "seed1_diff": seed1_diff,
+           "greedy_diff": greedy_diff, "n_tokens": n_tok,
+           "confusion_matrix": cm.tolist(), "macro_f1": f1_card,
+           "launches": path}
+    print(f"time lm[{cfg.name}, f32, batch {SAMPLE_BATCH}, float cache of "
+          f"{max_len} slots] one eager decode step with its token choice: "
+          f"sampled (gumbel_noise + sample_tokens, T={SAMPLE_T}) "
+          f"{out['sampled_step_ms']:.3f} ms, greedy (argmax) "
+          f"{out['greedy_step_ms']:.3f} ms (CUDA events, medians of 5 "
+          f"turns of 3); the choice alone {choice_ms['sampled']:.5f} ms "
+          f"against {choice_ms['greedy']:.5f} ms (median of {REPS}) on "
+          f"{smi}")
+    return out
 
 
 # -- phase 4o: LM training ----------------------------------------------------

@@ -2,8 +2,9 @@
 
 Port of ``repro/analysis/cli.py``: the same JSON report (``ok``,
 ``n_findings``, ``results[].rule``, ``results[].selftest_fired``). Exit
-status 0 iff every rule is clean (no findings, no rule crashes, and every
-rule's seeded violation fired). The hot-path audit
+status 0 iff every rule is clean (no findings, no rule crashes, and no
+rule's seeded violation silent; ``--no-selftests`` skips them outside
+``--strict``). The hot-path audit
 and the fits run on the card unless ``--device cpu`` is given; without a
 card the default fails loudly.
 
@@ -11,6 +12,7 @@ card the default fails loudly.
     python -m repro_torch.analysis --json            # machine output
     python -m repro_torch.analysis --strict          # the gate
     python -m repro_torch.analysis --section lint    # one section only
+    python -m repro_torch.analysis --no-selftests    # rules only
     python -m repro_torch.analysis --device cpu      # plain paths, gloo
 """
 
@@ -60,22 +62,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--json", action="store_true",
                     help="machine-readable report on stdout")
     ap.add_argument("--strict", action="store_true",
-                    help="the gate, as the reference's CI calls it; the "
-                         "self-tests always run, so any finding, rule crash "
-                         "or silent self-test exits nonzero with or "
-                         "without it")
+                    help="CI mode: self-tests forced on; nonzero exit on "
+                         "any finding, rule crash, or silent self-test")
     ap.add_argument("--section", choices=SECTIONS, action="append",
                     help="run only this section (repeatable)")
+    ap.add_argument("--no-selftests", action="store_true",
+                    help="skip the seeded-violation self-tests "
+                         "(ignored under --strict)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the hot-path audit and the fits run")
     args = ap.parse_args(argv)
 
+    selftests = args.strict or not args.no_selftests
     from repro_torch.device import resolve_device
     dev = resolve_device(args.device)       # no card: fails here, loudly
     _register_all(dev)
     from repro_torch.analysis.hotpath import own_group
     with own_group():
-        report = run_rules(sections=args.section)
+        report = run_rules(sections=args.section, selftests=selftests)
     if args.json:
         print(json.dumps(report.to_json(), indent=2, sort_keys=True))
     else:

@@ -126,8 +126,10 @@ class AnalysisReport:
         }
 
 
-def run_rules(sections: Optional[Sequence[str]] = None) -> AnalysisReport:
-    """Run every registered rule and its self-test.
+def run_rules(sections: Optional[Sequence[str]] = None,
+              selftests: bool = True) -> AnalysisReport:
+    """Run every registered rule (and optionally its self-test; one not
+    run reports ``selftest_fired`` None).
 
     A rule that raises is reported as a failed result rather than
     aborting the whole run, so one broken auditor cannot mask the rest.
@@ -140,7 +142,8 @@ def run_rules(sections: Optional[Sequence[str]] = None) -> AnalysisReport:
         error = ""
         try:
             findings = list(rule.check())
-            fired = bool(rule.selftest())
+            if selftests:
+                fired = bool(rule.selftest())
         except Exception as exc:  # noqa: BLE001 — isolate rule crashes into the report
             error = f"{type(exc).__name__}: {exc}"
         results.append(RuleResult(rule=rule.name, section=rule.section,

@@ -22,8 +22,9 @@ replays it. A failed capture raises. On the CPU every step runs eagerly
 an int8 cache the attention core of every GQA layer is the B8 kernel on
 the card, inside the graph.
 
-Sampling: greedy; the engine is deliberately simple — batching discipline
-(fixed batch, fixed max_len) mirrors the reference's.
+Sampling: greedy or temperature (``greedy_generate``); the engine is
+deliberately simple — batching discipline (fixed batch, fixed max_len)
+mirrors the reference's.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.device import true_div
 from repro_torch.models import model as M
 from repro_torch.models.transformer import tree_leaves
 
@@ -119,13 +121,43 @@ def _place_prefill_into_decode(decode_cache, prefill_cache):
     return decode_cache
 
 
+def _gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel``'s default ('low') transform of uniforms in
+    ``[finfo(f32).tiny, 1)``."""
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` in f32, drawn on ``device`` from
+    ``generator``: uniforms in ``[finfo(f32).tiny, 1)`` through
+    ``_gumbel_from_uniform``, as ``jax.random.gumbel`` draws it."""
+    u = torch.rand(shape, generator=generator, device=device,
+                   dtype=torch.float32)
+    return _gumbel_from_uniform(u.clamp_min_(torch.finfo(torch.float32).tiny))
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float,
+                  noise: torch.Tensor) -> torch.Tensor:
+    """One categorical draw a row from ``logits / temperature`` by the
+    Gumbel-max trick, as ``jax.random.categorical`` draws it: the first
+    maximum of ``noise + logits / temperature``. The division is the
+    correctly rounded one (``device.true_div``), as the reference's eager
+    division gives it. -> int32 tokens."""
+    return torch.argmax(noise + true_div(logits, temperature),
+                        dim=-1).to(torch.int32)
+
+
 def greedy_generate(cfg, params, batch_dict, *, n_new: int,
                     max_len: Optional[int] = None,
-                    cache_dtype=torch.float32):
+                    cache_dtype=torch.float32, temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None):
     """Prefill the prompt (+ its frames or patch embeddings), then decode
-    n_new tokens greedily. Returns (B, n_new) int32. (The reference's
-    temperature sampling waits: nothing in the port calls it, and its draws
-    could not match ``jax.random``.)"""
+    n_new tokens. Returns (B, n_new) int32.
+
+    Greedy (the first argmax) unless ``temperature > 0.0`` and a
+    ``generator`` is given (the reference's ``key``): then each step draws
+    one (B, V) noise tensor from ``generator`` on the params' device, in
+    step order, and samples ``sample_tokens(logits, temperature, noise)``."""
     dev = params["embed"].device
     batch = dict(batch_dict)
     batch["tokens"] = torch.as_tensor(batch_dict["tokens"], device=dev)
@@ -142,7 +174,11 @@ def greedy_generate(cfg, params, batch_dict, *, n_new: int,
     outs = []
     pos = s + n_front
     for i in range(n_new):
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+        if temperature > 0.0 and generator is not None:
+            noise = gumbel_noise(tuple(logits.shape), generator, dev)
+            nxt = sample_tokens(logits, temperature, noise)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         outs.append(nxt)
         logits, caches = M.decode_step(params, cfg, nxt, pos + i, caches)
     return torch.stack(outs, dim=1)

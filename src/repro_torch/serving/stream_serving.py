@@ -480,7 +480,7 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
                            default: int = DEFAULT_CHUNK_WINDOWS,
                            candidate_filter=None, reps: int = 3,
                            seed: int = 0, cache_key=None, time_fn=None,
-                           events=None) -> int:
+                           verbose: bool = False, events=None) -> int:
     """Measured K sweep at server init: pick ``chunk_windows``.
 
     ``make_server(k)`` builds a throwaway server for chunk size k; each
@@ -494,7 +494,8 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
     sharded tier's per-device backend slices); when it rejects the default,
     the first surviving candidate takes the default's role.
     ``time_fn(k) -> seconds`` replaces the measurement (deterministic
-    tests); ``cache_key`` memoizes the winner and the timings. Each
+    tests); ``verbose`` prints each candidate's time as it is taken;
+    ``cache_key`` memoizes the winner and the timings. Each
     throwaway server's graphs are freed once it is timed. ``events`` (an
     ``obs`` ``EventBus``) gets one ``autotune`` event, on a cache hit as on
     a decision.
@@ -535,7 +536,8 @@ def autotune_chunk_windows(make_server, *, window: int, n_buckets: int,
         finally:
             srv.release_graphs()
 
-    best, timings = sweep_best(cands, time_k, default=default)
+    best, timings = sweep_best(cands, time_k, default=default,
+                               verbose=verbose, label="chunk-autotune")
     if time_fn is None and torch.cuda.is_available():
         torch.cuda.empty_cache()        # the throwaway servers' graph pools
     if cache_key is not None:

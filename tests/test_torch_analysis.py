@@ -375,6 +375,55 @@ def test_cli_section_filter_and_nonstrict_lint():
     assert main(["--section", "lint", "--json", "--device", "cpu"]) == 0
 
 
+def test_run_rules_can_skip_the_selftests():
+    """``selftests=False`` runs the checks only: a self-test not run
+    reports None, which does not fail the rule, as the reference's
+    ``run_rules`` reports it."""
+    from repro.analysis import registry as jreg
+    calls = []
+
+    def selftest():
+        calls.append(1)
+        return []
+
+    rule = dict(name="t-skip", section="lint", doc="", check=lambda: [],
+                selftest=selftest)
+    register(Rule(**rule))
+    jreg.register(jreg.Rule(**rule))
+    try:
+        report = run_rules(sections=("lint",), selftests=False)
+        ref = jreg.run_rules(sections=("lint",), selftests=False)
+        got = {r.rule: r for r in report.results}["t-skip"]
+        want = {r.rule: r for r in ref.results}["t-skip"]
+        assert got.selftest_fired is None and got.ok
+        assert not calls
+        assert ({k: v for k, v in got.to_json().items() if k != "elapsed_s"}
+                == {k: v for k, v in want.to_json().items()
+                    if k != "elapsed_s"})
+        assert report.ok
+        assert not run_rules(sections=("lint",)).ok    # the silent self-test
+        assert calls == [1]
+    finally:
+        RULES.pop("t-skip")
+        jreg.RULES.pop("t-skip")
+
+
+def test_cli_no_selftests_and_strict(capsys):
+    """``--no-selftests`` leaves every ``selftest_fired`` null; under
+    ``--strict`` the self-tests run all the same."""
+    from repro_torch.analysis.cli import main
+    assert main(["--no-selftests", "--section", "lint", "--json",
+                 "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["ok"] and report["results"]
+    assert all(r["selftest_fired"] is None for r in report["results"])
+    assert main(["--strict", "--no-selftests", "--section", "lint",
+                 "--json", "--device", "cpu"]) == 0
+    report = json.loads(capsys.readouterr().out)
+    assert report["ok"] and report["results"]
+    assert all(r["selftest_fired"] is True for r in report["results"])
+
+
 def test_cli_defaults_to_the_card_and_fails_loudly_without_one():
     from repro_torch.analysis.cli import main
     if torch.cuda.is_available():

@@ -523,6 +523,25 @@ def test_chunk_autotune_deterministic():
     tserving.clear_chunk_tune_cache()
 
 
+def test_chunk_autotune_verbose_prints_the_sweep(capsys):
+    """``verbose=True`` prints each candidate's per-packet time as the
+    reference's sweep prints it, and picks the same K as ``verbose=False``
+    and as the reference."""
+    table = {4: 4.0, 8: 6.0, 16: 9.0, 32: 20.0}
+    kw = dict(window=64, n_buckets=128, time_fn=table.__getitem__)
+    quiet = tserving.autotune_chunk_windows(None, **kw)
+    assert capsys.readouterr().out == ""
+    loud = tserving.autotune_chunk_windows(None, verbose=True, **kw)
+    out = capsys.readouterr().out
+    ref = jserving.autotune_chunk_windows(None, verbose=True, **kw)
+    assert capsys.readouterr().out == out
+    assert loud == quiet == ref
+    lines = out.splitlines()
+    assert len(lines) == len(table)
+    for line, (k, dt) in zip(lines, table.items()):
+        assert line == f"chunk-autotune {k} -> {dt / (k * 64) * 1e3:.3f} ms"
+
+
 def test_chunk_windows_auto_serves_like_per_window(chunk_setup):
     """``chunk_windows="auto"`` times every candidate on throwaway servers
     and serves with the winner, equal to the per-window server."""
