@@ -289,8 +289,9 @@ Phases (any failure exits non-zero before the result line is printed):
      shape: the lookups at a 2048-row batch (B2 at both of its shapes, the
      RF switch's and the isolation forest's, each a row with its own
      launches; B1, B2 and B7 also by rows a block), the range match at the
-     16000-row fit (and at 2048 rows, kernel and ``searchsorted`` in
-     turn), B1 also at the streaming step's shape (its 1024 rows through
+     16000-row fit and the finance fit's F=130 (and at 2048 rows, kernel
+     and ``searchsorted`` in turn; then each edge row shuffled against the
+     sorted rows, in turn), B1 also at the streaming step's shape (its 1024 rows through
      the RF 4x3 switch), B5 and B6 at N=8192, W=1024 (B6's timeout sweep
      against its plain composition and the parent's 14-launch sweep, its
      mask-taking entry against ``torch.where``, its library call; B5 has
@@ -1932,6 +1933,26 @@ def _check_new_shapes(torch, np, dev, ek, bk, check_launch, models, fin):
                      lambda: bk.bucketize(x, fin_edges),
                      lambda: bk.bucketize_ref(x, fin_edges),
                      f"N={n} F={fin_edges.shape[0]} U={fin_edges.shape[1]}")
+    # the finance width's harder rows: each edge row shuffled, NaN and +-inf
+    # in x, ragged N, one feature, and a table past the shared-memory budget
+    # (U=600: the serial walk)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    shuf = torch.gather(fin_edges, 1, torch.argsort(torch.rand(
+        fin_edges.shape, generator=gen, device=dev), dim=1)).contiguous()
+    xs = fin_x[:2049].clone()
+    xs[:3, 0] = torch.tensor([float("nan"), float("inf"), float("-inf")],
+                             device=dev)
+    xs[:, 5] = float("nan")
+    wide = torch.sort(torch.randn((fin_x.shape[1], 600), generator=gen,
+                                  device=dev), dim=1).values
+    for label, x, e in (("shuffled", xs, shuf), ("specials", xs, fin_edges),
+                        ("one_feature", fin_x[:2049, :1].contiguous(),
+                         fin_edges[:1].contiguous()),
+                        ("past_budget", fin_x[:2048].contiguous(), wide)):
+        check_launch("bucketize", f"bucketize:finance_{label}",
+                     lambda: bk.bucketize(x, e),
+                     lambda: bk.bucketize_ref(x, e),
+                     f"N={x.shape[0]} F={e.shape[0]} U={e.shape[1]}")
     payload = encode_csv_payload(xte[:512], width=8)
     cols = list(range(payload.shape[1] // 8))
     host = file_features_csv(payload, cols, device="cpu")
@@ -4027,6 +4048,12 @@ def _time_classical(torch, ck, name, art, x, launches):
 
 
 def _time_bucketize(torch, bk, edges, x, launches):
+    """B4 at (N, F) against its plain version and ``torch.searchsorted(edges,
+    x.T)``, then at 2048 rows against searchsorted in turn, then on the same
+    edge rows each shuffled (a seeded permutation: the count holds on any
+    row, searchsorted does not) against the sorted rows in turn, at both
+    N. -> B4's kernel row."""
+    from repro_torch.kernels import _build
     n, f = x.shape
     u = edges.shape[1]
     out_k = bk.bucketize(x, edges)
@@ -4043,6 +4070,7 @@ def _time_bucketize(torch, bk, edges, x, launches):
     n_bytes = 4 * (x.numel() + edges.numel() + n * f)
     ops = n * f * u
     bound_ms, bound_by = _bound(n_bytes, ops)
+    plan = bk.launch_plan(n, f, u, sms=_build.sm_count(x.device))
     # the same edges at a 2048-row batch: kernel and searchsorted in turn
     # (kernel, library, kernel, library), graphs of 50
     x2 = x[:2048].contiguous()
@@ -4056,6 +4084,29 @@ def _time_bucketize(torch, bk, edges, x, launches):
           f"{small[2]:.5f} ms, torch.searchsorted(edges, x.T) {small[1]:.5f} "
           f"/ {small[3]:.5f} ms (graphs of 50, in turn); bound {b2:.6f} ms "
           f"({o2})")
+    gen = torch.Generator(device=x.device).manual_seed(0)
+    perm = torch.argsort(torch.rand(edges.shape, generator=gen,
+                                    device=x.device), dim=1)
+    shuf = torch.gather(edges, 1, perm).contiguous()
+    shuf_ok = (torch.equal(bk.bucketize(x, shuf), bk.bucketize_ref(x, shuf))
+               and torch.equal(bk.bucketize(x2, shuf),
+                               bk.bucketize_ref(x2, shuf)))
+    if not shuf_ok:
+        raise AssertionError(f"bucketize kernel != plain on shuffled edge "
+                             f"rows at N={n} F={f} U={u}")
+    turns = {}
+    for label, xx in (("n", x), ("n2048", x2)):
+        turns[label] = [_graph_ms(torch, fn) for fn in (
+            lambda: bk.bucketize(xx, edges), lambda: bk.bucketize(xx, shuf),
+            lambda: bk.bucketize(xx, shuf), lambda: bk.bucketize(xx, edges))]
+    print(f"time bucketize on shuffled edge rows (equal to plain: "
+          f"{shuf_ok}): N={n} F={f} U={u} sorted {turns['n'][0]:.5f} / "
+          f"{turns['n'][3]:.5f} ms, shuffled {turns['n'][1]:.5f} / "
+          f"{turns['n'][2]:.5f} ms; N=2048 sorted {turns['n2048'][0]:.5f} / "
+          f"{turns['n2048'][3]:.5f}, shuffled {turns['n2048'][1]:.5f} / "
+          f"{turns['n2048'][2]:.5f} (graphs of 50, in turn); plan "
+          f"route={plan['route']} threads={plan['threads']} "
+          f"grid={plan['grid']} smem={plan['smem']}")
     return {"name": "bucketize", "route": "cuda",
             "source": "src/repro_torch/csrc/bucketize.cu",
             "replaces": "src/repro/kernels/bucketize.py:32",
@@ -4063,11 +4114,16 @@ def _time_bucketize(torch, bk, edges, x, launches):
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "ms_eager": ms_eager,
             "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
-            "shape": {"N": n, "F": f, "U": u, "block": bk.BLOCK},
+            "shape": {"N": n, "F": f, "U": u},
+            "plan": {k: plan[k] for k in ("route", "threads", "grid", "smem")},
             "n2048": {"ms": min(small[0], small[2]),
                       "library_ms": min(small[1], small[3]),
-                      "bound_ms": b2}}
-
+                      "bound_ms": b2},
+            "shuffled": {"ms": min(turns["n"][1:3]),
+                         "sorted_ms": min(turns["n"][0], turns["n"][3]),
+                         "n2048_ms": min(turns["n2048"][1:3]),
+                         "n2048_sorted_ms": min(turns["n2048"][0],
+                                                turns["n2048"][3])}}
 
 def _time_tuned(torch, tuned, xb, smi):
     """One 2048-row classify per server of phase 4d: the eager default, the
@@ -4189,7 +4245,7 @@ def _check_b8(torch, da, name, args, detail) -> float:
     plan = da.plan_for(args[0], args[1], args[3])
     print(f"case decode_attention:{name} {detail} launches={launched} "
           f"n_split={plan['n_split']} chunk={plan['chunk']} "
-          f"grid={plan['grid']} kd={plan['kd']} "
+          f"grid={plan['grid']} vec={plan['vec']} "
           f"max_abs_diff={err} within rtol={da.RTOL} atol={da.ATOL}: {ok}")
     if not ok:
         raise AssertionError(f"decode_attention kernel != plain: {name} "
@@ -4619,7 +4675,9 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
           f"max|sdpa - kernel| = {lib_gap}; bound {bound_ms:.6f} ms "
           f"({bound_by}: {n_bytes} B, {ops} flops); split n_split="
           f"{plan['n_split']} chunk={plan['chunk']} grid={plan['grid']} "
-          f"threads={plan['threads']} kd={plan['kd']} on {smi}")
+          f"threads={plan['threads']} m_group={plan['m_group']} "
+          f"vec={plan['vec']} stages={plan['stages']} smem={plan['smem']} "
+          f"on {smi}")
     print(f"time lm[{LM_ARCH}, f32, batch {LM_BATCH}]: prefill of "
           f"{LM_PROMPT} tokens {lm['prefill_ms']:.2f} ms; decode step "
           f"(eager, host clock to sync) median {step_ms:.3f} ms, min "
@@ -4644,7 +4702,8 @@ def _time_lm(torch, dev, da, lm, b8_err, smi):
             "shape": {"B": b, "S": s, "G": g, "M": m, "hd": hd,
                       "live": int(valid[0].sum())},
             "split": {"n_split": plan["n_split"], "chunk": plan["chunk"],
-                      "grid": list(plan["grid"]), "kd": plan["kd"]},
+                      "grid": list(plan["grid"]), "vec": plan["vec"],
+                      "stages": plan["stages"], "smem": plan["smem"]},
             "danube": danube,
             "decode_step_ms": {"eager": step_ms, "graph": graph_step_ms,
                                "graph_replay": replay_ms},
@@ -4711,12 +4770,14 @@ def _time_b8_served(torch, da, args, label, smi):
           f"{library_ms:.5f} ms (graph of 10); bound {bound_ms:.6f} ms "
           f"({bound_by}: {n_bytes} B, {ops} flops); split n_split="
           f"{plan['n_split']} grid={plan['grid']} m_group={plan['m_group']} "
-          f"kd={plan['kd']} on {smi}")
+          f"vec={plan['vec']} stages={plan['stages']} chunk={plan['chunk']} "
+          f"on {smi}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "shape": {"B": b, "S": s, "G": g, "M": m, "hd": hd},
             "split": {"n_split": plan["n_split"], "grid": list(plan["grid"]),
-                      "m_group": plan["m_group"], "kd": plan["kd"]}}
+                      "m_group": plan["m_group"], "vec": plan["vec"],
+                      "chunk": plan["chunk"], "stages": plan["stages"]}}
 
 
 def _serve_lm_families(torch, np, dev, da, smi):
@@ -4946,7 +5007,8 @@ def _time_b8_danube(torch, np, dev, da, smi):
           f"{plain_ms:.5f} ms (graph of 10); library sdpa(enable_gqa) on the "
           f"dequantized cache {library_ms:.5f} ms (graph of 10); bound "
           f"{bound_ms:.6f} ms ({bound_by}: {n_bytes} B); split n_split="
-          f"{plan['n_split']} grid={plan['grid']} kd={plan['kd']} on {smi}")
+          f"{plan['n_split']} chunk={plan['chunk']} grid={plan['grid']} "
+          f"vec={plan['vec']} stages={plan['stages']} on {smi}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "n_split": plan["n_split"]}
@@ -5676,5 +5738,100 @@ def _lm_mesh(torch, np, dev, smi, here, d, full):
     return out
 
 
+# -- B4 and B8 alone, for a side-by-side run of two trees ----------------------
+
+KERNEL_B4_SHAPES = ((16000, 5), (2048, 5), (16000, 130), (2048, 130))
+KERNEL_B8_SHAPES = (("qwen3-4b", (8, 32768, 8, 4, 128)),
+                    ("h2o-danube-1.8b", (8, 4096, 8, 4, 80)),
+                    ("recurrentgemma-2b", (8, 2048, 1, 10, 256)),
+                    ("arctic-480b", (8, 2048, 8, 7, 128)),
+                    ("phi-3-vision-4.2b", (8, 2048, 32, 1, 96)))
+
+
+def kernel_times(src, label) -> int:
+    """``python3 chip_smoke.py --kernels [SRC [LABEL]]``: B4 and B8 of the
+    ``repro_torch`` under SRC (default this checkout's ``src``), built from
+    that tree's sources, on seeded inputs: B4 at (N, F) in
+    ``KERNEL_B4_SHAPES`` (U=63) on sorted and on shuffled edge rows, beside
+    ``torch.searchsorted`` on the sorted ones; B8 at the five served shapes
+    of ``KERNEL_B8_SHAPES`` (every slot live), its plan, and its kernels'
+    device time by name under ``torch.profiler`` (the split kernel and the
+    combine). Each time is the device time a call from a CUDA graph of 50;
+    each output is checked against the plain version. Prints one JSON line
+    ``KERNELS {...}`` with the card's name and power limit."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(src))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bucketize as bk
+    from repro_torch.kernels import decode_attention as da
+    dev = torch.device("cuda")
+    _build.build_all()
+    res = {"label": label, "src": src, "card": _smi(), "b4": {}, "b8": {}}
+    rng = np.random.default_rng(0)
+    for n, f in KERNEL_B4_SHAPES:
+        sorted_e = np.sort(rng.normal(size=(f, 63)), axis=1).astype(
+            np.float32)
+        x = torch.from_numpy(rng.normal(size=(n, f)).astype(np.float32)).to(
+            dev)
+        xt = x.t().contiguous()
+        for order, e in (("sorted", sorted_e),
+                         ("shuffled", rng.permuted(sorted_e, axis=1))):
+            et = torch.from_numpy(np.ascontiguousarray(e)).to(dev)
+            if not torch.equal(bk.bucketize(x, et), bk.bucketize_ref(x, et)):
+                raise AssertionError(f"bucketize != plain at N={n} F={f} "
+                                     f"{order}")
+            row = {"ms": _graph_ms(torch, lambda: bk.bucketize(x, et))}
+            if order == "sorted":
+                row["searchsorted_ms"] = _graph_ms(
+                    torch, lambda: torch.searchsorted(et, xt))
+            res["b4"][f"N={n} F={f} {order}"] = row
+    for name, (b, s, g, m, hd) in KERNEL_B8_SHAPES:
+        args = _b8_inputs(torch, np, dev, b, s, g, m, hd, seed=1)
+        scale = float(1.0 / np.sqrt(np.float32(hd)))
+
+        def call():
+            return da.decode_attention_int8(*args, scale=scale)
+
+        got = call()
+        ref = da.decode_attention_int8_ref(*args, scale=scale)
+        if not bool(((got - ref).abs() <= da.ATOL + da.RTOL * ref.abs())
+                    .all()):
+            raise AssertionError(f"decode_attention != plain at {name}")
+        del got, ref
+        ms = _graph_ms(torch, call)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        kernels = {("combine" if "combine" in e.key else "split"
+                    if "decode_attention" in e.key else e.key[:40]):
+                   e.self_device_time_total / 20e3
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        plan = da.plan_for(args[0], args[1], args[3])
+        res["b8"][name] = {
+            "ms": ms, "bound_ms": _b8_bound(args[5], b, s, g, m, hd)[0],
+            "profiler_ms": kernels,
+            "plan": {k: (list(v) if isinstance(v, tuple) else v)
+                     for k, v in plan.items()}}
+        del args
+        torch.cuda.empty_cache()
+    print("KERNELS " + json.dumps(res), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
+        here = os.path.dirname(os.path.abspath(__file__))
+        sys.exit(kernel_times(
+            sys.argv[2] if len(sys.argv) > 2 else os.path.join(here, "src"),
+            sys.argv[3] if len(sys.argv) > 3 else "this checkout"))
     sys.exit(main())

@@ -16,66 +16,75 @@
 // Bound: memory. One launch must read the int8 K/V once, the scales, the
 // mask and q, and write out: at the served shape (B=8, S=32768, G=8, M=4,
 // hd=128) 536.9 MB of int8, 16.8 MB of scales and 131 KB of mask (one (S,)
-// row broadcast over B), 0.165 ms at 3.35 TB/s. The arithmetic sits close
-// behind: 537 M int8 values to turn into f32 and 2.1 G multiply-adds.
+// row broadcast over B), 0.165 ms at 3.35 TB/s. The products (2.1 G
+// multiply-adds) run on the tensor cores, so what remains on the CUDA
+// cores is turning 537 M int8 codes into 16-bit operands.
 //
 // Design: split S across CTAs (flash-decoding), then combine.
-//   - Grid (n_split, head groups, B x query groups). A CTA takes one chunk
-//     of slots of one batch row and every kv head (all G of them where
-//     G * lanes-per-head fits 256 threads; else the heads split over
-//     blockIdx.y), for one group of at most 8 of the M query heads a kv
-//     head serves: a thread keeps a q row and an accumulator of KD floats
-//     per query head of its group, so the register budget is that of
-//     M <= 8 whatever M is. M > 8 splits into ceil(M / 8) equal groups
-//     (the last one short where 8 does not divide M: its missing heads
-//     hold q = 0 and write nothing); each group's CTA reads the same K/V
-//     rows, which its sibling has just brought into L2. A slot's
-//     G x hd int8 row and its G scales lie contiguous in the cache, so the
-//     CTA reads whole rows and whole scale sectors. The wrapper picks
-//     n_split from B, G, S and the SM count so that the grid fills the card
-//     (a chunk is a multiple of one sweep of the CTA's rows).
-//   - A group of lanes owns one (slot, head): hd/KD lanes hold KD dims each
-//     (KD = 16: one 16-byte load of K and of V; 8 where the cache's rows
-//     are only 8-byte aligned, or a group of more than 4 query heads
-//     leaves too few registers). The group is that count rounded up to
-//     a power of two, so its shuffles stay inside a warp; lanes past
-//     hd/KD hold zeros. The CTA's 256
-//     threads make rows of (head, lane) groups; each row walks its own
-//     slots of the chunk.
-//   - Loads in flight: each thread copies the bytes it will read itself
-//     (K, V, the two scales, the mask) into a ring of shared memory with
-//     cp.async, kStages stages of kSlots slots ahead, so memory latency
-//     hides behind the arithmetic without spending registers. A thread
-//     reads only what it copied, so the ring needs no barrier; a copy for
-//     a slot past the chunk (or a lane without dims) is zero-filled, so no
-//     copy and no read needs a branch.
-//   - Arithmetic, which bounds this kernel once it is not latency-bound
-//     (M = 4, KD = 16 holds 128 registers of q and acc: one CTA of 8 warps
-//     per SM): int8 to f32 by a byte permute into the mantissa of 2^23 and
-//     one subtraction (exact, no I2F); the scale leaves the dot,
-//     q.(k_q k_s) = k_s (q.k_q), and v_s folds into the softmax weight, so
-//     no element is multiplied by its scale; scores in log2 units (the
-//     scale carries log2(e)) so an exponential is one ex2; each shuffle
-//     round of the group's dot sums takes every (slot, row) of the stage
-//     at once; the running max is rescaled only when it grows (alpha = 1
-//     otherwise, exactly).
-//   - The CTA merges its rows' (m, l, acc) in shared memory and writes the
+//   - Grid (n_split, ceil(G / hpc), B x query groups). A CTA takes one
+//     chunk of slots of one batch row, hpc kv heads (the largest power of
+//     two up to 8 and G: their rows of a slot lie side by side in the
+//     cache) and a group of at most 8 of the M query heads a kv head serves
+//     (M > 8 splits into ceil(M / 8) equal groups; each group's CTA re-reads
+//     the K/V rows its sibling has just brought into L2). Its 8 warps: one
+//     kv head each, a head's 8 / hpc warps on side-by-side 16-slot tiles,
+//     each warp with its own online-softmax state. The wrapper's
+//     launch_plan sizes the chunk from B, G, M, S and the SM count: one CTA
+//     an SM (its shared memory), a wave of them where S allows.
+//   - The products are mma.sync m16n8k16 (f16 operands, f32 sums). An int8
+//     code is exact in f16. q and the softmax weights p * v_s are f32: each
+//     is split into two f16 terms, hi = f16(x) and lo = f16(x - hi), after
+//     an exact power-of-two scale (q: per query head, to a max in [2^14,
+//     2^15); the weights: per warp, from a running bound on v_s, widened
+//     with the accumulator rescaled by a power of two), so the two terms
+//     carry 22 bits of each operand. The terms take the MMA tile's rows
+//     that the query heads leave empty: rows 0-7 hold the heads' hi terms
+//     and rows 8-15 their lo terms, a thread holds rows g and g + 8 of
+//     each fragment, and sums its two terms itself, so the split costs no
+//     extra instruction and no shuffle. q.k: A = q's terms (rows x dims),
+//     B = K's codes (dims x slots); p.v: A = the weights' terms (rows x
+//     slots), taken straight from q.k's accumulator layout, B = V's codes
+//     (slots x dims). k_s stays outside the dot, v_s is folded into the
+//     weight.
+//   - Codes to f16 two at a time: a byte permute puts two codes (their sign
+//     bit flipped) under an f16 exponent of 1024, one packed subtract of
+//     1152 leaves them exact; V's two codes come from two slots' words (a
+//     permute, a mask-and-xor, a subtract).
+//   - Loads: each warp copies its next tiles (K and V rows, 16-byte cp.async
+//     where the rows are 16-byte aligned, 8-byte otherwise, zero-filled
+//     past the chunk; the scales and the mask 4 bytes a slot) into its own
+//     ring of shared memory, stages ahead, so no block barrier stands in
+//     the loop; a lane's pieces of a tile sit a fixed number of slots
+//     apart, so their addresses move by a constant. The rows are padded to
+//     an odd number of 16-byte units, so the fragment reads hit 32
+//     distinct banks. (Bulk copies of a row each, on mbarriers, and a CTA
+//     copying each stage together behind a block barrier, both measured
+//     slower on an H100.)
+//   - q's fragments: a kv head's first warp loads its query heads' rows
+//     once (a lane 4 of each step's dims), takes each row's max over the
+//     row's 4 lanes, and writes the split terms to shared memory.
+//   - The online softmax keeps the scores in log2 units (the scale carries
+//     log2(e)), a row's max over a tile by two shuffles, and rescales the
+//     accumulator only when a max grows or the v_s bound widens.
+//   - The CTA merges its warps' (m, l, acc) in shared memory and writes the
 //     chunk's partial (m, l, acc[hd]) per (b, g, m) to scratch; a second
-//     kernel, one block per (b, g, m) row, merges the chunks (their weights
-//     once in shared memory). A chunk whose slots are all dead carries
-//     m = -1e30 and weighs exp(-1e30 - m_live) = 0 beside a live one; with
-//     every slot dead all chunks weigh 1 and the merge gives the uniform
-//     mean. The output divides by max(l, 1e-30). With one chunk the first
-//     kernel writes the normalised output and the combine is skipped.
+//     kernel, one block per (b, g, m) row, merges the chunks. A chunk whose
+//     slots are all dead carries m = -1e30 and weighs exp(-1e30 - m_live) =
+//     0 beside a live one; with every slot dead all chunks weigh 1 and the
+//     merge gives the uniform mean. The output divides by max(l, 1e-30).
+//     With one chunk the first kernel writes the normalised output and the
+//     combine is skipped.
 // A slot past its chunk scores -inf and adds nothing; a dead slot scores
 // -1e30, so it weighs 1 only while no live slot has been seen, as in the
-// reference. Sums run in another order than the dense softmax, so the
-// kernel agrees with its plain version to rtol 2e-4 / atol 2e-5.
+// reference. Sums run in another order than the dense softmax, and the two
+// f16 terms keep 22 bits of q and of the weights, so the kernel agrees with
+// its plain version to rtol 2e-4 / atol 2e-5 (one term would not).
 //
 // Plain C interface (bound with ctypes): the launcher returns
 // cudaGetLastError() and allocates nothing; the caller owns all buffers
 // (the output and the scratch of partials).
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -83,38 +92,43 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStages = 4;          // ring depth, in stages
-constexpr int kSlots = 4;           // slots a thread takes per stage
-constexpr float kDead = -1e30f;     // the reference's masked score
-constexpr float kMagic = 8388736.f; // 2^23 + 128
+constexpr int kWarps = 8;               // warps of a CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 16;               // slots a warp takes per step
+constexpr int kRows = 8;                // query heads a kv head's CTA takes
+constexpr int kCtaSmem = 230400;        // dynamic shared memory: one CTA an
+                                        // SM, 2 KB of the 227 left static
+constexpr float kDead = -1e30f;         // the reference's masked score
+constexpr float kLog2e = 1.44269504088896341f;
+constexpr unsigned kExp1024 = 0x64646464u;  // f16 exponent bytes of 1024
+constexpr unsigned kBias = 0x64806480u;     // (1152, 1152) in f16
+constexpr int kCapLo = -100, kCapHi = 110;  // the v_s bound's exponents
+
+// A warp's ring, by NV = ceil(hd / 32) (kernels/decode_attention.py
+// ring_geometry mirrors it): a slot row of 32 NV bytes (hd zero-padded) at
+// a stride of 32 NV + 16 (odd in 16-byte units); a stage holds the K and V
+// rows of 16 slots, then their k_s, v_s and mask; as many stages (at most
+// 4) as the CTA's budget holds beside q's fragments (a kv head's each).
+template <int NV>
+struct Ring {
+  static constexpr int kRowBytes = 32 * NV;
+  static constexpr int kStride = kRowBytes + 16;
+  static constexpr int kStageBytes = 2 * kTile * kStride + 3 * kTile * 4;
+  static constexpr int kFragBytes = kWarps * 2 * NV * 32 * 16;
+  static constexpr int kStages =
+      (kCtaSmem - kFragBytes) / (kWarps * kStageBytes) < 4
+          ? (kCtaSmem - kFragBytes) / (kWarps * kStageBytes)
+          : 4;
+  static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
+  static constexpr int kSmem = kRingBytes + kFragBytes;
+  static_assert(kStages >= 2, "the ring needs two stages");
+  static_assert(kWarps * kRows * (kRowBytes + 2) * 4 <= kRingBytes,
+                "the merge reuses the ring");
+};
 
 struct Strides {
   long long b, s, g;   // element strides; the head dim is contiguous
 };
-
-struct Geom {
-  int tps;      // lanes of a (slot, head) group that hold dims: hd / KD
-  int lps;      // lanes of the group: tps rounded up to a power of two
-  int hpc;      // heads a CTA takes
-  int hgroups;  // CTAs along the heads: ceil(G / hpc)
-  int rows;     // (slot, head) rows of the CTA: kThreads / (hpc * lps)
-};
-
-__host__ __device__ __forceinline__ Geom geom(int G, int hd, int kd) {
-  Geom r;
-  r.tps = hd / kd;
-  r.lps = 1;
-  while (r.lps < r.tps) r.lps <<= 1;
-  r.hpc = G < kThreads / r.lps ? G : kThreads / r.lps;
-  r.hgroups = (G + r.hpc - 1) / r.hpc;
-  r.rows = kThreads / (r.hpc * r.lps);
-  return r;
-}
-
-template <int KD> struct Vec;
-template <> struct Vec<16> { using T = uint4; };
-template <> struct Vec<8> { using T = uint2; };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
@@ -143,36 +157,64 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-constexpr float kLog2e = 1.44269504088896341f;
-
 // 2^x by the special-function unit: the scores are kept in log2 units
-// (the score scale carries log2(e)), so an exponential is one instruction
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
 
-// four int8 codes to exact f32: each byte (offset by 128) goes into the
-// mantissa of 2^23, one subtraction takes the offset back out
-__device__ __forceinline__ void unpack4(unsigned w, float* f) {
+__device__ __forceinline__ float pow2(int e) {   // e in [-126, 127]
+  return __int_as_float((e + 127) << 23);
+}
+
+__device__ __forceinline__ unsigned hsub2(unsigned a, unsigned b) {
+  unsigned r;
+  asm("sub.f16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+// the four int8 codes of a word, exact in f16: (c0, c1) and (c2, c3)
+__device__ __forceinline__ void codes4(unsigned w, unsigned& lo,
+                                       unsigned& hi) {
   const unsigned x = w ^ 0x80808080u;
-  f[0] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540)) - kMagic;
-  f[1] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7541)) - kMagic;
-  f[2] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7542)) - kMagic;
-  f[3] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7543)) - kMagic;
+  lo = hsub2(__byte_perm(x, kExp1024, 0x4140), kBias);
+  hi = hsub2(__byte_perm(x, kExp1024, 0x4342), kBias);
 }
 
-__device__ __forceinline__ void unpack(uint4 w, float* f) {
-  unpack4(w.x, f);
-  unpack4(w.y, f + 4);
-  unpack4(w.z, f + 8);
-  unpack4(w.w, f + 12);
+// byte D of two slots' words, exact in f16: (a.D, b.D)
+template <int D>
+__device__ __forceinline__ unsigned codes_across(unsigned a, unsigned b) {
+  const unsigned r = __byte_perm(a, b, D | ((4 + D) << 8));
+  return hsub2((r & 0x00ff00ffu) ^ kBias, kBias);
 }
 
-__device__ __forceinline__ void unpack(uint2 w, float* f) {
-  unpack4(w.x, f);
-  unpack4(w.y, f + 4);
+// d += A (16 x 16, rows x k) * B (16 x 8, k x cols): f16 in, f32 sums
+__device__ __forceinline__ void mma(float* d, const uint4& a, unsigned b0,
+                                    unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// x as hi + lo, two f16 terms each, packed for two values: (hi0, hi1) and
+// (lo0, lo1)
+__device__ __forceinline__ void split2(float x0, float x1, unsigned& hi,
+                                       unsigned& lo) {
+  const __half2 h = __floats2half2_rn(x0, x1);
+  const __half2 l = __floats2half2_rn(x0 - __low2float(h),
+                                      x1 - __high2float(h));
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// floor(log2(x)) + 1 for a finite x > 0 from its exponent bits (a
+// subnormal x gives -126, still a bound), clamped to [kCapLo, kCapHi]
+__device__ __forceinline__ int cap_of(float x) {
+  const int e = (int)((__float_as_uint(x) >> 23) & 0xff) - 126;
+  return min(max(e, kCapLo), kCapHi);
 }
 
 struct Args {
@@ -186,262 +228,386 @@ struct Args {
   float* part_acc;  // (B, n_split, G, Mt, hd)
   float* part_ml;   // (B, n_split, G, Mt, 2): the chunk's max and sum
   int S, G, hd, chunk, n_split;
-  int Mt, mgroups;  // query heads per kv head, and the groups of M they
-                    // split into (blockIdx.z = b * mgroups + group)
+  int Mt, mg, mgroups;  // query heads per kv head, heads a CTA takes, and
+                        // the groups (blockIdx.z = b * mgroups + group)
+  int hpc;              // kv heads a CTA takes (1, 2, 4 or 8; blockIdx.y
+                        // counts groups of them), kWarps / hpc warps each
+  int vec;              // bytes a row copy moves: 16 or 8
   Strides skq, sks, svq, svs;
   long long val_b, val_s;
   float scale;
 };
 
-template <int M, int KD>
+template <int NV>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_attention_split(Args a) {
-  using V = typename Vec<KD>::T;
+decode_attention_mma(Args a) {
+  using R = Ring<NV>;
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kRing = kStages * kSlots * kThreads;
-  V* kbuf = reinterpret_cast<V*>(smem);
-  V* vbuf = kbuf + kRing;
-  float* ksb = reinterpret_cast<float*>(vbuf + kRing);
-  float* vsb = ksb + kRing;
-  float* vab = vsb + kRing;
-
-  const Geom gm = geom(a.G, a.hd, KD);
-  const int c = blockIdx.x;
+  __shared__ float rowsc[kWarps][kRows];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, t4 = lane & 3;
+  // the warp's kv head (hl of the CTA's hpc) and its phase: the warps of
+  // one head take the chunk's 16-slot tiles in turn
+  const int hpc = a.hpc, phases = kWarps / hpc;
+  const int hl = warp % hpc, phase = warp / hpc;
+  const int c = blockIdx.x, g0 = blockIdx.y * hpc, g = g0 + hl;
+  const bool active = g < a.G;
   const int b = blockIdx.z / a.mgroups;
-  const int m0 = (blockIdx.z - b * a.mgroups) * M;   // the group's first head
-  const int mn = min(M, a.Mt - m0);                  // its heads that exist
-  const int t = threadIdx.x;
-  const int unit = t % (gm.hpc * gm.lps);
-  const int row = t / (gm.hpc * gm.lps);
-  const int hl = unit / gm.lps;
-  const int lane = unit % gm.lps;
-  const int g = blockIdx.y * gm.hpc + hl;
-  // a thread of a row past `rows` or a head past G loads nothing; every
-  // thread still runs the loop, so each shuffle sees the whole warp
-  const bool on = row < gm.rows && g < a.G;
-  const bool holds = on && lane < gm.tps;
-  const int d0 = (lane < gm.tps ? lane : 0) * KD;
-  const int c0 = c * a.chunk;
-  const int c1 = min(a.S, c0 + a.chunk);
-  const int step = gm.rows * kSlots;
-  const float scale2 = a.scale * kLog2e;
-  const int iters = (c1 - c0 + step - 1) / step;
+  const int m0 = (blockIdx.z - b * a.mgroups) * a.mg;  // the group's first
+  const int mn = min(a.mg, a.Mt - m0);                  // its heads
+  const int c0 = c * a.chunk, c1 = min(a.S, c0 + a.chunk);
+  const int nk = (a.hd + 15) / 16;                      // q.k steps
+  const int ntiles = (c1 - c0 + kTile - 1) / kTile;
+  const int my_tiles = active && ntiles > phase
+                           ? (ntiles - phase + phases - 1) / phases : 0;
+  unsigned char* ring = smem + warp * R::kStages * R::kStageBytes;
+  uint4* qf_all = reinterpret_cast<uint4*>(smem + R::kRingBytes);
+  const uint4* qf = qf_all + hl * (nk * 32);
 
-  float qr[M][KD];
+  // the zero pad of every ring row past hd, written once: no copy touches it
   {
-    const float* qb = a.q + (((long long)b * a.G + (holds ? g : 0)) * a.Mt
-                             + m0) * a.hd + d0;
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-#pragma unroll
-      for (int j = 0; j < KD; ++j)
-        qr[m][j] = holds && m < mn ? qb[m * a.hd + j] : 0.f;
+    const int pad = R::kRowBytes - a.hd;   // a multiple of 8
+    for (int i = lane; i < R::kStages * 2 * kTile * (pad / 8); i += 32) {
+      const int row = i / (pad / 8), k = i - row * (pad / 8);
+      const int st = row / (2 * kTile), r = row - st * 2 * kTile;
+      *reinterpret_cast<uint2*>(ring + st * R::kStageBytes + r * R::kStride +
+                                a.hd + 8 * k) = make_uint2(0u, 0u);
+    }
   }
-  float m_run[M], l_run[M], acc[M][KD];
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    m_run[m] = kDead;
-    l_run[m] = 0.f;
-#pragma unroll
-    for (int j = 0; j < KD; ++j) acc[m][j] = 0.f;
-  }
+  // a tile's row copies: 16 * cpr pieces of `vec` bytes, piece i at slot
+  // i / cpr; where cpr divides 32 a lane's pieces sit 32 / cpr slots apart
+  // in one column, so its addresses move by a constant, else each piece's
+  // slot comes from a multiply-shift (exact for i < 512); zero-filled past
+  // the chunk
+  const int vec = a.vec;
+  const int cpr = a.hd / vec;
+  const bool even = 32 % cpr == 0;
+  const int lane_slot = even ? lane / cpr : 0;
+  const int lane_col = even ? (lane % cpr) * vec : 0;
+  const int slot_step = even ? 32 / cpr : 0;
+  const int pieces = (kTile * cpr + 31) / 32;   // a lane's, when even
+  const unsigned inv = (1u << 20) / (unsigned)cpr + 1u;
+  const bool v16 = vec == 16;
+  const int ga = active ? g : 0;
+  const int8_t* kb = a.kq + b * a.skq.b + ga * a.skq.g;
+  const int8_t* vb = a.vq + b * a.svq.b + ga * a.svq.g;
+  const float* ksb = a.ks + b * a.sks.b + ga * a.sks.g;
+  const float* vsb = a.vs + b * a.svs.b + ga * a.svs.g;
+  const float* vab = a.valid + b * a.val_b;
+  const long long k_ss = a.skq.s, v_ss = a.svq.s;
+  const long long ks_ss = a.sks.s, vs_ss = a.svs.s, va_ss = a.val_s;
 
-  // the thread's copy sources at its first slot of the chunk, each moved
-  // on by one sweep of the CTA (`step` slots) per stage; a slot u of a
-  // stage lies u * rows slots further
-  const int gg = on ? g : 0;
-  const long long s0 = c0 + row;
-  const int8_t* kp = a.kq + b * a.skq.b + gg * a.skq.g + d0 + s0 * a.skq.s;
-  const int8_t* vp = a.vq + b * a.svq.b + gg * a.svq.g + d0 + s0 * a.svq.s;
-  const float* ksp = a.ks + b * a.sks.b + gg * a.sks.g + s0 * a.sks.s;
-  const float* vsp = a.vs + b * a.svs.b + gg * a.svs.g + s0 * a.svs.s;
-  const float* vap = a.valid + b * a.val_b + s0 * a.val_s;
-  const long long rk = gm.rows * a.skq.s, rv = gm.rows * a.svq.s;
-  const long long rks = gm.rows * a.sks.s, rvs = gm.rows * a.svs.s;
-  const long long rva = gm.rows * a.val_s;
-  // the ring, by the thread's own word: stage st, slot u at
-  // [(st * kSlots + u) * kThreads + t]
-  const unsigned k_sm = smem_addr(kbuf + t), v_sm = smem_addr(vbuf + t);
-  const unsigned ks_sm = smem_addr(ksb + t), vs_sm = smem_addr(vsb + t);
-  const unsigned va_sm = smem_addr(vab + t);
-  int s_issue = c0 + row;
-
-  // stage `it` of the ring: the thread's own slots of that iteration, every
-  // copy issued (zero-filled where the slot lies past the chunk or the lane
-  // holds nothing), so the copies need no branch
+  auto piece = [&](unsigned kd, unsigned vd, const int8_t* k_src,
+                   const int8_t* v_src, bool ok) {
+    if (v16) {
+      cp_async<16>(kd, k_src, ok);
+      cp_async<16>(vd, v_src, ok);
+    } else {
+      cp_async<8>(kd, k_src, ok);
+      cp_async<8>(vd, v_src, ok);
+    }
+  };
+  // stage `it` of the ring: the warp's it-th tile, one commit group
   auto issue = [&](int it) {
-    if (it < iters) {
-      const unsigned st = (unsigned)(it % kStages) * kSlots * kThreads;
-#pragma unroll
-      for (int u = 0; u < kSlots; ++u) {
-        const bool ok = on && s_issue + u * gm.rows < c1;
-        const unsigned o = st + u * kThreads;
-        cp_async<sizeof(V)>(k_sm + o * sizeof(V), kp + u * rk, ok && holds);
-        cp_async<sizeof(V)>(v_sm + o * sizeof(V), vp + u * rv, ok && holds);
-        cp_async<4>(ks_sm + o * 4, ksp + u * rks, ok);
-        cp_async<4>(vs_sm + o * 4, vsp + u * rvs, ok);
-        cp_async<4>(va_sm + o * 4, vap + u * rva, ok);
+    if (it < my_tiles) {
+      const int s0 = c0 + kTile * (phase + phases * it);
+      const int rows = min(kTile, c1 - s0);
+      unsigned char* stp = ring + (it % R::kStages) * R::kStageBytes;
+      const unsigned kst = smem_addr(stp);
+      const unsigned vst = kst + kTile * R::kStride;
+      const unsigned sst = vst + kTile * R::kStride;
+      if (even) {
+        const int8_t* kp = kb + (s0 + lane_slot) * k_ss + lane_col;
+        const int8_t* vp = vb + (s0 + lane_slot) * v_ss + lane_col;
+        const long long kstep = slot_step * k_ss, vstep = slot_step * v_ss;
+        unsigned d = lane_slot * R::kStride + lane_col;
+        const unsigned dstep = slot_step * R::kStride;
+        for (int k = 0; k < pieces; ++k) {
+          // cpr == 1: 16 pieces a tile, lanes 16-31 have none
+          if (lane_slot + k * slot_step >= kTile) break;
+          const bool ok = lane_slot + k * slot_step < rows;
+          piece(kst + d, vst + d, ok ? kp : kb, ok ? vp : vb, ok);
+          kp += kstep;
+          vp += vstep;
+          d += dstep;
+        }
+      } else {
+        for (int i = lane; i < kTile * cpr; i += 32) {
+          const int slot = (int)(((unsigned)i * inv) >> 20);
+          const int col = (i - slot * cpr) * vec;
+          const bool ok = slot < rows;
+          const long long s = ok ? s0 + slot : 0;
+          const unsigned d = slot * R::kStride + col;
+          piece(kst + d, vst + d, kb + s * k_ss + col, vb + s * v_ss + col,
+                ok);
+        }
       }
-      s_issue += step;
-      kp += kSlots * rk;
-      vp += kSlots * rv;
-      ksp += kSlots * rks;
-      vsp += kSlots * rvs;
-      vap += kSlots * rva;
+      const int slot = lane & (kTile - 1);
+      const bool ok = slot < rows;
+      const long long s = ok ? s0 + slot : 0;
+      if (lane < kTile) {
+        cp_async<4>(sst + 4 * slot, ksb + s * ks_ss, ok);
+        cp_async<4>(sst + 4 * (2 * kTile + slot), vab + s * va_ss, ok);
+      } else {
+        cp_async<4>(sst + 4 * (kTile + slot), vsb + s * vs_ss, ok);
+      }
     }
     cp_async_commit();
   };
+  // TPI tiles an iteration (2 where the registers allow: their chains of
+  // MMAs and their softmax steps interleave); the ring keeps the next
+  // kStages - TPI tiles in flight
+  constexpr int TPI = NV <= 4 ? 2 : 1;
+  static_assert(R::kStages > TPI, "the ring runs ahead of an iteration");
+#pragma unroll
+  for (int it = 0; it < R::kStages - TPI; ++it) issue(it);
 
+  // q's A fragments, a kv head's by its first warp: lane (gid, t4) loads
+  // query head gid's dims 16 i + 4 t4 .. + 3 of every step i at once, the
+  // row's max |q| over the 4 lanes of the row, its scale 2^e (max |q| 2^e
+  // in [2^14, 2^15); 0 for a zero or non-finite row), two f16 terms a
+  // value; the score scale 2^-e * scale * log2(e) a row
+  const float* qb = a.q + (((long long)b * a.G + ga) * a.Mt + m0) * a.hd;
+  if (phase == 0) {
+    const bool real = active && gid < mn;
+    const float* qr = qb + (real ? gid : 0) * a.hd;
+    float x[2 * NV][4];
+    float amax = 0.f;
 #pragma unroll
-  for (int it = 0; it < kStages - 1; ++it) issue(it);
+    for (int i = 0; i < 2 * NV; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = 16 * i + 4 * t4 + k;
+        x[i][k] = real && d < a.hd ? qr[d] : 0.f;
+        amax = fmaxf(amax, fabsf(x[i][k]));
+      }
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 1));
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, 2));
+    int e = 0;
+    if (amax > 0.f && amax <= 3.402823466e38f) {
+      const int fl = (int)((__float_as_uint(amax) >> 23) & 0xff) - 127;
+      e = min(max(14 - fl, -126), 126);
+    }
+    if (t4 == 0) rowsc[hl][gid] = real ? pow2(-e) * a.scale * kLog2e : 0.f;
+    const float up = pow2(e);
+#pragma unroll
+    for (int i = 0; i < 2 * NV; ++i) {
+      if (i < nk) {
+        uint4 f;
+        split2(x[i][0] * up, x[i][1] * up, f.x, f.y);
+        split2(x[i][2] * up, x[i][3] * up, f.z, f.w);
+        qf_all[(hl * nk + i) * 32 + lane] = f;
+      }
+    }
+  }
+  __syncthreads();
 
-  for (int it = 0; it < iters; ++it) {
-    issue(it + kStages - 1);
-    cp_async_wait<kStages - 1>();
-    const int st = it % kStages;
-    const int s_it = c0 + it * step + row;
-    // a ring word of a slot past the chunk is zero-filled: finite codes,
-    // scales and mask, so every lane reads its words unconditionally; a
-    // lane without dims has q = 0
-    float dot[kSlots][M], kscale[kSlots], live[kSlots], vsc[kSlots];
+  const float rs = rowsc[hl][gid];
+  float acc[4 * NV][4];
 #pragma unroll
-    for (int u = 0; u < kSlots; ++u) {
-      const int i = (st * kSlots + u) * kThreads + t;
-      const bool in = on && s_it + u * gm.rows < c1;
-      float k[KD];
-      unpack(kbuf[i], k);
-      // -1: past the chunk (adds nothing), 0: dead, 1: live
-      live[u] = in ? (vab[i] > 0.5f ? 1.f : 0.f) : -1.f;
-      kscale[u] = ksb[i] * scale2;
-      vsc[u] = vsb[i];
+  for (int j = 0; j < 4 * NV; ++j)
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        float d = 0.f;
+    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
+  float m_run = kDead, l_run = 0.f;
+  int cap = kCapLo;                 // every v_s seen lies below 2^cap
+  float wsc = pow2(14 - cap);       // the weights' scale 2^(14 - cap)
+  const int sl0 = 2 * t4;           // the thread's slots of a tile: sl0,
+                                    // sl0 + 1, sl0 + 8, sl0 + 9
+
+  for (int it = 0; it < my_tiles; it += TPI) {
 #pragma unroll
-        for (int j = 0; j < KD; ++j) d = fmaf(qr[m][j], k[j], d);
-        dot[u][m] = d;
+    for (int k = 0; k < TPI; ++k) issue(it + R::kStages - TPI + k);
+    cp_async_wait<R::kStages - TPI>();
+    __syncwarp();
+    // the iteration's tiles: a tile past the warp's last (TPI = 2, an odd
+    // count) lies past the chunk, its stage never copied: its slots score
+    // -inf and read v_s as 0, whatever its stale bytes hold
+    const unsigned char* ks_t[TPI];
+    const float* sc[TPI];
+    int s0[TPI];
+#pragma unroll
+    for (int k = 0; k < TPI; ++k) {
+      ks_t[k] = ring + ((it + k) % R::kStages) * R::kStageBytes;
+      sc[k] = reinterpret_cast<const float*>(ks_t[k] + 2 * kTile * R::kStride);
+      s0[k] = c0 + kTile * (phase + phases * (it + k));
+    }
+
+    // q.k: two 8-slot column tiles (slots gid and 8 + gid) a tile, a word
+    // of K's codes a step each, the even and odd steps into separate sums
+    // so independent chains of MMAs run side by side
+    float d[TPI][2][2][4] = {};
+#pragma unroll
+    for (int i = 0; i < 2 * NV; ++i) {
+      if (i < nk) {
+        const uint4 af = qf[i * 32 + lane];
+#pragma unroll
+        for (int k = 0; k < TPI; ++k) {
+          const unsigned w0 = *reinterpret_cast<const unsigned*>(
+              ks_t[k] + gid * R::kStride + 16 * i + 4 * t4);
+          const unsigned w1 = *reinterpret_cast<const unsigned*>(
+              ks_t[k] + (8 + gid) * R::kStride + 16 * i + 4 * t4);
+          unsigned b0, b1, b2, b3;
+          codes4(w0, b0, b1);
+          codes4(w1, b2, b3);
+          mma(d[k][0][i & 1], af, b0, b1);
+          mma(d[k][1][i & 1], af, b2, b3);
+        }
       }
     }
-    // the group's sums: one uniform branch per round, every (slot, row)
-    // of the round inside it, so the shuffles overlap
+    // scores of head gid at the thread's four slots a tile, in log2 units:
+    // a live slot dot * k_s * scale, a dead one -1e30, one past the chunk
+    // -inf
+    const int sl[4] = {sl0, sl0 + 1, sl0 + 8, sl0 + 9};
+    float s[TPI][4], vsl[TPI][4];
+    float mx = -INFINITY, vm = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      if (off < gm.lps) {
+    for (int k = 0; k < TPI; ++k)
 #pragma unroll
-        for (int u = 0; u < kSlots; ++u)
+      for (int j = 0; j < 4; ++j) {
+        const int n = j >> 1, c = j & 1;
+        const float dot = (d[k][n][0][c] + d[k][n][0][c + 2]) +
+                          (d[k][n][1][c] + d[k][n][1][c + 2]);
+        const bool in = s0[k] + sl[j] < c1;
+        const bool live = sc[k][2 * kTile + sl[j]] > 0.5f;
+        s[k][j] = in ? (live ? dot * sc[k][sl[j]] * rs : kDead) : -INFINITY;
+        vsl[k][j] = in ? sc[k][kTile + sl[j]] : 0.f;
+        mx = fmaxf(mx, s[k][j]);
+        vm = fmaxf(vm, fabsf(vsl[k][j]));
+      }
 #pragma unroll
-          for (int m = 0; m < M; ++m)
-            dot[u][m] += __shfl_xor_sync(0xffffffffu, dot[u][m], off);
+    for (int off = 1; off < 4; off <<= 1) {
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      vm = fmaxf(vm, __shfl_xor_sync(0xffffffffu, vm, off));
+    }
+    // rescale only when the row's max grows or the v_s bound widens
+    const bool grow_m = mx > m_run;
+    const bool grow_v = vm > pow2(cap);
+    if (grow_m || grow_v) {
+      const float m_new = grow_m ? mx : m_run;
+      const int cap_new = grow_v ? cap_of(vm) : cap;
+      const float alpha_m = grow_m ? ex2(m_run - m_new) : 1.f;
+      const float alpha = alpha_m * exp2f((float)(cap - cap_new));
+#pragma unroll
+      for (int j = 0; j < 4 * NV; ++j)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[j][k] *= alpha;
+      l_run *= alpha_m;
+      m_run = m_new;
+      cap = cap_new;
+      wsc = pow2(14 - cap);
+    }
+    // p.v: A = the weights' two terms (rows gid, gid + 8) over a tile's 16
+    // slots, straight from q.k's accumulator layout
+    uint4 aw[TPI];
+#pragma unroll
+    for (int k = 0; k < TPI; ++k) {
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = ex2(s[k][j] - m_run);
+        l_run += p;
+        w[j] = p * (vsl[k][j] * wsc);
+      }
+      split2(w[0], w[1], aw[k].x, aw[k].y);
+      split2(w[2], w[3], aw[k].z, aw[k].w);
+    }
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int o = 4 * (gid + 8 * i);
+#pragma unroll
+      for (int k = 0; k < TPI; ++k) {
+        const unsigned char* vs_t = ks_t[k] + kTile * R::kStride;
+        const unsigned va = *reinterpret_cast<const unsigned*>(
+            vs_t + sl0 * R::kStride + o);
+        const unsigned vb2 = *reinterpret_cast<const unsigned*>(
+            vs_t + (sl0 + 1) * R::kStride + o);
+        const unsigned vc = *reinterpret_cast<const unsigned*>(
+            vs_t + (sl0 + 8) * R::kStride + o);
+        const unsigned vd = *reinterpret_cast<const unsigned*>(
+            vs_t + (sl0 + 9) * R::kStride + o);
+        mma(acc[4 * i + 0], aw[k], codes_across<0>(va, vb2),
+            codes_across<0>(vc, vd));
+        mma(acc[4 * i + 1], aw[k], codes_across<1>(va, vb2),
+            codes_across<1>(vc, vd));
+        mma(acc[4 * i + 2], aw[k], codes_across<2>(va, vb2),
+            codes_across<2>(vc, vd));
+        mma(acc[4 * i + 3], aw[k], codes_across<3>(va, vb2),
+            codes_across<3>(vc, vd));
       }
     }
-    // scores in log2 units (the scale carries log2(e)): a live slot
-    // q.k_q * k_s * scale, a dead one -1e30, one past the chunk -inf
-    float sc[kSlots][M];
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u)
-#pragma unroll
-      for (int m = 0; m < M; ++m)
-        sc[u][m] = live[u] > 0.f ? dot[u][m] * kscale[u]
-                                 : (live[u] == 0.f ? kDead : -INFINITY);
-    // online softmax: rescale only when a running max grows (alpha is
-    // exp(0) = 1 for a row whose max stays)
-    float mx[M];
-    bool grow = false;
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      mx[m] = m_run[m];
-#pragma unroll
-      for (int u = 0; u < kSlots; ++u) mx[m] = fmaxf(mx[m], sc[u][m]);
-      grow |= mx[m] > m_run[m];
-    }
-    if (grow) {
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float alpha = ex2(m_run[m] - mx[m]);
-        l_run[m] *= alpha;
-#pragma unroll
-        for (int j = 0; j < KD; ++j) acc[m][j] *= alpha;
-        m_run[m] = mx[m];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u) {
-      const int i = (st * kSlots + u) * kThreads + t;
-      float v[KD];
-      unpack(vbuf[i], v);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const float p = ex2(sc[u][m] - m_run[m]);
-        l_run[m] += p;
-        const float pv = p * vsc[u];
-#pragma unroll
-        for (int j = 0; j < KD; ++j) acc[m][j] = fmaf(pv, v[j], acc[m][j]);
-      }
-    }
+    __syncwarp();
   }
   cp_async_wait<0>();
-  __syncthreads();
 
-  // merge the rows in shared memory (the ring's space): ml_s [rows][hpc][M]
-  // (m, l) pairs, gd_s [hpc][M] (max, sum) pairs, red [rows][hpc * hd]
-  float* ml_s = reinterpret_cast<float*>(smem);
-  float* gd_s = ml_s + gm.rows * gm.hpc * M * 2;
-  float* red = gd_s + gm.hpc * M * 2;
-  const int heads = min(gm.hpc, a.G - (int)blockIdx.y * gm.hpc);
-  const bool final_out = a.n_split == 1;
-  if (row < gm.rows && lane == 0) {
-#pragma unroll
-    for (int m = 0; m < M; ++m) {
-      ml_s[((row * gm.hpc + hl) * M + m) * 2] = m_run[m];
-      ml_s[((row * gm.hpc + hl) * M + m) * 2 + 1] = l_run[m];
-    }
-  }
+  // merge the warps in shared memory (the ring's space): m_s, l_s [warp][8],
+  // red [warp][8][32 NV] (query head gid's dims 32 i + 8 t4 + d and + 4,
+  // the two terms summed, the weights' scale taken back out); a kv head's
+  // phases merge into its chunk's partial
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
+  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   __syncthreads();
-  for (int idx = t; idx < heads * M; idx += kThreads) {
-    const int h = idx / M, m = idx - h * M;
+  float* m_s = reinterpret_cast<float*>(smem);
+  float* l_s = m_s + kWarps * kRows;
+  float* red = l_s + kWarps * kRows;
+  constexpr int kWidth = 32 * NV;          // dims of a head's row in red
+  if (t4 == 0) {
+    m_s[warp * kRows + gid] = m_run;
+    l_s[warp * kRows + gid] = l_run;
+  }
+  const float unscale = pow2(cap - 14);
+  float* my_red = red + (warp * kRows + gid) * kWidth;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const float* c4 = acc[4 * i + d];
+      my_red[32 * i + 8 * t4 + d] = (c4[0] + c4[2]) * unscale;
+      my_red[32 * i + 8 * t4 + 4 + d] = (c4[1] + c4[3]) * unscale;
+    }
+  __syncthreads();
+  // per (kv head, query head): the phases' weights exp2(m_w - max) in place
+  // of m_s, the max and the sum of weighted l in gd
+  __shared__ float gd[kWarps][kRows][2];
+  for (int pair = (int)threadIdx.x; pair < hpc * kRows; pair += kThreads) {
+    const int ph = pair / kRows, h = pair - ph * kRows;
     float gmax = -INFINITY;
-    for (int r = 0; r < gm.rows; ++r)
-      gmax = fmaxf(gmax, ml_s[((r * gm.hpc + h) * M + m) * 2]);
+    for (int p = 0; p < phases; ++p)
+      gmax = fmaxf(gmax, m_s[(ph + hpc * p) * kRows + h]);
     float den = 0.f;
-    for (int r = 0; r < gm.rows; ++r)
-      den += exp2f(ml_s[((r * gm.hpc + h) * M + m) * 2] - gmax)
-             * ml_s[((r * gm.hpc + h) * M + m) * 2 + 1];
-    gd_s[idx * 2] = gmax;
-    gd_s[idx * 2 + 1] = den;
-    if (!final_out && m < mn) {
-      const long long o = (((long long)b * a.n_split + c) * a.G
-                           + blockIdx.y * gm.hpc + h) * a.Mt + m0 + m;
-      a.part_ml[o * 2] = gmax;
-      a.part_ml[o * 2 + 1] = den;
+    for (int p = 0; p < phases; ++p) {
+      const int w = ph + hpc * p;
+      const float e = exp2f(m_s[w * kRows + h] - gmax);
+      m_s[w * kRows + h] = e;
+      den += e * l_s[w * kRows + h];
     }
+    gd[ph][h][0] = gmax;
+    gd[ph][h][1] = den;
   }
   __syncthreads();
-  const int width = gm.hpc * a.hd;
-  // unrolled: acc and m_run are indexed by m, and stay in registers only
-  // under constant indices
-#pragma unroll
-  for (int m = 0; m < M; ++m) {
-    if (holds) {
-      const float w = exp2f(m_run[m] - gd_s[(hl * M + m) * 2]);
-#pragma unroll
-      for (int j = 0; j < KD; ++j)
-        red[row * width + hl * a.hd + d0 + j] = w * acc[m][j];
+  const bool final_out = a.n_split == 1;
+  const int per_head = mn * a.hd;
+  for (int idx = (int)threadIdx.x; idx < hpc * per_head; idx += kThreads) {
+    const int ph = idx / per_head, r = idx - ph * per_head;
+    const int h = r / a.hd, d = r - h * a.hd;
+    const int gh = blockIdx.y * hpc + ph;
+    if (gh >= a.G) continue;
+    float sum = 0.f;
+    for (int p = 0; p < phases; ++p) {
+      const int w = ph + hpc * p;
+      sum += m_s[w * kRows + h] * red[(w * kRows + h) * kWidth + d];
     }
-    __syncthreads();
-    for (int i = t; i < (m < mn ? heads * a.hd : 0); i += kThreads) {
-      const int h = i / a.hd, d = i - h * a.hd;
-      float sum = 0.f;
-      for (int r = 0; r < gm.rows; ++r) sum += red[r * width + i];
-      const long long o = ((((long long)b * (final_out ? 1 : a.n_split)
-                             + (final_out ? 0 : c)) * a.G
-                            + blockIdx.y * gm.hpc + h) * a.Mt + m0 + m)
-                          * a.hd + d;
-      if (final_out)
-        a.out[o] = sum / fmaxf(gd_s[(h * M + m) * 2 + 1], 1e-30f);
-      else
-        a.part_acc[o] = sum;
+    const long long row = (long long)gh * a.Mt + m0 + h;
+    if (final_out) {
+      a.out[((long long)b * a.G * a.Mt + row) * a.hd + d] =
+          sum / fmaxf(gd[ph][h][1], 1e-30f);
+    } else {
+      const long long o = ((long long)b * a.n_split + c) * a.G * a.Mt + row;
+      a.part_acc[o * a.hd + d] = sum;
+      if (d == 0) {
+        a.part_ml[o * 2] = gd[ph][h][0];
+        a.part_ml[o * 2 + 1] = gd[ph][h][1];
+      }
     }
-    __syncthreads();
   }
 }
 
@@ -494,38 +660,25 @@ decode_attention_combine(const float* __restrict__ part_acc,
   }
 }
 
-template <int M, int KD>
-int launch_mk(const Args& a, int B, cudaStream_t stream) {
-  using V = typename Vec<KD>::T;
-  auto kernel = decode_attention_split<M, KD>;
-  const Geom gm = geom(a.G, a.hd, KD);
-  const size_t ring = (size_t)kStages * kSlots * kThreads *
-                      (2 * sizeof(V) + 3 * sizeof(float));
-  // the merge reuses the ring; it needs at most 48 KB (rows * hpc * lps
-  // <= 256 threads bounds each of its three arrays by 16 KB)
-  const size_t merge = sizeof(float) *
-      ((size_t)gm.rows * gm.hpc * M * 2 + (size_t)gm.hpc * M * 2 +
-       (size_t)gm.rows * gm.hpc * a.hd);
-  const size_t smem = ring > merge ? ring : merge;
-  const size_t most = ring > 48 * 1024 ? ring : 48 * 1024;
-  // the opt-in above 48 KB, set once per instantiation and device to the
-  // most any shape needs, so no later launch, a captured one included,
-  // sets it again
+template <int NV>
+int launch_nv(const Args& a, int B, cudaStream_t stream) {
+  auto kernel = decode_attention_mma<NV>;
+  constexpr size_t smem = Ring<NV>::kSmem;
+  // the opt-in to the whole budget, set once per instantiation and device,
+  // so no later launch, a captured one included, sets it again
   static bool opted_in[64] = {};
   int device = 0;
   const cudaError_t de = cudaGetDevice(&device);
   if (de != cudaSuccess) return (int)de;
   if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
   if (!opted_in[device]) {
-    if (most > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
-      if (e != cudaSuccess) return (int)e;
-    }
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kCtaSmem);
+    if (e != cudaSuccess) return (int)e;
     opted_in[device] = true;
   }
-  kernel<<<dim3(a.n_split, gm.hgroups, B * a.mgroups), kThreads, smem,
-           stream>>>(a);
+  kernel<<<dim3(a.n_split, (a.G + a.hpc - 1) / a.hpc, B * a.mgroups),
+           kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.n_split == 1) return (int)e;
   decode_attention_combine<<<(unsigned)(B * a.G * a.Mt), kCombineThreads,
@@ -538,11 +691,12 @@ int launch_mk(const Args& a, int B, cudaStream_t stream) {
 
 extern "C" {
 
-// M: query heads per kv head; m_group: heads a CTA takes (1 to 8; M splits
-// into ceil(M / m_group) groups); kd: dims per lane (16: 16-byte loads,
-// m_group <= 4; 8: 8-byte loads); chunk: slots per CTA; n_split: chunks per
-// batch row (ceil(S / chunk)); part: scratch of B * n_split * G * M *
-// (hd + 2) f32 (unused when n_split == 1)
+// M: query heads per kv head; m_group: query heads a CTA takes (1 to 8; M
+// splits into ceil(M / m_group) groups); vec: bytes a row copy moves (16:
+// rows 16-byte aligned, hd % 16 == 0; else 8); chunk: slots per CTA;
+// n_split: chunks per batch row (ceil(S / chunk)); hpc: kv heads a CTA
+// takes (1, 2, 4 or 8); part: scratch of B * n_split * G * M * (hd + 2) f32
+// (unused when n_split == 1)
 int decode_attention_launch(const void* q, const void* kq, const void* ks,
                             const void* vq, const void* vs, const void* valid,
                             void* out, void* part, int B, int S, int G, int M,
@@ -550,14 +704,17 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
                             int ks_sb, int ks_ss, int ks_sg, int vq_sb,
                             int vq_ss, int vq_sg, int vs_sb, int vs_ss,
                             int vs_sg, int val_sb, int val_ss, int scale_bits,
-                            int kd, int chunk, int n_split, void* stream) {
+                            int vec, int chunk, int n_split, int hpc,
+                            void* stream) {
   if (B <= 0 || G <= 0) return 0;
-  if (M < 1 || m_group < 1 || m_group > 8 || (kd == 16 && m_group > 4))
+  if (M < 1 || m_group < 1 || m_group > kRows ||
+      (hpc != 1 && hpc != 2 && hpc != 4 && hpc != 8) ||
+      (G + hpc - 1) / hpc > 65535)
     return (int)cudaErrorInvalidValue;
   const int mgroups = (M + m_group - 1) / m_group;
   if ((long long)B * mgroups > 65535) return (int)cudaErrorInvalidValue;
-  if (S <= 0 || (kd != 8 && kd != 16) || hd % kd != 0 || hd / kd < 1 ||
-      hd / kd > 32 || chunk < 1 || n_split < 1 || n_split > 8192 ||
+  if (S <= 0 || (vec != 8 && vec != 16) || hd % vec != 0 || hd < 8 ||
+      hd > 256 || chunk < 1 || n_split < 1 || n_split > 65535 ||
       (long long)(n_split - 1) * chunk >= S ||
       (long long)n_split * chunk < S || (n_split > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -578,7 +735,10 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
   a.chunk = chunk;
   a.n_split = n_split;
   a.Mt = M;
+  a.mg = m_group;
   a.mgroups = mgroups;
+  a.vec = vec;
+  a.hpc = hpc;
   a.skq = Strides{kq_sb, kq_ss, kq_sg};
   a.sks = Strides{ks_sb, ks_ss, ks_sg};
   a.svq = Strides{vq_sb, vq_ss, vq_sg};
@@ -587,24 +747,15 @@ int decode_attention_launch(const void* q, const void* kq, const void* ks,
   a.val_s = val_ss;
   memcpy(&a.scale, &scale_bits, sizeof(float));
   const cudaStream_t st = (cudaStream_t)stream;
-  if (kd == 16) {
-    switch (m_group) {
-      case 1: return launch_mk<1, 16>(a, B, st);
-      case 2: return launch_mk<2, 16>(a, B, st);
-      case 3: return launch_mk<3, 16>(a, B, st);
-      case 4: return launch_mk<4, 16>(a, B, st);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
-  switch (m_group) {
-    case 1: return launch_mk<1, 8>(a, B, st);
-    case 2: return launch_mk<2, 8>(a, B, st);
-    case 3: return launch_mk<3, 8>(a, B, st);
-    case 4: return launch_mk<4, 8>(a, B, st);
-    case 5: return launch_mk<5, 8>(a, B, st);
-    case 6: return launch_mk<6, 8>(a, B, st);
-    case 7: return launch_mk<7, 8>(a, B, st);
-    case 8: return launch_mk<8, 8>(a, B, st);
+  switch ((hd + 31) / 32) {
+    case 1: return launch_nv<1>(a, B, st);
+    case 2: return launch_nv<2>(a, B, st);
+    case 3: return launch_nv<3>(a, B, st);
+    case 4: return launch_nv<4>(a, B, st);
+    case 5: return launch_nv<5>(a, B, st);
+    case 6: return launch_nv<6>(a, B, st);
+    case 7: return launch_nv<7>(a, B, st);
+    case 8: return launch_nv<8>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

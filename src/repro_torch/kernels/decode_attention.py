@@ -13,18 +13,22 @@ is ``csrc/decode_attention.cu``.
 
 The kernel reads the cache in its native (B, S, G, hd) layout through its
 strides (a layer's view of the stacked decode cache needs no copy) and
-turns the int8 codes into f32 in registers, so a decode step moves the int8
-bytes only. S is split across CTAs (flash-decoding): one CTA per (batch
-row, chunk of slots), covering every kv head, then a second kernel merges
-the chunks' partial softmax states. A CTA takes at most ``GROUP_M`` of the
-M query heads a kv head serves; M > 8 (recurrentgemma's local attention
-has M = 10) splits into ceil(M / 8) equal groups over the grid, each
-re-reading the K/V rows its sibling has just brought into L2, so the
-registers a thread holds do not grow with M. ``launch_plan`` picks the
-chunk from B, G, M, S and the card's SM count so that the grid fills the
-card; it is not a knob of the caller. The wrapper allocates the scratch of
-partials with ``torch.empty`` on q's device (so a call can be captured in
-a CUDA graph, whose pool then holds it).
+turns the int8 codes into f16 in registers, so a decode step moves the int8
+bytes only. S is split across CTAs (flash-decoding): one CTA per (chunk of
+slots, batch row, up to 8 kv heads, group of at most ``GROUP_M`` query
+heads), a warp for each kv head (a single kv head: all ``WARPS`` taking
+tiles of ``TILE`` slots in turn), each keeping its next tiles in flight
+in its own ring of shared memory, then a second kernel merges the chunks'
+partial softmax states. q.k and p.v run on the
+tensor cores (``mma.sync`` m16n8k16, f16 operands, f32 sums): an int8 code
+is exact in f16, and q and the weights p * v_s are each split into two f16
+terms after an exact power-of-two scale, which fill the MMA rows the query
+heads leave empty. M > 8 (recurrentgemma's local attention has M = 10)
+splits into ceil(M / 8) equal groups over the grid. ``launch_plan`` picks
+the chunk from B, G, M, S and the card's SM count so that the grid fills
+the card; it is not a knob of the caller. The wrapper allocates the scratch
+of partials with ``torch.empty`` on q's device (so a call can be captured
+in a CUDA graph, whose pool then holds it).
 
 Bound: memory (the int8 K/V, the scales and the mask read once: 0.165 ms
 at B=8, S=32768, G=8, hd=128 on 3.35 TB/s). PERF.md holds the measured
@@ -32,8 +36,10 @@ time.
 
 Routing: a CUDA tensor launches the kernel (or raises), a CPU tensor runs
 ``decode_attention_int8_ref``. The kernel's online softmax sums in another
-order than the dense softmax of the plain version: the two agree to
-``RTOL``/``ATOL``, the reference's own Pallas-against-oracle tolerance.
+order than the dense softmax of the plain version, and its two f16 terms
+keep 22 bits of q and of the weights: the two agree to ``RTOL``/``ATOL``,
+the reference's own Pallas-against-oracle tolerance (one f16 term would
+not; ``tests/test_torch_decode_attention.py`` emulates the split).
 ``LAUNCHES`` counts kernel launches: one per call that launches, though a
 call with more than one chunk launches the split kernel and the combine.
 """
@@ -48,15 +54,18 @@ from repro_torch.kernels.ref import decode_attention_int8_ref
 
 RTOL, ATOL = 2e-4, 2e-5     # repro tests/test_decode_attention_kernel.py:40
 
-DIMS_PER_THREAD = 8         # the head dim's granule: one 8-byte load
-GROUP_M = 8                 # query heads a CTA takes (csrc: the template M)
-WIDE_MAX_M = 4              # 16-byte loads (16 dims a lane) up to this group
+DIMS_PER_THREAD = 8         # the head dim's granule: an 8-byte copy
+GROUP_M = 8                 # query heads a CTA takes (csrc: kRows)
 MAX_GRID_Z = 65535          # B x query groups ride the grid's z dimension
+MAX_GRID_Y = 65535          # the kv heads ride its y dimension
 
-THREADS = 256               # threads of a CTA (csrc: kThreads)
-SLOTS_PER_STAGE = 4         # slots a row takes per ring stage (csrc: kSlots)
-CTAS_PER_SM = 2             # the grid's target, in CTAs per SM
-MIN_ITERS = 4               # a chunk takes at least this many ring stages
+WARPS = 8                   # warps of a CTA (csrc: kWarps)
+THREADS = 32 * WARPS
+TILE = 16                   # slots a warp takes per step (csrc: kTile)
+CTA_SMEM = 230400           # a CTA's dynamic shared memory (csrc: kCtaSmem):
+                            # one CTA an SM
+WAVES = 1                   # the grid's target, in waves of a CTA an SM
+MIN_TILES = 2               # a warp takes at least this many tiles a chunk
 
 LAUNCHES = {"decode_attention": 0}
 
@@ -103,6 +112,8 @@ def check_operands(q, k_q, k_s, v_q, v_s, valid) -> None:
     if b * _m_groups(m)[1] > MAX_GRID_Z:
         raise ValueError(f"B = {b} rows x {_m_groups(m)[1]} query groups "
                          f"exceed the grid's {MAX_GRID_Z}")
+    if g > MAX_GRID_Y:
+        raise ValueError(f"G = {g} kv heads exceed the grid's {MAX_GRID_Y}")
     if hd % DIMS_PER_THREAD or not 1 <= hd // DIMS_PER_THREAD <= 32:
         raise ValueError(f"head dim {hd}: the kernel takes a multiple of "
                          f"{DIMS_PER_THREAD} from 8 to 256")
@@ -125,44 +136,64 @@ def _m_groups(m: int):
     return m_group, -(-m // m_group)
 
 
-def _pow2_at_least(n: int) -> int:
-    p = 1
-    while p < n:
-        p <<= 1
-    return p
+def ring_geometry(hd: int) -> dict:
+    """A warp's ring of shared memory, as ``csrc/decode_attention.cu``'s
+    ``Ring<NV>`` lays it out: NV = ceil(hd / 32) words of V a lane, ``nk``
+    = ceil(hd / 16) q.k steps, a slot row of 32 NV bytes (hd zero-padded)
+    at a stride of 32 NV + 16, a stage of 16 slots' K and V rows and their
+    k_s, v_s and mask, as many stages (at most 4) as the CTA's budget holds
+    beside 8 kv heads' q fragments; ``smem`` in all, the CTA's 8 warps'
+    rings included."""
+    nv = -(-hd // 32)
+    stride = 32 * nv + 16
+    stage = 2 * TILE * stride + 3 * TILE * 4
+    frag = WARPS * 2 * nv * 32 * 16
+    stages = min(4, (CTA_SMEM - frag) // (WARPS * stage))
+    return {"nv": nv, "nk": -(-hd // 16), "row_bytes": 32 * nv,
+            "stride": stride, "stage_bytes": stage, "stages": stages,
+            "smem": WARPS * stages * stage + frag}
+
+
+def heads_per_cta(g: int) -> int:
+    """kv heads a CTA takes: the largest power of two up to 8 and G, so a
+    slot's rows of those heads (contiguous in the cache) come in together;
+    their warps take the chunk's tiles in turn (8 / hpc phases)."""
+    hpc = 1
+    while hpc * 2 <= min(g, WARPS):
+        hpc *= 2
+    return hpc
 
 
 def launch_plan(b: int, s: int, g: int, m: int, hd: int, *, wide: bool,
                 sms: int) -> dict:
     """How the kernel splits a call: the query heads a CTA takes
-    (``m_group``, at most 8) and ``m_groups`` = ceil(M / m_group), dims a
-    lane takes (``kd``: 16 with 16-byte loads when ``wide`` and m_group <=
-    4, else 8), lanes a (slot, head) group takes, kv heads a CTA takes,
-    its rows, the chunk of slots a CTA walks and ``n_split`` =
-    ceil(S / chunk), and the grid (n_split, head groups, B x m_groups).
-    The chunk is a whole number of the CTA's sweeps, at least
-    ``MIN_ITERS`` of them, and small enough that the grid
-    reaches ``CTAS_PER_SM * sms`` CTAs where S allows (so n_split stays
-    within that count, far below the combine's limit of 8192)."""
+    (``m_group``, at most 8) and ``m_groups`` = ceil(M / m_group), the kv
+    heads a CTA takes (``hpc``, ``heads_per_cta``), the bytes a row copy
+    moves (``vec``: 16 when ``wide`` and 16 divides hd, else 8), the ring
+    (``ring_geometry``), the chunk of slots a CTA walks and ``n_split`` =
+    ceil(S / chunk), and the grid (n_split, ceil(G / hpc), B x m_groups).
+    The chunk is a whole number of the CTA's sweeps (its 8 / hpc phases of
+    ``TILE`` slots), at least ``MIN_TILES`` a warp, and no smaller than it
+    takes to keep the grid within ``WAVES`` waves of ``sms`` CTAs (a CTA
+    an SM)."""
     m_group, m_groups = _m_groups(m)
-    kd = 16 if wide and m_group <= WIDE_MAX_M and hd % 16 == 0 else 8
-    lps = _pow2_at_least(hd // kd)
-    hpc = min(g, THREADS // lps)
-    hgroups = -(-g // hpc)
-    rows = THREADS // (hpc * lps)
-    sweep = rows * SLOTS_PER_STAGE
-    n_want = max(1, -(-CTAS_PER_SM * sms // (b * hgroups * m_groups)))
+    hpc = heads_per_cta(g)
+    vec = 16 if wide and hd % 16 == 0 else 8
+    ring = ring_geometry(hd)
+    sweep = WARPS // hpc * TILE
+    units = b * -(-g // hpc) * m_groups
+    n_want = max(1, WAVES * sms // units)
     chunk = -(-s // n_want)
-    chunk = max(MIN_ITERS, -(-chunk // sweep)) * sweep
+    chunk = max(MIN_TILES, -(-chunk // sweep)) * sweep
     n_split = -(-s // chunk)
-    return {"kd": kd, "m_group": m_group, "m_groups": m_groups,
-            "lanes_per_head": lps, "heads_per_cta": hpc,
-            "rows": rows, "chunk": chunk, "n_split": n_split,
-            "grid": (n_split, hgroups, b * m_groups), "threads": THREADS}
+    return {"vec": vec, "m_group": m_group, "m_groups": m_groups,
+            "hpc": hpc, "chunk": chunk, "n_split": n_split,
+            "grid": (n_split, -(-g // hpc), b * m_groups),
+            "threads": THREADS, **ring}
 
 
 def _wide_ok(k_q, v_q, hd: int) -> bool:
-    """16-byte loads need 16-byte-aligned rows of K and V."""
+    """16-byte copies need 16-byte-aligned rows of K and V."""
     return hd % 16 == 0 and all(
         a.data_ptr() % 16 == 0 and all(st % 16 == 0 for st in a.stride()[:3])
         for a in (k_q, v_q))
@@ -208,7 +239,7 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid, *,
                    out.data_ptr(), None if part is None else part.data_ptr()),
                   (b, s, g, m, plan["m_group"], hd, *strides,
                    *valid.stride(),
-                   _build.float_bits(scale), plan["kd"], plan["chunk"],
-                   n_split))
+                   _build.float_bits(scale), plan["vec"], plan["chunk"],
+                   n_split, plan["hpc"]))
     LAUNCHES["decode_attention"] += 1
     return out

@@ -296,8 +296,9 @@ def _unsorted_edges(rng, f, u):
 
 
 @pytest.mark.parametrize("order", ["sorted", "unsorted"])
-@pytest.mark.parametrize("f,u", [(5, 63), (8, 255), (16, 128), (1, 1)])
-@pytest.mark.parametrize("n", [1, 300, 2048, 16000])
+@pytest.mark.parametrize("f,u", [(5, 63), (8, 255), (16, 128), (1, 1),
+                                 (130, 63), (1, 63), (130, 1)])
+@pytest.mark.parametrize("n", [1, 300, 2048, 2049, 16000])
 def test_bucketize_kernel_equals_plain(cuda, n, f, u, order):
     from repro_torch.kernels import bucketize as bk
     rng = np.random.default_rng(n + f + u)
@@ -329,8 +330,11 @@ def _group_case(rng, case):
         edges[:, 60:] = np.inf
     elif case == "out_of_order":
         edges[2] = rng.permuted(edges[2])
-    elif case == "long_row":                          # past the staging budget
+    elif case == "long_row":                          # 60 KB: staged past 48
         edges = np.sort(rng.normal(size=(2, 3000)), axis=1).astype(np.float32)
+    elif case == "past_budget":                       # the serial walk
+        edges = np.sort(rng.normal(size=(130, 600)), axis=1).astype(
+            np.float32)
     elif case == "no_edges":
         edges = np.zeros((3, 0), np.float32)
     f, u = edges.shape
@@ -344,10 +348,13 @@ def _group_case(rng, case):
 
 
 @pytest.mark.parametrize("case", ["nan_edges", "dup_edges", "inf_edges",
-                                  "out_of_order", "long_row", "no_edges"])
+                                  "out_of_order", "long_row", "no_edges",
+                                  "past_budget"])
 def test_bucketize_group_summaries(cuda, case):
     from repro_torch.kernels import bucketize as bk
     x, edges = _group_case(np.random.default_rng(7), case)
+    route = bk.launch_plan(*x.shape, edges.shape[1], sms=132)["route"]
+    assert (route == "serial") == (case == "past_budget")
     xt = torch.from_numpy(x).to(cuda)
     e = torch.from_numpy(edges).to(cuda)
     before = bk.LAUNCHES["bucketize"]
@@ -355,6 +362,45 @@ def test_bucketize_group_summaries(cuda, case):
     torch.cuda.synchronize()
     assert bk.LAUNCHES["bucketize"] == before + 1
     assert torch.equal(out, bk.bucketize_ref(xt, e))
+
+
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("n", [2048, 16000])
+def test_bucketize_finance_width_specials(cuda, n, order):
+    """The finance fit's width (F=130, U=63) with NaN and +-inf in x and
+    in the edge rows, sorted and shuffled, bit-equal to the plain
+    version."""
+    from repro_torch.kernels import bucketize as bk
+    rng = np.random.default_rng(n)
+    edges = _ragged_edges(rng, 130, 63)
+    if order == "shuffled":
+        edges = rng.permuted(edges, axis=1)
+    edges[3, 5] = np.nan
+    edges[4, :9] = -np.inf
+    x = _hard_rows(rng, edges, n)
+    x[5:9, 3] = [np.nan, np.inf, -np.inf, edges[3, 0]]
+    x[:, 7] = np.nan
+    xt = torch.from_numpy(x).to(cuda)
+    e = torch.from_numpy(edges).to(cuda)
+    out = bk.bucketize(xt, e)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bk.bucketize_ref(xt, e))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_bucketize_unaligned_rows(cuda, offset):
+    """x (and so each 4-element group) off 16-byte alignment: the kernel's
+    scalar loads, bit-equal to the plain version."""
+    from repro_torch.kernels import bucketize as bk
+    rng = np.random.default_rng(offset)
+    edges = _unsorted_edges(rng, 130, 63)
+    flat = torch.from_numpy(_hard_rows(rng, edges, 2049).reshape(-1)).to(cuda)
+    x = flat[offset:offset + 2048 * 130].view(2048, 130)
+    assert x.data_ptr() % 16
+    e = torch.from_numpy(edges).to(cuda)
+    out = bk.bucketize(x, e)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bk.bucketize_ref(x, e))
 
 
 def test_bucketize_cuda_never_takes_plain(cuda, monkeypatch):
@@ -1877,7 +1923,11 @@ B8_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
     # recurrentgemma (M=10, hd=256, its 2048-slot window), arctic (M=7)
     # and phi-3 (M=1, hd=96)
     (2, 1000, 1, 10, 256), (2, 1000, 2, 16, 64), (2, 1000, 2, 9, 128),
-    (8, 2048, 1, 10, 256), (8, 2048, 8, 7, 128), (8, 2048, 32, 1, 96)]
+    (8, 2048, 1, 10, 256), (8, 2048, 8, 7, 128), (8, 2048, 32, 1, 96)] + [
+    # hd 72 (zero-padded to the MMA's depth of 16) at M from 1 to 10, and
+    # ragged S around the 16-slot tiles and the 64-slot sweeps
+    (2, 700, 2, m, 72) for m in range(1, 11)] + [
+    (2, s, 2, 4, 128) for s in (15, 17, 63, 65, 257)]
 
 
 @pytest.mark.parametrize("mask", ["all", "ring", "dead"])
@@ -1885,6 +1935,18 @@ B8_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
 def test_decode_attention_kernel_matches_plain(cuda, b, s, g, m, hd, mask):
     from repro_torch.kernels import decode_attention as da
     _b8_check(da, _b8_args(cuda, b, s, g, m, hd, seed=s + m + hd, mask=mask))
+
+
+@pytest.mark.parametrize("b,s,g,m,hd", [(8, 32768, 8, 4, 128),
+                                        (8, 2048, 1, 10, 256),
+                                        (2, 700, 2, 7, 72)])
+def test_decode_attention_large_scores(cuda, b, s, g, m, hd):
+    """q x 3 (logits of std 4-6, a peaked softmax): the two f16 terms a
+    side keep the kernel within rtol 2e-4 / atol 2e-5."""
+    from repro_torch.kernels import decode_attention as da
+    args = _b8_args(cuda, b, s, g, m, hd, seed=hd + m, mask="ring")
+    args[0] = args[0] * 3.0
+    _b8_check(da, args)
 
 
 def _split_case(dev, case):

@@ -251,37 +251,193 @@ def test_split_merge_matches_dense(case, which):
             rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("b,s,g,m,hd", [(8, 32768, 8, 4, 128),
-                                        (8, 4096, 8, 4, 80),
-                                        (2, 1, 2, 4, 128),
-                                        (2, 1000, 2, 8, 80),
-                                        (1, 64, 64, 8, 256),
-                                        (8, 2048, 1, 10, 256),
-                                        (8, 2048, 8, 7, 128),
-                                        (8, 2048, 32, 1, 96)]
-                         + [(2, 1000, 2, m, 64) for m in range(9, 17)])
+# the served shapes (qwen3-4b, h2o-danube, recurrentgemma, arctic, phi-3),
+# ragged S, hd 72 (zero-padded to the MMA's depth), M past 8
+PLAN_SHAPES = [(8, 32768, 8, 4, 128), (8, 4096, 8, 4, 80), (2, 1, 2, 4, 128),
+               (2, 1000, 2, 8, 80), (1, 64, 64, 8, 256), (8, 2048, 1, 10, 256),
+               (8, 2048, 8, 7, 128), (8, 2048, 32, 1, 96), (2, 700, 2, 3, 72),
+               (2, 3001, 3, 5, 8)] + [(2, 1000, 2, m, 64)
+                                      for m in range(9, 17)]
+
+
+@pytest.mark.parametrize("b,s,g,m,hd", PLAN_SHAPES)
 def test_launch_plan_covers_every_slot(b, s, g, m, hd):
-    """The split the wrapper asks for: chunks of whole sweeps that cover S
-    with none empty, every head in some CTA, every query head in one
-    group of at most 8 (groups as equal as may be), 16-byte loads only for
-    groups of at most 4 heads, and at the served shape a grid of at least
-    two CTAs per SM of an H100 (132 SMs)."""
+    """The split the wrapper asks for: chunks of whole sweeps (a CTA's 8 /
+    hpc phases of 16-slot tiles, at least MIN_TILES a warp) that cover S
+    with none empty, every kv head in one CTA's group of hpc (a power of
+    two up to 8), every query head in one group of at most 8 (groups as
+    equal as may be), 16-byte copies only where 16 divides hd, a ring of
+    two stages or more within the CTA's 227 KB, and at the served shape a
+    grid within one (batch row, head group) of WAVES waves of an H100's 132
+    SMs."""
     plan = tda.launch_plan(b, s, g, m, hd, wide=True, sms=132)
-    chunk, n_split = plan["chunk"], plan["n_split"]
+    chunk, n_split, hpc = plan["chunk"], plan["n_split"], plan["hpc"]
     assert (n_split - 1) * chunk < s <= n_split * chunk
-    assert chunk % (plan["rows"] * tda.SLOTS_PER_STAGE) == 0
+    assert hpc in (1, 2, 4, 8) and hpc <= g and (hpc == 8 or 2 * hpc > g)
+    sweep = tda.WARPS // hpc * tda.TILE
+    assert chunk % sweep == 0 and chunk >= tda.MIN_TILES * sweep
     mg, groups = plan["m_group"], plan["m_groups"]
     assert 1 <= mg <= tda.GROUP_M and (groups - 1) * mg < m <= groups * mg
     assert groups == -(-m // tda.GROUP_M)
-    assert plan["kd"] == (16 if mg <= tda.WIDE_MAX_M and hd % 16 == 0
-                          else 8)
-    lanes = plan["lanes_per_head"]
-    assert lanes >= hd // plan["kd"] and lanes & (lanes - 1) == 0
-    hgroups = plan["grid"][1]
-    assert plan["heads_per_cta"] * hgroups >= g
-    assert plan["rows"] * plan["heads_per_cta"] * lanes <= tda.THREADS
-    assert plan["grid"] == (n_split, hgroups, b * groups)
+    assert plan["vec"] == (16 if hd % 16 == 0 else 8)
+    assert plan["grid"] == (n_split, -(-g // hpc), b * groups)
+    assert plan["threads"] == 32 * tda.WARPS
+    assert 2 <= plan["stages"] <= 4
+    # the static shared arrays (1 KB) beside the dynamic, within 227 KB
+    assert plan["smem"] <= tda.CTA_SMEM and plan["smem"] + 1024 <= 232448
+    assert 16 * plan["nk"] >= hd and plan["row_bytes"] >= 16 * plan["nk"]
+    assert plan["row_bytes"] == 32 * plan["nv"] >= hd
     if (b, s) == (8, 32768):
-        assert n_split * hgroups * b >= 2 * 132
+        units = plan["grid"][1] * plan["grid"][2]
+        assert 132 - units < n_split * units <= 132 * tda.WAVES
     narrow = tda.launch_plan(b, s, g, m, hd, wide=False, sms=132)
-    assert narrow["kd"] == 8
+    assert narrow["vec"] == 8 and narrow["chunk"] == chunk
+
+
+@pytest.mark.parametrize("b,s,g,m,hd", PLAN_SHAPES[:10])
+def test_launch_plan_tiles_cover_every_slot_once(b, s, g, m, hd):
+    """The CTA of chunk c walks slots [c * chunk, min(S, (c + 1) * chunk)),
+    the warp of phase p of each of its kv heads the tiles p, p + 8 / hpc,
+    ... of 16 slots (a tile's slots past the chunk are zero-filled and
+    score -inf): for each kv head every slot of S falls in exactly one
+    warp's tile, and no warp runs past its chunk's tiles."""
+    plan = tda.launch_plan(b, s, g, m, hd, wide=True, sms=132)
+    chunk, hpc = plan["chunk"], plan["hpc"]
+    phases = tda.WARPS // hpc
+    seen = np.zeros((plan["grid"][1] * hpc, s), np.int32)
+    for c in range(plan["n_split"]):
+        c0, c1 = c * chunk, min(s, (c + 1) * chunk)
+        n_tiles = -(-(c1 - c0) // tda.TILE)
+        for y in range(plan["grid"][1]):
+            for w in range(tda.WARPS):
+                head, phase = y * hpc + w % hpc, w // hpc
+                mine = max(0, -(-(n_tiles - phase) // phases))
+                for it in range(mine):
+                    s0 = c0 + tda.TILE * (phase + phases * it)
+                    assert s0 < c1
+                    seen[head, s0:min(c1, s0 + tda.TILE)] += 1
+    assert (seen[:g] == 1).all()
+
+
+@pytest.mark.parametrize("hd", [8, 16, 72, 80, 96, 128, 200, 256])
+def test_ring_reads_hit_distinct_banks(hd):
+    """The fragment reads from a warp's ring: at q.k step i lane (g, t)
+    reads the 4-byte word at byte 16 i + 4 t of slot rows g and 8 + g; at
+    p.v word i lane (g, t) reads byte 4 (g + 8 i) of slot rows 2 t, 2 t +
+    1, 2 t + 8, 2 t + 9. With the row stride odd in 16-byte units, each
+    read's 32 lanes hit 32 distinct banks; the ring holds two to four
+    stages within the CTA's budget, and the merge fits in it."""
+    ring = tda.ring_geometry(hd)
+    stride = ring["stride"]
+    assert (stride // 16) % 2 == 1 and stride % 16 == 0
+    assert 2 <= ring["stages"] <= 4 and ring["smem"] <= tda.CTA_SMEM
+    assert tda.WARPS * 8 * (ring["row_bytes"] + 2) * 4 <= \
+        tda.WARPS * ring["stages"] * ring["stage_bytes"]
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for i in range(ring["nk"]):
+        for row in (0, 8):
+            banks = {((row + g) * stride + 16 * i + 4 * t) // 4 % 32
+                     for g, t in lanes}
+            assert len(banks) == 32
+    for i in range(ring["nv"]):
+        for extra in (0, 1, 8, 9):
+            banks = {((2 * t + extra) * stride + 4 * (g + 8 * i)) // 4 % 32
+                     for g, t in lanes}
+            assert len(banks) == 32
+
+
+# -- the kernel's split-term arithmetic, emulated ------------------------------
+
+def _split16(x, terms=2):
+    """x (f32) as two f16 terms rounded to nearest (hi = f16(x), lo =
+    f16(x - hi)), returned in f32; one term drops lo."""
+    hi = x.to(torch.float16).to(torch.float32)
+    lo = (x - hi).to(torch.float16).to(torch.float32)
+    return hi, lo * (terms == 2)
+
+
+def _emulate(args, scale, terms=2):
+    """B8's arithmetic on the CPU: q scaled per head by 2^e (max |q| 2^e in
+    [2^14, 2^15)), split into f16 terms, each term's products with the int8
+    codes (exact in f16) summed in f32; scores q.k * 2^-e * k_s * scale, -1e30
+    where dead; the weights p * v_s scaled by 2^(14 - cap) with v_s below
+    2^cap, split the same way, their products with V's codes summed in f32,
+    the scale taken back out, divided by max(l, 1e-30)."""
+    q, kq, ks, vq, vs, valid = (torch.from_numpy(np.ascontiguousarray(a))
+                                for a in args)
+    amax = q.abs().amax(-1)                                    # (B, G, M)
+    fin = torch.isfinite(amax) & (amax > 0)
+    e = torch.where(fin, (14 - (torch.frexp(amax).exponent - 1)).clamp(
+        -126, 126), 0).to(torch.float32)
+    hi, lo = _split16(q * torch.exp2(e)[..., None], terms)
+    kf = kq.to(torch.float32)
+    dot = (torch.einsum("bgmd,bsgd->bgms", hi, kf)
+           + torch.einsum("bgmd,bsgd->bgms", lo, kf))
+    sc = (dot * torch.exp2(-e)[..., None]
+          * ks[..., 0].permute(0, 2, 1)[:, :, None, :] * np.float32(scale))
+    sc = torch.where(valid[:, None, None, :] > 0.5, sc, -1e30)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    den = p.sum(-1).clamp_min(1e-30)
+    vmax = vs[..., 0].abs().amax(1)                            # (B, G)
+    cap = (torch.frexp(vmax).exponent).clamp(-100, 110).to(torch.float32)
+    w = p * (vs[..., 0].permute(0, 2, 1)[:, :, None, :]
+             * torch.exp2(14 - cap)[:, :, None, None])
+    whi, wlo = _split16(w, terms)
+    vf = vq.to(torch.float32)
+    num = (torch.einsum("bgms,bsgd->bgmd", whi, vf)
+           + torch.einsum("bgms,bsgd->bgmd", wlo, vf))
+    return (num * torch.exp2(cap - 14)[:, :, None, None]
+            / den[..., None]).numpy()
+
+
+def _hard(case, m, hd, seed):
+    """B=2, S=300, G=2 inputs: large scores (q x 3; past x 4 the f32 plain
+    version and the JAX oracle part at hd=256 themselves), one dominant
+    slot (its K the sign of q at full scale), every slot dead, or a ring
+    with holes."""
+    b, s, g = 2, 300, 2
+    args = list(_setup(b, s, g, m, hd, seed=seed))
+    if case == "large":
+        args[0] = args[0] * np.float32(3.0)
+    elif case == "dominant":
+        args[1][:, 77] = (np.sign(args[0][:, :, 0]) * 127).astype(np.int8)
+    elif case == "all_dead":
+        args[5][:] = 0.0
+    elif case == "part_dead":
+        args[5][:, 150:] = 0.0
+        args[5][0, ::3] = 0.0
+    return tuple(args)
+
+
+# M from 1 to 10 against hd in {72, 80, 96, 128, 256}
+M_HD = [(1, 72), (2, 80), (3, 96), (4, 128), (5, 256), (6, 72), (7, 80),
+        (8, 96), (9, 128), (10, 256)]
+
+
+@pytest.mark.parametrize("m,hd", M_HD)
+@pytest.mark.parametrize("case", ["large", "dominant", "all_dead",
+                                  "part_dead"])
+def test_split_terms_match_plain_and_jax(case, m, hd):
+    """Two f16 terms a side keep B8 within rtol 2e-4 / atol 2e-5 of the
+    port's plain version and of the JAX package's oracle on hard inputs."""
+    args = _hard(case, m, hd, seed=m * 1000 + hd)
+    scale = 1.0 / np.sqrt(hd)
+    got = _emulate(args, scale)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, _port(args, scale), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, _oracle(args, scale, "ref"), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_one_f16_term_misses_the_tolerance():
+    """The same arithmetic with a single f16 term a side (lo dropped) falls
+    outside rtol 2e-4 / atol 2e-5 on large scores: the split is needed, and
+    the emulation above can fail."""
+    args = _hard("large", 4, 128, seed=4128)
+    scale = 1.0 / np.sqrt(128)
+    want = _port(args, scale)
+    one = _emulate(args, scale, terms=1)
+    excess = np.abs(one - want) - (ATOL + RTOL * np.abs(want))
+    assert excess.max() > 0
+    two = _emulate(args, scale, terms=2)
+    assert (np.abs(two - want) <= ATOL + RTOL * np.abs(want)).all()
