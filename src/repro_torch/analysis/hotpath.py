@@ -300,10 +300,10 @@ def _graph_buffers(srv, row, key) -> Dict[str, int]:
     """data_ptr of the static input buffers and outputs of the graph a
     row's body was captured into."""
     if row["probe"] == "batch":
-        _, static_x, outs = srv._graphs[key]
+        _, static_x, outs, _ = srv._graphs[key]
         ins = {"x": static_x}
     else:
-        _, static, outs = srv._step_graphs[key]
+        _, static, outs, _ = srv._step_graphs[key]
         ins = {} if static is None else {
             f.name: getattr(static, f.name)
             for f in dataclasses.fields(static)}

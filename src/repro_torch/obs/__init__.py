@@ -76,8 +76,10 @@ class ObsConfig:
                    blocks until device-complete inside the
                    ``megastep_synced`` stage (0 = never, the default —
                    the zero-sync loop is preserved exactly);
-    annotate       wrap steps in ``torch.profiler.record_function``
-                   ranges (visible in captured profiler traces only);
+    annotate       let ``Observability.annotate`` open its
+                   ``record_function`` ranges (while a profiler records);
+                   the servers' entries open theirs whenever one records
+                   (obs/profiling.py);
     drift          DriftConfig of the monitors (None: defaults);
     drift_enabled  False disables drift detection entirely.
     """
@@ -153,8 +155,8 @@ class Observability:
         return self.timer.stage(name)
 
     def annotate(self, name: str):
-        """Profiler range around a step (null context unless
-        ``annotate`` is configured)."""
+        """A profiler range around a block of the caller's (null context
+        unless ``annotate`` is configured and a profiler records)."""
         return annotation(name, self.config.annotate)
 
     def sync_due(self) -> bool:

@@ -18,9 +18,33 @@ The decomposition this module provides:
   the queue of work, which is why it is off by default; it changes *when*
   the host waits, never a value.
 
-* ``annotation(name)`` — a ``torch.profiler.record_function`` range around
-  a step while a profiler trace is captured (the step's phases show in the
-  trace's timeline); a null context when disabled.
+* **spans** — ``torch.profiler.record_function`` ranges that open only
+  while a torch profiler records (``tracing()``), so a served call pays
+  one check when none does. The servers' entries (``classify``,
+  ``step``, ``step_chunk``, ``flush``), traced, run inside
+  ``entry_call``, which opens ``repro_torch.entry`` around the call and,
+  inside it,
+  ``.input`` (the threshold fill and the copies into a graph's static
+  buffers), ``.replay`` (``graph.replay()``), ``.output`` (the clones out
+  of its buffers), ``.capture`` (the warm-up and the capture, once a
+  shape), ``.probe`` (the first call's probe of the backend) and
+  ``.eager`` (the two-phase route). Kineto records these ranges and the
+  device's work on one clock, so a device idle gap falls inside the span
+  the host was in. ``annotation(name, enabled)`` opens any such range
+  under the same gate.
+
+* **phase marks** — the reference separates the register scan and the
+  fused classify inside its jitted step with ``jax.named_scope``
+  metadata. The port's counterpart: a step body calls ``phase(name)`` at
+  each of its phase boundaries. While ``capture_phases()`` records a
+  CUDA graph's capture, each mark counts the device nodes (kernel,
+  memcpy, memset) the graph under capture holds so far
+  (``capture_nodes``), so each phase owns the nodes captured after its
+  mark. A replay runs no Python, so the marks cost nothing there;
+  outside a capture ``phase`` returns at once. A graph captured from one
+  stream is a chain that runs its nodes in capture order, so a replay's
+  device events in a profiler's trace, in order of start, split by the
+  marks' counts (``graph_phases()`` on each server hands them out).
 
 Stage vocabulary used by the serving tiers: ``ring_cut`` (pull source +
 admit + window-granular pack), ``h2d`` (HostCut -> device PacketChunk; with
@@ -28,19 +52,18 @@ prefetch on the card, the pinned staging and the enqueue of the side
 stream's copies, timed on the prefetch thread), ``megastep`` (step
 dispatch), ``megastep_synced`` (sampled: dispatch + device completion),
 ``backend_flush`` (host backend call on the two-phase path), ``backpatch``
-(the back-patch on the two-phase path). The reference also separates the
-register scan and the fused classify inside its jitted step with
-``jax.named_scope`` metadata. A replayed CUDA graph has no counterpart:
-its kernels run without the host, so no range can be opened inside a
-replay; the profiler's kernel names are what tells them apart.
+(the back-patch on the two-phase path).
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
+import functools
+import threading
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -129,10 +152,149 @@ class SampledSync:
         return False
 
 
+# -- spans ----------------------------------------------------------------------
+
+ENTRY = "repro_torch.entry"
+ENTRY_INPUT = ENTRY + ".input"
+ENTRY_REPLAY = ENTRY + ".replay"
+ENTRY_OUTPUT = ENTRY + ".output"
+ENTRY_CAPTURE = ENTRY + ".capture"
+ENTRY_PROBE = ENTRY + ".probe"
+ENTRY_EAGER = ENTRY + ".eager"
+
+_OFF = contextlib.nullcontext()
+
+
+# tracing() -> whether a torch profiler records on this process: the one
+# check a served call pays for its spans (PyTorch's own C function, so the
+# check adds no Python frame)
+tracing = torch.autograd._profiler_enabled
+
+
 def annotation(name: str, enabled: bool = True):
-    """A ``torch.profiler.record_function(name)`` range when enabled, else
-    a null context. The range shows only inside a captured profiler trace;
-    outside one it costs a no-op."""
-    if not enabled:
-        return contextlib.nullcontext()
-    return torch.profiler.record_function(name)
+    """A ``torch.profiler.record_function(name)`` range when enabled and a
+    profiler records, else a null context: with no profiler running it
+    costs the check and opens nothing."""
+    if enabled and tracing():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
+def entry_call(fn: Callable, *args):
+    """``fn(*args, True)`` inside the ``repro_torch.entry`` range: an
+    entry's traced call, once ``tracing()`` has said a profiler records
+    (the untraced call is ``fn(*args, False)``, with no range). The flag
+    tells ``fn`` to open its inner spans."""
+    with torch.profiler.record_function(ENTRY):
+        return fn(*args, True)
+
+
+# -- phase marks --------------------------------------------------------------
+
+DEVICE_NODE_TYPES = (0, 1, 2)   # CUgraphNodeType: kernel, memcpy, memset
+_CAPTURE_ACTIVE = 1             # CUstreamCaptureStatus
+_marks = threading.local()      # .open: the recorders of this thread's captures
+
+
+class PhaseMarks:
+    """The marks of one capture: each ``mark(name)`` takes ``count()``,
+    the device nodes captured so far. ``close()`` takes the count at the
+    capture's end; ``result`` is then ``((phase, nodes), ...)`` in capture
+    order, summing to the graph's device nodes (a first entry
+    ``("unmarked", n)`` holds nodes captured before the first mark)."""
+
+    def __init__(self, count: Callable[[], int]):
+        self.count = count
+        self.at = []                # (phase, nodes before its first node)
+        self.result = None
+
+    def mark(self, name: str) -> None:
+        self.at.append((name, self.count()))
+
+    def close(self) -> None:
+        ends = [n for _, n in self.at[1:]] + [self.count()]
+        marks = [(name, end - start)
+                 for (name, start), end in zip(self.at, ends)]
+        first = self.at[0][1] if self.at else ends[-1]
+        if first:
+            marks.insert(0, ("unmarked", first))
+        self.result = tuple(marks)
+
+
+def phase(name: str) -> None:
+    """Mark the start of phase ``name`` in the CUDA graph this thread is
+    capturing under ``capture_phases``; outside one, return at once."""
+    open_ = getattr(_marks, "open", None)
+    if open_:
+        open_[-1].mark(name)
+
+
+@contextlib.contextmanager
+def capture_phases(count: Optional[Callable[[], int]] = None):
+    """Record the ``phase`` marks of the body run inside the block: open it
+    inside ``torch.cuda.graph(...)``, around the body, so its end still
+    counts the graph under capture. ``count`` (default ``capture_nodes``)
+    counts the device nodes captured so far. -> the ``PhaseMarks``, whose
+    ``result`` is set once the block ends without an error."""
+    rec = PhaseMarks(count or capture_nodes)
+    open_ = getattr(_marks, "open", None)
+    if open_ is None:
+        open_ = _marks.open = []
+    open_.append(rec)
+    try:
+        yield rec
+        rec.close()
+    finally:
+        open_.pop()
+
+
+@functools.lru_cache(maxsize=1)
+def _driver():
+    """libcuda's graph queries, through ctypes (torch has loaded the
+    library). ``cuStreamGetCaptureInfo_v2`` is CUDA 12's entry point."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    info = lib.cuStreamGetCaptureInfo_v2
+    info.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                     ctypes.POINTER(ctypes.c_uint64),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_void_p),
+                     ctypes.POINTER(ctypes.c_size_t)]
+    nodes = lib.cuGraphGetNodes
+    nodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.POINTER(ctypes.c_size_t)]
+    kind = lib.cuGraphNodeGetType
+    kind.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    for fn in (info, nodes, kind):
+        fn.restype = ctypes.c_int
+    return info, nodes, kind
+
+
+def _check(rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what} failed with CUresult {rc}")
+
+
+def capture_nodes() -> int:
+    """Device nodes (kernel, memcpy, memset) of the CUDA graph the current
+    stream is capturing."""
+    info, get_nodes, get_kind = _driver()
+    stream = torch.cuda.current_stream()
+    status, gid = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, n_deps = ctypes.c_void_p(), ctypes.c_void_p(), \
+        ctypes.c_size_t()
+    _check(info(stream.cuda_stream, ctypes.byref(status), ctypes.byref(gid),
+                ctypes.byref(graph), ctypes.byref(deps),
+                ctypes.byref(n_deps)), "cuStreamGetCaptureInfo")
+    if status.value != _CAPTURE_ACTIVE:
+        raise RuntimeError("capture_nodes: the stream is not capturing")
+    n = ctypes.c_size_t(0)
+    _check(get_nodes(graph, None, ctypes.byref(n)), "cuGraphGetNodes")
+    if not n.value:
+        return 0
+    nodes = (ctypes.c_void_p * n.value)()
+    _check(get_nodes(graph, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    kind, count = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        _check(get_kind(node, ctypes.byref(kind)), "cuGraphNodeGetType")
+        count += kind.value in DEVICE_NODE_TYPES
+    return count

@@ -81,6 +81,7 @@ from repro_torch.netsim.shard_stream import (ShardedFlowTable,
 from repro_torch.netsim.stream import (FlowTableState, PacketChunk,
                                        PacketWindow, chunk_update_readout)
 from repro_torch.obs import Observability
+from repro_torch.obs.profiling import phase
 from repro_torch.serving.faults import FaultPolicy
 from repro_torch.serving.stream_serving import (StreamingHybridServer,
                                                 _Carries,
@@ -238,12 +239,15 @@ class ShardedStreamingServer(StreamingHybridServer):
         deferred step keeps this shard's partial rows, which a flush
         reduce-scatters."""
         t = c.table
+        phase("register")
         state, e, own, x, n_ev, n_ov = shard_window_update(
             FlowTableState(t.regs), w, self.n_shards, self._shard,
             **self._register_kw())
         self._store_regs(t.regs, state)
         t.epoch.copy_(torch.minimum(t.epoch, e))
+        phase("switch")
         sw_pred, conf = self._classify(x, own)
+        phase("dispatch")
         fwd = (conf < tau) & w.valid
         buf, idx, valid = dispatch(x, fwd, self.capacity)
         if merge_buf:
@@ -264,6 +268,7 @@ class ShardedStreamingServer(StreamingHybridServer):
         baseline psums the rows and classifies them all), the dispatch of
         every window and one psum of its buffer."""
         t = c.table
+        phase("register")
         local, own = localize_window(chunk, self.n_shards, self._shard)
         state, xs, n_ev, n_ov = chunk_update_readout(
             FlowTableState(t.regs), local, sweep=chunk, **self._register_kw())

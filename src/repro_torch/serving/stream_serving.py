@@ -117,6 +117,9 @@ from repro_torch.netsim.stream import (EVICT_POLICIES, FLOW_FEATURES,
                                        packet_chunk_from_arrays,
                                        window_update_readout)
 from repro_torch.obs import Observability
+from repro_torch.obs.profiling import (ENTRY_CAPTURE, ENTRY_EAGER,
+                                       ENTRY_PROBE, annotation, entry_call,
+                                       phase, tracing)
 from repro_torch.serving.faults import FaultPolicy, FaultStats, GuardedBackend
 from repro_torch.serving.hybrid_serving import HybridServer, HybridStats
 
@@ -429,8 +432,10 @@ def chunk_classify_tail(art, stats, chunk: PacketChunk, xs, n_ev, n_ov,
     Returns (stats, dd, pending, frac, rows)."""
     k, w_lanes, nf = xs.shape
     rows_in = xs.reshape(k * w_lanes, nf)
+    phase("switch")
     sw_pred, conf = (fused_classify(art, rows_in, tiles=tiles, device=device)
                      if classify is None else classify(rows_in))
+    phase("dispatch")
     sw_pred = sw_pred.reshape(k, w_lanes)
     conf = conf.reshape(k, w_lanes)
     fwd = (conf < threshold) & chunk.valid
@@ -802,7 +807,7 @@ class StreamingHybridServer(HybridServer):
         self._reset_deferred()
         # the deferred step calls no backend: a graph whenever fuse allows
         self._defer_graphs = self.device.type == "cuda" and fuse is not False
-        self._step_graphs = {}     # (kind, shape) -> (graph, input, outputs)
+        self._step_graphs = {}     # (kind, shape) -> (graph, input, outs, marks)
 
     # -- the chunk-size autotune -------------------------------------------
 
@@ -937,11 +942,14 @@ class StreamingHybridServer(HybridServer):
                     use_kernel=False if self.use_kernel is False else None)
 
     def _window_switch(self, c: _Carries, w: PacketWindow, tau):
+        phase("register")
         state, x, n_ev, n_ov = window_update_readout(
             FlowTableState(c.table.regs), w, **self._register_kw())
         self._store_regs(c.table.regs, state)
+        phase("switch")
         sw_pred, conf = fused_classify(self.artifact, x, tiles=self.tiles,
                                        device=self.device)
+        phase("dispatch")
         fwd = (conf < tau) & w.valid
         buf, idx, valid = dispatch(x, fwd, self.capacity)
         return buf, (sw_pred, idx, valid, fwd, conf, n_ev, n_ov)
@@ -959,6 +967,7 @@ class StreamingHybridServer(HybridServer):
         return pred, frac, rows
 
     def _chunk_switch(self, c: _Carries, chunk: PacketChunk, tau):
+        phase("register")
         state, xs, n_ev, n_ov = chunk_update_readout(
             FlowTableState(c.table.regs), chunk, **self._register_kw())
         self._store_regs(c.table.regs, state)
@@ -988,7 +997,10 @@ class StreamingHybridServer(HybridServer):
         written in place. -> (pred, frac, rows)."""
         switch, finish = self._halves(kind)
         buf, ctx = switch(c, inp, self._tau)
-        return finish(c, inp, ctx, self._fused_backend(kind, c, buf))
+        phase("backend")
+        be_pred = self._fused_backend(kind, c, buf)
+        phase("combine")
+        return finish(c, inp, ctx, be_pred)
 
     def _window_step(self, c: _Carries, w: PacketWindow):
         """The window step a graph captures (threshold from ``_tau``)."""
@@ -1007,7 +1019,10 @@ class StreamingHybridServer(HybridServer):
         """The flush a graph captures: the backend over the deferral
         buffer, the back-patch, the fold and the emptying.
         -> (patched predictions,)."""
-        return (self._flush_finish(c, self._fused_backend("flush", c, None)),)
+        phase("backend")
+        be_pred = self._fused_backend("flush", c, None)
+        phase("combine")
+        return (self._flush_finish(c, be_pred),)
 
     def _defer_body(self, c: _Carries, w: PacketWindow, tau, pos):
         """One deferred window: the switch half, then the rows into the
@@ -1073,10 +1088,6 @@ class StreamingHybridServer(HybridServer):
         context without one."""
         return _NULL if self._obs is None else self._obs.stage(name)
 
-    def _annotate(self, name: str):
-        """The attached Observability's profiler range, or a null context."""
-        return _NULL if self._obs is None else self._obs.annotate(name)
-
     def _host_call(self, rows) -> Optional[torch.Tensor]:
         """``_backend_answer`` called from the host, timed as the
         ``backend_flush`` stage when an Observability is attached."""
@@ -1116,7 +1127,7 @@ class StreamingHybridServer(HybridServer):
             torch.cuda.set_sync_debug_mode(mode)
         return be if self._fused_ok else self._host_call(buf)
 
-    def _replay_step(self, key, body, inp):
+    def _replay_step(self, key, body, inp, traced: bool = False):
         """``body(carries, inp)`` as a CUDA graph under ``key`` (captured at
         its first call), replayed on ``inp`` (None: the body reads only the
         carries); its output tensors cloned out of the graph's buffers. The
@@ -1127,41 +1138,44 @@ class StreamingHybridServer(HybridServer):
         which the capture does not record."""
         entry = self._step_graphs.get(key)
         if entry is None:
-            static = None if inp is None else _clone_input(inp)
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                body(self._carries().clone(), static)
-            main.wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outs = body(self._carries(), static)
-            entry = self._step_graphs[key] = (graph, static, outs)
-        graph, static, outs = entry
-        if inp is not None:
-            _copy_input(static, inp)
-        graph.replay()
-        return tuple(o.clone() for o in outs)
+            with annotation(ENTRY_CAPTURE, traced):
+                entry = self._step_graphs[key] = self._capture(
+                    body, self._carries(),
+                    None if inp is None else _clone_input(inp),
+                    "thread_local")
+        return self._run_graph(entry, self._load_step, inp, traced)
 
-    def _serve(self, kind: str, inp):
+    def _load_step(self, static, inp) -> None:
+        """The threshold and the step's input into the graph's buffers; a
+        flush (no input) reads only the carries."""
+        if inp is not None:
+            self._tau.fill_(self.threshold)
+            _copy_input(static, inp)
+
+    def graph_phases(self) -> dict:
+        return {**super().graph_phases(),
+                **{key: entry[3] for key, entry in self._step_graphs.items()}}
+
+    def _serve(self, kind: str, inp, traced: bool):
         switch, finish = self._halves(kind)
         if self._fused_ok:
-            self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
                 (kind, tuple(inp.bucket.shape)),
                 self._window_step if kind == "window" else self._chunk_step,
-                inp)
+                inp, traced)
         else:
-            c = self._carries()
-            buf, ctx = switch(c, inp, self.threshold)
-            be = self._eager_backend(kind, c, buf)
-            narrate = (self._obs is not None and kind == "chunk"
-                       and self._narrates_patch())
-            # a failed call (be None) leaves the switch's answers: no patch
-            with (self._stage("backpatch") if narrate and be is not None
-                  else _NULL):
-                pred, frac, rows = finish(c, inp, ctx, be)
+            with annotation(ENTRY_PROBE if self._fused_ok is None
+                            else ENTRY_EAGER, traced):
+                c = self._carries()
+                buf, ctx = switch(c, inp, self.threshold)
+                be = self._eager_backend(kind, c, buf)
+                narrate = (self._obs is not None and kind == "chunk"
+                           and self._narrates_patch())
+                # a failed call (be None) leaves the switch's answers: no
+                # patch
+                with (self._stage("backpatch") if narrate and be is not None
+                      else _NULL):
+                    pred, frac, rows = finish(c, inp, ctx, be)
             if narrate:
                 self._obs.emit("degraded" if be is None else "backpatch",
                                windows=inp.n_windows)
@@ -1187,16 +1201,22 @@ class StreamingHybridServer(HybridServer):
         step(w) again double-counts it. Recover by reset() or by skipping
         the failed window, never by replaying it.
         """
+        if tracing():
+            return entry_call(self._step_window, w)
+        return self._step_window(w, False)
+
+    def _step_window(self, w: PacketWindow, traced: bool):
         if self.flush_every == 1:
-            return self._serve("window", w)
+            return self._serve("window", w, traced)
         self._pos.fill_(self._pending_n)
         if self._defer_graphs:
-            self._tau.fill_(self.threshold)
             pred, frac, rows = self._replay_step(
-                ("defer", tuple(w.bucket.shape)), self._deferred_step, w)
+                ("defer", tuple(w.bucket.shape)), self._deferred_step, w,
+                traced)
         else:
-            pred, frac, rows = self._defer_body(self._carries(), w,
-                                                self.threshold, self._pos)
+            with annotation(ENTRY_EAGER, traced):
+                pred, frac, rows = self._defer_body(self._carries(), w,
+                                                    self.threshold, self._pos)
         self._pending_n += 1
         full = self._pending_n >= self.flush_every
         trigger = "cycle_full"
@@ -1218,7 +1238,7 @@ class StreamingHybridServer(HybridServer):
         if full:
             # queued, not overwritten: a caller who steps through several
             # cycles without consuming loses nothing
-            self._flush_queue.append(self.flush(trigger=trigger))
+            self._flush_queue.append(self._flush(trigger, traced))
         return pred, HybridStats(frac, rows, self.capacity)
 
     # -- deferred-dispatch flushing ------------------------------------------
@@ -1245,6 +1265,11 @@ class StreamingHybridServer(HybridServer):
         "manual") in the ``flush`` event when an Observability is attached;
         it changes nothing else.
         """
+        if tracing():
+            return entry_call(self._flush, trigger)
+        return self._flush(trigger, False)
+
+    def _flush(self, trigger: str, traced: bool):
         if self.flush_every == 1 or self._pending_n == 0:
             return None
         n = self._pending_n
@@ -1254,13 +1279,16 @@ class StreamingHybridServer(HybridServer):
         served = True
         if self._fused_ok:
             (patched,) = self._replay_step(
-                ("flush", tuple(self._dd.buf.shape)), self._flush_step, None)
+                ("flush", tuple(self._dd.buf.shape)), self._flush_step, None,
+                traced)
         else:
-            c = self._carries()
-            be = self._eager_backend("flush", c, None)
-            served = be is not None
-            with self._stage("backpatch") if served else _NULL:
-                patched = self._flush_finish(c, be)
+            with annotation(ENTRY_PROBE if self._fused_ok is None
+                            else ENTRY_EAGER, traced):
+                c = self._carries()
+                be = self._eager_backend("flush", c, None)
+                served = be is not None
+                with self._stage("backpatch") if served else _NULL:
+                    patched = self._flush_finish(c, be)
         if obs is not None:
             obs.emit("backpatch" if served else "degraded", windows=n)
         self._pending_n = 0
@@ -1298,7 +1326,9 @@ class StreamingHybridServer(HybridServer):
         if chunk.window != self.window:
             raise ValueError(f"chunk windows are {chunk.window} lanes wide, "
                              f"server built for {self.window}")
-        return self._serve("chunk", chunk)
+        if tracing():
+            return entry_call(self._serve, "chunk", chunk)
+        return self._serve("chunk", chunk, False)
 
     # -- open-ended serving --------------------------------------------------
 
@@ -1456,7 +1486,7 @@ class StreamingHybridServer(HybridServer):
                     if obs is not None:
                         obs.emit("cut", cut_kind=cut.kind, packets=cut.n,
                                  windows=cut.n_windows)
-                    with self._annotate("megastep"), self._stage("megastep"):
+                    with self._stage("megastep"):
                         pred, _ = self.step_chunk(chunk)
                     # live rows lead; pad/-1 lanes only trail them
                     flat = pred.reshape(-1)[:cut.n]
@@ -1504,7 +1534,7 @@ class StreamingHybridServer(HybridServer):
                 obs.emit("cut", cut_kind=cut.kind, packets=cut.n,
                          windows=cut.n_windows)
             for w in cut.to_windows(device=self.device):
-                with self._annotate("window_step"), self._stage("megastep"):
+                with self._stage("megastep"):
                     pred, _ = self.step(w)
                 preds.append(pred)
                 times.append(cut.admit_time)

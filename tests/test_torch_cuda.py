@@ -2336,3 +2336,101 @@ def test_train_launcher_defaults_to_the_card_and_fails_loudly_without_one():
         pytest.skip("a card is present: the default runs on it")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--arch", "qwen3-4b", "--smoke", "--steps", "1"])
+
+
+# -- the entry's spans and the graphs' phase marks ---------------------------
+
+def _breakdown(server, calls):
+    """``calls()`` under ``torch.profiler`` (CPU and CUDA), read by
+    ``phase_breakdown`` with the server's marks."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from phase_reader import phase_breakdown
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        calls()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        p.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    return phase_breakdown(events, server.graph_phases())
+
+
+def _ops_in(out, part):
+    """The phases whose device ops include one named with ``part``."""
+    return {ph for ph, ops in out["phase_ops"].items()
+            if any(part in name for name in ops)}
+
+
+def test_chunk_graph_replays_split_by_their_marks(stream_served):
+    """Every replay of the chunk step's graph runs as many device ops as
+    its marks total (``phase_breakdown`` raises otherwise); B1 runs in
+    ``switch``, B5 and B6 in ``register``; the entry's own copies are the
+    threshold fill, the chunk's five fields and the three clones."""
+    from repro_torch.netsim.stream import iter_chunks
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    srv = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=4,
+                                **_stream_kw(True))
+    chunks = list(iter_chunks(trace, 256, 4, 4096))
+    assert len(chunks) >= 4
+    for c in chunks[:2]:                       # the probe, the capture
+        srv.step_chunk(c)
+    (key, marks), = srv.graph_phases().items()
+    assert key == ("chunk", (4, 256))
+    assert [n for n, _ in marks] == ["register", "switch", "dispatch",
+                                     "backend", "combine"]
+    out = _breakdown(srv, lambda: [srv.step_chunk(c) for c in chunks[2:]])
+    n = len(chunks) - 2
+    assert out["replays"] == n
+    assert _ops_in(out, "ensemble_lookup_kernel") == {"switch"}
+    assert _ops_in(out, "stream_update_kernel") == {"register"}
+    assert _ops_in(out, "evict_sweep_kernel") == {"register"}
+    assert sum(k for k, _ in out["phase_ops"]["switch"].values()) >= n
+    assert out["entry_copy_ops"] == 9 * n
+    assert out["entry_other_s"] == 0.0
+
+
+def test_batch_graph_replays_split_by_their_marks(served):
+    from repro_torch.serving.hybrid_serving import HybridServer
+    art, big, x = served
+    srv = HybridServer(art, _xgb_backend(big), capacity=64)
+    _serve(srv, x, ((0, 300), (300, 300)))      # the probe, the capture
+    assert [n for n, _ in srv.graph_phases()[(300, 5)]] == [
+        "switch", "dispatch", "backend", "combine"]
+    out = _breakdown(srv, lambda: _serve(srv, x, ((0, 300),) * 3))
+    assert out["replays"] == 3
+    assert _ops_in(out, "ensemble_lookup_kernel") == {"switch"}
+    assert out["entry_copy_ops"] == 5 * 3      # tau, x, three clones
+
+
+def test_window_deferred_and_flush_graphs_split_by_their_marks(
+        stream_served):
+    """The per-window step's graph and the deferred step's and the flush's
+    run as many device ops as their marks, replay by replay."""
+    from repro_torch.netsim.stream import iter_windows
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    ws = list(iter_windows(trace, 256, 4096))[:8]
+    window = StreamingHybridServer(art, _rf_backend(big_dev),
+                                   **_stream_kw(True))
+    deferred = StreamingHybridServer(art, _rf_backend(big_dev), flush_every=2,
+                                     **_stream_kw(True))
+    for srv in (window, deferred):
+        for w in ws[:4]:              # the probe and every capture
+            srv.step(w)
+    out = _breakdown(window, lambda: [window.step(w) for w in ws[4:]])
+    assert out["replays"] == 4
+    assert _ops_in(out, "stream_update_kernel") == {"register"}
+    out = _breakdown(deferred, lambda: [deferred.step(w) for w in ws[4:]])
+    assert out["replays"] == 6                  # 4 steps, 2 flushes
+    assert set(out["phases"]) == {"register", "switch", "dispatch",
+                                  "backend", "combine"}
+    assert _ops_in(out, "ensemble_lookup_kernel") == {"switch"}
