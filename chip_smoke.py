@@ -1119,6 +1119,39 @@ def _stream_inputs(torch, dev, n, w, *, base=0.0, hot=False, gen=None):
     return regs, (bucket, ts, length, is_fwd, valid)
 
 
+def _check_feature_mode(torch, su, regs, cols, limit, label):
+    """B5's feature-row mode (the main path's) on one window, against the
+    plain composition bit for bit: the register file, the (W, 8) feature
+    rows (``table_from_registers`` on ``stream_update_ref``'s rows) and,
+    with a limit, the newly saturated count (``_newly_saturated`` over the
+    whole file); one launch. -> the count."""
+    import numpy as np
+    from repro_torch.netsim.features import table_from_registers
+    from repro_torch.netsim.stream import _newly_saturated
+    want_regs, raw = su.stream_update_ref(regs, *cols, limit=limit)
+    want_x = table_from_registers(*raw)
+    want_over = (0 if limit is None else int(_newly_saturated(
+        regs, want_regs, float(np.float32(limit)))))
+    x = torch.empty((raw.shape[1], su.N_REGISTERS), dtype=torch.float32,
+                    device=regs.device)
+    over = (None if limit is None
+            else torch.zeros((), dtype=torch.int32, device=regs.device))
+    before = su.LAUNCHES["stream_update"]
+    got = su.stream_update_features(regs.clone(), *cols, x, limit=limit,
+                                    n_over=over)
+    torch.cuda.synchronize()
+    launched = su.LAUNCHES["stream_update"] - before
+    got_over = 0 if over is None else int(over)
+    print(f"case stream_update_features {label} launches={launched} "
+          f"newly_saturated={got_over}")
+    if launched != 1 or got_over != want_over or not (
+            torch.equal(got.view(torch.int32), want_regs.view(torch.int32))
+            and torch.equal(x.view(torch.int32), want_x.view(torch.int32))):
+        raise AssertionError(f"stream_update_features != plain at {label}: "
+                             f"count {got_over} against {want_over}")
+    return got_over
+
+
 def _check_stream_kernels(torch, dev, su, ev):
     """Phase 3 for B5 and B6: each kernel call against its plain version on
     the same inputs, atol=0, one launch per call."""
@@ -1153,6 +1186,7 @@ def _check_stream_kernels(torch, dev, su, ev):
             counts = [0, 1, 4, 5, 6, 7]
             regs[counts] = torch.where(named, regs[counts], -0.0)
         want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=limit)
+        regs0 = regs.clone()
         before = su.LAUNCHES["stream_update"]
         got_regs, got_rows = su.stream_update(regs, *cols, limit=limit)
         torch.cuda.synchronize()
@@ -1170,6 +1204,8 @@ def _check_stream_kernels(torch, dev, su, ev):
                                  and torch.equal(got_rows, want_rows)):
             raise AssertionError(f"stream_update kernel != plain at N={n} "
                                  f"W={w} limit={limit} {kind}")
+        _check_feature_mode(torch, su, regs0, cols, limit,
+                            f"N={n} W={w} limit={limit} {kind}")
     fills = torch.tensor([0.0, 0.0, float("inf"), float("-inf"), 0.0, 0.0,
                           0.0, 0.0], device=dev)
     for n in (600, 8192, 8209, 1 << 20):
@@ -1649,8 +1685,10 @@ def _time_stream(torch, np, stream, smi):
     from repro_torch.kernels import evict as ev
     from repro_torch.kernels import stream_update as su
     from repro_torch.kernels.ops import fused_classify
-    from repro_torch.netsim.stream import (OVERFLOW_LIMIT, evict_cutoff,
-                                           evict_fills, iter_windows,
+    from repro_torch.netsim.features import table_from_registers
+    from repro_torch.netsim.stream import (OVERFLOW_LIMIT, _newly_saturated,
+                                           evict_cutoff, evict_fills,
+                                           iter_windows,
                                            window_update_readout)
     from repro_torch.serving.stream_serving import accumulate_stream_stats
 
@@ -1669,25 +1707,55 @@ def _time_stream(torch, np, stream, smi):
     path_su = sum(r["path"]["stream_update"] for r in runs.values())
     path_ev = sum(r["path"]["evict_fill"] for r in runs.values())
 
-    # B5: in place on its own copy (the counts grow, clamped at 2^24)
-    regs_k = regs.clone()
-    out_k = su.stream_update(regs.clone(), *cols, limit=OVERFLOW_LIMIT)
+    # B5 as the main path launches it: the feature-row mode, its rows and
+    # its overflow count held exactly against the plain composition
+    # (stream_update_ref, table_from_registers on its rows, the count over
+    # the whole file); the raw-rows mode is checked beside it
+    lim = float(np.float32(OVERFLOW_LIMIT))
     out_p = su.stream_update_ref(regs, *cols, limit=OVERFLOW_LIMIT)
-    err = max(_max_abs_err(out_k[0], out_p[0]), _max_abs_err(out_k[1], out_p[1]))
+
+    def plain():
+        new, raw = su.stream_update_ref(regs, *cols, limit=OVERFLOW_LIMIT)
+        return new, table_from_registers(*raw), _newly_saturated(regs, new,
+                                                                 lim)
+
+    want_regs, want_x, want_over = plain()
+    got_x = torch.empty((wl, su.N_REGISTERS), dtype=torch.float32,
+                        device=regs.device)
+    got_over = torch.zeros((), dtype=torch.int32, device=regs.device)
+    got_regs = su.stream_update_features(regs.clone(), *cols, got_x,
+                                         limit=OVERFLOW_LIMIT, n_over=got_over)
+    if not (torch.equal(got_regs.view(torch.int32), want_regs.view(torch.int32))
+            and torch.equal(got_x.view(torch.int32), want_x.view(torch.int32))
+            and int(got_over) == int(want_over)):
+        raise AssertionError(
+            f"stream_update_features != plain at N={n} W={wl}: count "
+            f"{int(got_over)} against {int(want_over)}")
+    err = max(_max_abs_err(got_regs, want_regs), _max_abs_err(got_x, want_x))
+    out_r = su.stream_update(regs.clone(), *cols, limit=OVERFLOW_LIMIT)
+    raw_err = max(_max_abs_err(out_r[0], out_p[0]),
+                  _max_abs_err(out_r[1], out_p[1]))
+    if raw_err:
+        raise AssertionError(f"stream_update != plain at N={n} W={wl}")
+    # timed in place on its own copy (the counts grow, clamped at 2^24)
+    regs_k = regs.clone()
+    x_k = torch.empty_like(got_x)
+    over_k = torch.zeros_like(got_over)
     ms, ms_eager, plain_ms, plain_eager, _ = _times(
-        torch, lambda: su.stream_update(regs_k, *cols, limit=OVERFLOW_LIMIT),
-        lambda: su.stream_update_ref(regs, *cols, limit=OVERFLOW_LIMIT))
+        torch, lambda: su.stream_update_features(
+            regs_k, *cols, x_k, limit=OVERFLOW_LIMIT, n_over=over_k), plain)
     # bound: the function in place, on this window. Reads: every column's
     # six count registers (the clamp must see each), t_min/t_max only at
     # the columns the lanes name, the window columns (bucket, ts, length,
     # is_fwd 4 B, valid 1 B). Writes: only the register words whose bits
-    # change, and the rows. Per valid lane 8 register updates and 3
-    # products, per column 6 adds and 6 compares.
+    # change, and the feature rows. Per valid lane 8 register updates and
+    # 3 products, per column 6 adds, 6 compares for the clamp, 12 for the
+    # count and 4 for the duration and mean IAT, per lane its row.
     n_valid = int(w.valid.sum())
     named = int(torch.unique(w.bucket).numel())
     changed = int((out_p[0].view(torch.int32) != regs.view(torch.int32)).sum())
     n_bytes = 6 * n * 4 + 2 * named * 4 + wl * 17 + changed * 4 + 8 * wl * 4
-    ops = n_valid * 11 + 12 * n + 8 * wl
+    ops = n_valid * 11 + 28 * n + 8 * wl
     bound_ms, bound_by = _bound(n_bytes, ops)
     rows = [{"name": "stream_update", "route": "cuda",
              "source": "src/repro_torch/csrc/stream_update.cu",
@@ -1696,8 +1764,10 @@ def _time_stream(torch, np, stream, smi):
              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
              "library_ms": None, "ms_eager": ms_eager,
              "plain_ms_eager": plain_eager, "bytes": n_bytes, "ops": ops,
+             "mode": "features", "raw_max_abs_err": raw_err,
              "shape": {"N": n, "W": wl, "valid_lanes": n_valid,
                        "columns_named": named, "words_changed": changed,
+                       "newly_saturated": int(want_over),
                        "limit": OVERFLOW_LIMIT}}]
 
     # B6, the timeout sweep (the main path's entry): the register file, the
@@ -2489,6 +2559,8 @@ def _check_slice_stream_shapes(torch, dev):
             if launched != 1 or not (torch.equal(got[0], want[0])
                                      and torch.equal(got[1], want[1])):
                 raise AssertionError(f"stream_update != plain at N={n} W={w}")
+            _check_feature_mode(torch, su, regs, cols, limit,
+                                f"N={n} W={w} limit={limit}")
         for case in SWEEP_CASES:
             regs, ts, valid = _sweep_inputs(torch, dev, n, w, case, 5.0, gen)
             want, want_n = ev.timeout_sweep_ref(regs, ts, valid, 5.0, fills)

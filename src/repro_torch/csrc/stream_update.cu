@@ -1,4 +1,5 @@
-// Streaming register scatter, clamp and touched-row gather for Hopper (sm_90a).
+// Streaming register scatter, clamp, overflow count and touched-row readout
+// for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/stream_update.py:61
 // _stream_update_kernel (pallas_call at :130), reached from
@@ -9,6 +10,10 @@
 // valid lane into its bucket's registers, clamps the six count registers at
 // `limit` (the 2^24 f32 exactness envelope) when asked, and gathers each
 // lane's updated register row into rows (8, W). regs is updated IN PLACE.
+// A second output mode (the template flag kFeatures) writes each lane's
+// feature row instead, rows (W, 8), and adds the count of register slots
+// the clamp newly saturated into *n_over: the serving step's whole register
+// half but the aging sweep, in this one launch.
 //
 // The decomposition is the TPU kernel's own: a grid step owns a tile of
 // bucket columns (TILE_B there), scans the whole window for the lanes that
@@ -29,10 +34,31 @@
 //      settled once, by the block that owns it: count registers regs + fold,
 //      then the clamp; t_min/t_max the ordered min/max of register and fold.
 //      Words whose bits change are written back, and the settled column is
-//      kept in shared memory;
+//      kept in shared memory. With kFeatures the column's feature row is
+//      kept instead: its threads (consecutive lanes of one warp) trade
+//      cnt, t_min and t_max by shuffles, and the threads of rows 2 and 3
+//      keep the duration and the mean IAT (netsim/features.py
+//      table_from_registers: duration = cnt > 0 ? t_max - t_min : +0.0,
+//      mean IAT = cnt > 1 ? duration / max(cnt - 1, 1) : +0.0, with
+//      __fsub_rn / __fdiv_rn, torch's correctly rounded difference and true
+//      division), once a column and not once a lane;
 //   4. the block scans the window again and writes rows[:, i] for every lane
 //      whose gather column (b < 0 -> b + N, then clamped into [0, N), the
-//      reference's gather) lies in its tile, invalid lanes included.
+//      reference's gather) lies in its tile, invalid lanes included; with
+//      kFeatures its feature row, one 32-byte store at rows + 8 i.
+//
+// The overflow count (n_over not null, the clamp on): a count register slot
+// is newly saturated when its settled value v >= limit and its register was
+// below the limit before the fold, as netsim/stream.py saturate_counts(prev=)
+// compares the file before and after a window, in float32. Each thread
+// counts the slots it settles in step 3, the block sums them, and one int
+// atomicAdd a block adds the sum to *n_over. The count runs over every
+// column of the tile, not only the columns a valid lane names, and gives
+// the same number: a column no valid lane names folds +0.0 into each count
+// register, so v equals the register (up to the sign of a zero) and stays
+// below the limit if it was, or was clamped from a register already at or
+// above it; neither counts.
+//
 // No float atomics: shared-memory float atomics on one word (a flow's
 // packets) retry one lane at a time, and on the card a first version built
 // on them lost to the global atomics it replaced once a window held a heavy
@@ -54,7 +80,7 @@
 // Bound: memory. In place, the function must read the six count rows whole
 // (the clamp sees every column), t_min/t_max only at the columns the lanes
 // name, and the window (17 B a lane), and write the register words that
-// change and the rows (8*W*4 bytes); its adds and compares take less at the
+// change and the rows (8*W*4 bytes in either mode); its adds and compares take less at the
 // card's f32 rate. This design also reads t_min/t_max whole and each block
 // reads the window from L2.
 //
@@ -64,6 +90,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 #include <string.h>
 
 namespace {
@@ -99,16 +126,20 @@ __device__ __forceinline__ float4 lane_entry(int col, float t, float ln,
   return make_float4(__int_as_float(col), t, ln, fw);
 }
 
+// kFeatures: rows is (W, 8) feature rows, else (8, W) register rows.
+// n_over: the newly saturated count's word, or null for no count.
+template <bool kFeatures>
 __global__ void __launch_bounds__(kBlock)
 stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
                      const float* __restrict__ ts,
                      const float* __restrict__ length,
                      const float* __restrict__ is_fwd,
                      const unsigned char* __restrict__ valid,
-                     float* __restrict__ rows, int n, int w, int tile,
-                     int has_limit, float limit) {
+                     float* __restrict__ rows, int* __restrict__ n_over,
+                     int n, int w, int tile, int has_limit, float limit) {
   __shared__ float4 list[kListLanes];        // the tile's lanes of a chunk
   __shared__ int listed;                     // lanes listed so far
+  __shared__ int over;                       // slots newly saturated
   extern __shared__ float settled[];         // [8][tile]
   const int c0 = blockIdx.x * tile;
   const int cols = min(tile, n - c0);
@@ -127,7 +158,7 @@ stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
     for (int r = 0; r < kRegisters; ++r)
       if (r % q == k) reg[r] = regs[r * nn + c0 + c];
   }
-  if (threadIdx.x == 0) listed = 0;
+  if (threadIdx.x == 0) listed = over = 0;
   __syncthreads();
 
   // 2. fold the window chunk by chunk: list the chunk's lanes that fall in
@@ -201,6 +232,10 @@ stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
                            : __fadd_rn(fold[r], other);
     }
   }
+  int newly = 0;
+  float set[kRegisters];             // the settled registers this thread owns
+#pragma unroll
+  for (int r = 0; r < kRegisters; ++r) set[r] = 0.f;
   if (c < cols) {
     const bool lim = has_limit != 0;
 #pragma unroll
@@ -214,13 +249,32 @@ stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
       } else {
         v = __fadd_rn(reg[r], fold[r]);
         if (lim && v > limit) v = limit;
+        newly += v >= limit && reg[r] < limit;
       }
       if (__float_as_int(v) != __float_as_int(reg[r]))
         regs[r * nn + c0 + c] = v;
-      settled[r * tile + c] = v;
+      set[r] = v;
+      if (!kFeatures || (r != kTMin && r != kTMax)) settled[r * tile + c] = v;
     }
   }
+  if (kFeatures) {
+    // the column's q threads are lanes first .. first + q - 1 of one warp
+    const int first = lane & ~(q - 1);
+    const float cnt = __shfl_sync(0xffffffffu, set[0], first);
+    const float t_min = __shfl_sync(0xffffffffu, set[kTMin], first + kTMin % q);
+    const float t_max = __shfl_sync(0xffffffffu, set[kTMax], first + kTMax % q);
+    const float dur = cnt > 0.f ? __fsub_rn(t_max, t_min) : 0.f;
+    if (c < cols && k == kTMin % q) settled[kTMin * tile + c] = dur;
+    if (c < cols && k == kTMax % q)
+      settled[kTMax * tile + c] =
+          cnt > 1.f ? __fdiv_rn(dur, fmaxf(__fsub_rn(cnt, 1.f), 1.f)) : 0.f;
+  }
+  if (n_over != nullptr) {           // the same branch for the whole block
+    newly = __reduce_add_sync(0xffffffffu, newly);
+    if (lane == 0 && newly) atomicAdd(&over, newly);
+  }
   __syncthreads();
+  if (n_over != nullptr && threadIdx.x == 0 && over) atomicAdd(n_over, over);
 
   // 4. the rows of the lanes this tile owns
   for (int lo = 0; lo < w; lo += kListLanes) {
@@ -237,9 +291,17 @@ stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
       if (g < 0) g += n;                // the reference's gather semantics
       g = g < 0 ? 0 : (g >= n ? n - 1 : g);
       if (i >= w || g < c0 || g >= c0 + cols) continue;
+      const float* col = settled + g - c0;
+      if (kFeatures) {
+        float4* dst = reinterpret_cast<float4*>(rows + (size_t)i * kRegisters);
+        dst[0] = make_float4(col[0], col[tile], col[2 * tile], col[3 * tile]);
+        dst[1] = make_float4(col[4 * tile], col[5 * tile], col[6 * tile],
+                             col[7 * tile]);
+      } else {
 #pragma unroll
-      for (int r = 0; r < kRegisters; ++r)
-        rows[(size_t)r * w + i] = settled[r * tile + g - c0];
+        for (int r = 0; r < kRegisters; ++r)
+          rows[(size_t)r * w + i] = col[r * tile];
+      }
     }
   }
 }
@@ -249,22 +311,28 @@ stream_update_kernel(float* __restrict__ regs, const int* __restrict__ bucket,
 extern "C" {
 
 // tile: bucket columns a block owns (kernels/stream_update.py
-// tile_columns): a power of two from 32 to kBlock.
+// tile_columns): a power of two from 32 to kBlock. features: rows takes
+// (W, 8) feature rows (16-byte aligned), else (8, W) register rows. n_over:
+// null, or the int the newly saturated count is added to (the clamp on).
 int stream_update_launch(void* regs, const void* bucket, const void* ts,
                          const void* length, const void* is_fwd,
-                         const void* valid, void* rows, int n, int w,
-                         int has_limit, int limit_bits, int tile,
-                         void* stream) {
-  if (n <= 0 || w < 0 || tile < 32 || tile > kBlock || (tile & (tile - 1)))
+                         const void* valid, void* rows, void* n_over, int n,
+                         int w, int has_limit, int limit_bits, int tile,
+                         int features, void* stream) {
+  if (n <= 0 || w < 0 || tile < 32 || tile > kBlock || (tile & (tile - 1)) ||
+      (n_over != nullptr && !has_limit) ||
+      (features && ((uintptr_t)rows & 15) != 0))
     return (int)cudaErrorInvalidValue;
   float limit;
   memcpy(&limit, &limit_bits, sizeof(float));
   const int grid = (int)(((long long)n + tile - 1) / tile);
   const size_t smem = sizeof(float) * kRegisters * (size_t)tile;
-  stream_update_kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
+  auto kernel = features ? stream_update_kernel<true>
+                         : stream_update_kernel<false>;
+  kernel<<<grid, kBlock, smem, (cudaStream_t)stream>>>(
       (float*)regs, (const int*)bucket, (const float*)ts, (const float*)length,
-      (const float*)is_fwd, (const unsigned char*)valid, (float*)rows, n, w,
-      tile, has_limit, limit);
+      (const float*)is_fwd, (const unsigned char*)valid, (float*)rows,
+      (int*)n_over, n, w, tile, has_limit, limit);
   return (int)cudaGetLastError();
 }
 

@@ -145,7 +145,8 @@ def evict_fill(regs: torch.Tensor, mask: torch.Tensor,
 
 
 def timeout_sweep(regs: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
-                  evict_age: float, fills: torch.Tensor) -> tuple:
+                  evict_age: float, fills: torch.Tensor, *,
+                  out: torch.Tensor = None) -> tuple:
     """The timeout sweep of one window over the register file.
 
     regs (8, N) f32; ts (W,) f32 and valid (W,) bool, the window's columns;
@@ -154,9 +155,17 @@ def timeout_sweep(regs: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
     evict_age)`` reset to their fills. A CUDA tensor launches the kernel,
     which updates ``regs`` in place and returns it (keep only the returned
     tensor), and raises on operands it does not take; a CPU tensor runs
-    ``timeout_sweep_ref`` (new tensors)."""
+    ``timeout_sweep_ref`` (new tensors). ``out``, an int32 scalar on regs'
+    device (a view into a caller's counters), receives n_evicted, and is
+    returned in its place."""
+    if out is not None and (out.dtype != torch.int32 or out.dim() != 0
+                            or out.device != regs.device):
+        raise ValueError(f"out must be an int32 scalar on {regs.device}, "
+                         f"got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
     if not on_kernel_path(regs):
-        return timeout_sweep_ref(regs, ts, valid, evict_age, fills)
+        regs, n_ev = timeout_sweep_ref(regs, ts, valid, evict_age, fills)
+        return regs, n_ev if out is None else out.copy_(n_ev)
     _check(regs, fills, ("ts", ts, torch.float32),
            ("valid", valid, torch.bool))
     n, w = regs.shape[1], ts.shape[0]
@@ -164,7 +173,8 @@ def timeout_sweep(regs: torch.Tensor, ts: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"the sweep takes a non-empty register file and "
                          f"window, got regs {tuple(regs.shape)}, ts "
                          f"{tuple(ts.shape)}, valid {tuple(valid.shape)}")
-    n_out = torch.empty((), dtype=torch.int32, device=regs.device)
+    n_out = (torch.empty((), dtype=torch.int32, device=regs.device)
+             if out is None else out)
     plan = sweep_plan(n, _build.sm_count(regs.device))
     _build.launch("evict", regs.device,
                   (regs.data_ptr(), ts.data_ptr(), valid.data_ptr(),

@@ -87,7 +87,7 @@ def evict_fill(regs, mask, fills, *, use_kernel=None) -> torch.Tensor:
     return _ev.evict_fill(regs, mask, fills)
 
 
-def timeout_sweep(regs, ts, valid, evict_age, fills):
+def timeout_sweep(regs, ts, valid, evict_age, fills, *, out=None):
     """The timeout sweep of one window in one call (B6's second entry).
 
     regs (8, N) f32 stacked register file; ts (W,) f32 and valid (W,) bool
@@ -95,9 +95,10 @@ def timeout_sweep(regs, ts, valid, evict_age, fills):
     occupied column last seen before ``evict_cutoff(ts, valid, evict_age)``
     reset to its fills. The CUDA kernel for a CUDA tensor (it updates
     ``regs`` in place and returns it), the plain composition
-    (``evict.timeout_sweep_ref``) for a CPU tensor (new tensors).
+    (``evict.timeout_sweep_ref``) for a CPU tensor (new tensors). ``out``
+    (an int32 scalar) receives n_evicted in place of a new tensor.
     """
-    return _ev.timeout_sweep(regs, ts, valid, evict_age, fills)
+    return _ev.timeout_sweep(regs, ts, valid, evict_age, fills, out=out)
 
 
 def stream_update(regs, bucket, ts, length, is_fwd, valid, *, limit=None):

@@ -9,9 +9,11 @@ and per-flow registers are updated incrementally:
                      row per register in ``REGISTER_FIELDS`` order, with a
                      named view per register
   per-packet ALU  -> ``window_update_readout``: the window folded into the
-                     registers, clamped and read out in one kernel call
-                     (``kernels.ops.stream_update``, B5) on the card;
-                     ``update_flow_table`` is the plain composition
+                     registers, clamped, read out as feature rows and its
+                     newly saturated slots counted in one kernel call
+                     (``kernels.stream_update.stream_update_features``, B5)
+                     on the card; ``update_flow_table`` is the plain
+                     composition
   aging sweep     -> ``age_out`` / ``approx_lru_sweep`` through the masked
                      reset ``kernels.ops.evict_fill`` (B6); on the serving
                      step, the whole timeout sweep in one call
@@ -46,9 +48,11 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import on_kernel_path, resolve_device
 from repro_torch.kernels.evict import evict_cutoff
-from repro_torch.kernels.ops import evict_fill, stream_update, timeout_sweep
+from repro_torch.kernels.ops import evict_fill, timeout_sweep
+from repro_torch.kernels.stream_update import (stream_update_features,
+                                               stream_update_ref)
 from repro_torch.netsim.features import (fnv1a_hash, fnv1a_hash_np,
                                          rebase_ts_np, table_from_registers)
 
@@ -252,14 +256,23 @@ def saturate_counts(state: FlowTableState, *, limit: float = OVERFLOW_LIMIT,
     """
     lim = float(np.float32(limit))
     regs = state.regs.clone()
-    n_over = torch.zeros((), dtype=torch.int32, device=regs.device)
     for sl in _COUNT_SLICES:
-        r = state.regs[sl]
-        newly = ((r >= lim) & (prev.regs[sl] < lim) if prev is not None
-                 else r > lim)
-        n_over = n_over + newly.sum(dtype=torch.int32)
-        regs[sl] = torch.clamp(r, max=lim)
-    return FlowTableState(regs), n_over
+        regs[sl] = torch.clamp(state.regs[sl], max=lim)
+    if prev is not None:
+        return FlowTableState(regs), _newly_saturated(prev.regs, state.regs,
+                                                      lim)
+    n = [(state.regs[sl] > lim).sum(dtype=torch.int32)
+         for sl in _COUNT_SLICES]
+    return FlowTableState(regs), n[0] + n[1]
+
+
+def _newly_saturated(before: torch.Tensor, after: torch.Tensor,
+                     lim: float) -> torch.Tensor:
+    """The count register slots of two (8, N) register files at or above
+    ``lim`` in ``after`` and below it in ``before``. -> an int32 scalar."""
+    n = [((after[sl] >= lim) & (before[sl] < lim)).sum(dtype=torch.int32)
+         for sl in _COUNT_SLICES]
+    return n[0] + n[1]
 
 
 def _age_classes(idle: torch.Tensor, evict_age: float, top_age: int):
@@ -370,24 +383,6 @@ def flow_table_readout(state: FlowTableState,
     return table_from_registers(*regs)
 
 
-def _newly_saturated(before: torch.Tensor, after: torch.Tensor,
-                     bucket: torch.Tensor, n_buckets: int) -> torch.Tensor:
-    """``saturate_counts``' count of newly saturated slots, taken from this
-    window's columns only: ``before``/``after`` are the (8, W) register
-    rows at the window's lanes before and after the clamped update, and
-    ``bucket`` the lanes' (W,) int64 columns. Lanes that share a column
-    carry the same rows, so each column is counted once, through an (N,)
-    scratch that every such lane writes alike."""
-    lim = float(np.float32(OVERFLOW_LIMIT))
-    newly = (after >= lim) & (before < lim)
-    # every row but t_min/t_max (rows 2-3), which are not counts
-    per_lane = (newly.sum(dim=0, dtype=torch.int32)
-                - newly[2:4].sum(dim=0, dtype=torch.int32))
-    per_col = torch.zeros(n_buckets, dtype=torch.int32, device=after.device)
-    per_col.scatter_(0, bucket, per_lane)
-    return per_col.sum(dtype=torch.int32)
-
-
 def window_update_readout(state: FlowTableState, w: PacketWindow, *,
                           evict_age: Optional[float] = None,
                           saturate: bool = True,
@@ -399,16 +394,16 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
 
     The serving step's register half: update -> aging sweep -> overflow
     guard -> touched-row readout, returning ``(state, x (W, 8), n_evicted,
-    n_overflow)``. By default the scatter-update, the 2^24 clamp and the
-    touched-row gather are one ``kernels.ops.stream_update`` call (the B5
-    kernel on the card, which updates ``state.regs`` in place: keep only the
-    returned state). The timeout sweep is one ``kernels.ops.timeout_sweep``
-    call: on the card B6's sweep entry, which finds the cutoff, resets the
-    evicted columns and counts them in one launch, in place on the register
-    file B5 has just updated (again: keep only the returned state). The
-    approx-LRU sweep resets through B6's mask-taking entry, out of place.
-    use_kernel=False runs the plain composition (``update_flow_table``, the
-    sweep, the gather) on either device.
+    n_overflow)``. By default it is ``chunk_update_readout``'s kernel route
+    on a chunk of one window: the scatter-update, the 2^24 clamp, the
+    guard's count and the feature rows in one B5 launch (on the card it
+    updates ``state.regs`` in place: keep only the returned state), and the
+    timeout sweep in one B6 launch (``kernels.ops.timeout_sweep``, which
+    finds the cutoff, resets the evicted columns and counts them, in place
+    on the register file B5 has just updated). The approx-LRU sweep resets
+    through B6's mask-taking entry, out of place. use_kernel=False runs the
+    plain composition (``update_flow_table``, ``lifecycle_sweep``, the
+    gather) on either device.
 
     ``sweep`` is the window whose timestamps and valid lanes the aging sweep
     reads (its cutoff, its clock and its protection), ``w`` by default. The
@@ -418,13 +413,12 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
 
       * eviction cannot touch this window's rows (the cutoff is clamped to
         the window minimum, the approx-LRU sweep protects flows seen this
-        window), so sweeping after the gather reads the same bits;
+        window), so reading the rows before the sweep reads the same bits;
       * the clamp already landed in the kernel and commutes with eviction
         (the fills are in the envelope), and only this window's columns can
         newly saturate: the others keep their bits or are reset below the
-        limit. So the guard counts new saturations on those columns alone,
-        from their rows before the update and the kernel's rows after it,
-        with no copy of the register file.
+        limit. So the guard's count, taken as B5 settles the register file
+        before the sweep, is the plain route's count after it.
     """
     if use_kernel is False:
         prev = state
@@ -434,42 +428,57 @@ def window_update_readout(state: FlowTableState, w: PacketWindow, *,
             prev=prev, evict_policy=evict_policy,
             lru_occupancy=lru_occupancy, use_kernel=False)
         return state, flow_table_readout(state, w.bucket), n_ev, n_ov
-    state, rows, n_ev, n_ov = _register_half(
-        state, w, evict_age=evict_age, saturate=saturate,
-        evict_policy=evict_policy, lru_occupancy=lru_occupancy, sweep=sweep)
-    return state, table_from_registers(*rows), n_ev, n_ov
+    state, xs, n_ev, n_ov = chunk_update_readout(
+        state, _one_window_chunk(w), evict_age=evict_age, saturate=saturate,
+        evict_policy=evict_policy, lru_occupancy=lru_occupancy,
+        sweep=None if sweep is None else _one_window_chunk(sweep))
+    return state, xs[0], n_ev, n_ov
 
 
-def _register_half(state: FlowTableState, w: PacketWindow, *, evict_age,
-                   saturate, evict_policy, lru_occupancy,
-                   sweep: Optional[PacketWindow] = None) -> tuple:
-    """``window_update_readout``'s kernel route up to the raw rows: B5 on
-    ``w``, the sweep on ``sweep`` (default ``w``), the overflow guard.
-    -> (state, rows (8, W) register rows at the window's lanes, n_evicted,
-    n_overflow)."""
-    if sweep is None:
-        sweep = w
-    if saturate:
-        # gathered before the kernel writes the register file in place
-        bucket = w.bucket.long()
-        before = state.regs[:, bucket]
-    regs, rows = stream_update(state.regs, w.bucket, w.ts, w.length,
-                               w.is_fwd, w.valid,
-                               limit=OVERFLOW_LIMIT if saturate else None)
-    if evict_age is not None and evict_policy == "timeout":
+def _fold_readout(regs: torch.Tensor, w: PacketWindow, x: torch.Tensor,
+                  n_over: Optional[torch.Tensor]) -> torch.Tensor:
+    """B5 on window ``w``: fold it into ``regs``, write its lanes' feature
+    rows into ``x`` (W, 8) and, with ``n_over`` (an int32 scalar; None
+    leaves the clamp off), clamp the count registers at the 2^24 envelope
+    and add the slots newly saturated into it. On the card one launch of
+    B5's feature-row mode, in place; on the CPU its plain version:
+    ``stream_update_ref``, ``table_from_registers`` on its rows and the
+    count over the whole file. -> the register file."""
+    limit = None if n_over is None else OVERFLOW_LIMIT
+    if on_kernel_path(regs):
+        return stream_update_features(regs, w.bucket, w.ts, w.length,
+                                      w.is_fwd, w.valid, x, limit=limit,
+                                      n_over=n_over)
+    new, rows = stream_update_ref(regs, w.bucket, w.ts, w.length, w.is_fwd,
+                                  w.valid, limit=limit)
+    x.copy_(table_from_registers(*rows))
+    if n_over is not None:
+        n_over += _newly_saturated(regs, new, float(np.float32(limit)))
+    return new
+
+
+def _register_half(state: FlowTableState, w: PacketWindow, x: torch.Tensor,
+                   counts: torch.Tensor, *, evict_age, saturate,
+                   evict_policy, lru_occupancy,
+                   sweep: PacketWindow) -> FlowTableState:
+    """One window of ``chunk_update_readout``'s kernel route: B5 on ``w``
+    (its feature rows into ``x``, the guard's count into ``counts[1]``),
+    then the aging sweep on ``sweep`` (its count into ``counts[0]``).
+    ``counts`` is the window's (2,) int32 column of the chunk's counters,
+    zero where a feature is off. -> the state."""
+    regs = _fold_readout(state.regs, w, x, counts[1] if saturate else None)
+    if evict_age is None:
+        return FlowTableState(regs)
+    if evict_policy == "timeout":
         # the register file is this step's own: the sweep works in place
-        regs, n_ev = timeout_sweep(regs, sweep.ts, sweep.valid, evict_age,
-                                   evict_fills(regs.device))
-        state, n_ov = FlowTableState(regs), None
-    else:
-        state, n_ev, n_ov = lifecycle_sweep(
-            FlowTableState(regs), sweep, evict_age, False,
-            evict_policy=evict_policy, lru_occupancy=lru_occupancy)
-    if saturate:
-        n_ov = _newly_saturated(before, rows, bucket, state.n_buckets)
-    elif n_ov is None:
-        n_ov = torch.zeros((), dtype=torch.int32, device=regs.device)
-    return state, rows, n_ev, n_ov
+        regs, _ = timeout_sweep(regs, sweep.ts, sweep.valid, evict_age,
+                                evict_fills(regs.device), out=counts[0])
+        return FlowTableState(regs)
+    state, n_ev, _ = lifecycle_sweep(
+        FlowTableState(regs), sweep, evict_age, False,
+        evict_policy=evict_policy, lru_occupancy=lru_occupancy)
+    counts[0].copy_(n_ev)
+    return state
 
 
 @dataclasses.dataclass
@@ -503,6 +512,13 @@ class PacketChunk:
                             valid=self.valid[k])
 
 
+def _one_window_chunk(w: PacketWindow) -> PacketChunk:
+    """A window as a chunk of one (views of its columns)."""
+    return PacketChunk(bucket=w.bucket[None], ts=w.ts[None],
+                       length=w.length[None], is_fwd=w.is_fwd[None],
+                       valid=w.valid[None])
+
+
 def packet_chunk_from_arrays(bucket, ts, length, is_fwd, valid, *,
                              device=None) -> PacketChunk:
     """A chunk from host (K, W) arrays (how the reference's ``PacketChunk``
@@ -528,29 +544,35 @@ def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
     chunk. Everything row-wise (classify, dispatch) runs on the stacked rows
     after this returns.
 
-    By default each window is the kernel route of ``window_update_readout``
-    (the counterpart of the reference's Pallas branch): B5 in place, B6's
-    timeout sweep in place when ``evict_age`` is set, and the overflow guard
-    on the window's columns, which gathers their rows before that window's
-    B5 writes them; the feature derivation runs once over the stacked
-    (8, K*W) raw rows. On a CUDA tensor that is K launches of B5 (and K of
-    the sweep), in place on ``state.regs``: keep only the returned state.
-    use_kernel=False loops the plain window step instead. The reference's
-    plain route packs the registers into (N, 6)/(N, 2) arrays for its scan;
-    this register file stays the stacked (8, N) one, which binds the result
-    no more than the TPU layout does. ``sweep``: the chunk whose windows
-    the aging sweeps read, row by row (``window_update_readout``'s
-    ``sweep``; default ``chunk``).
+    By default (the counterpart of the reference's Pallas branch) each
+    window is one launch of B5 in its feature-row mode, in place, which
+    folds the window, clamps, counts the slots it newly saturated and
+    writes the window's feature rows straight into ``xs[k]``, then, when
+    ``evict_age`` is set, one of B6's timeout sweep, in place. Both counts
+    land in one (2, K) int32 tensor, zeroed once a chunk (B6 writes row 0,
+    B5 adds into row 1), summed once at the end. On a CUDA tensor the
+    register half is then K launches of B5 and K of the sweep, in window
+    order, a zero fill and a sum: keep only the returned state. A CPU
+    tensor runs the same loop through B5's plain version and the count's
+    plain form. use_kernel=False loops the plain window step instead. The
+    reference's plain route packs the registers into (N, 6)/(N, 2) arrays
+    for its scan; this register file stays the stacked (8, N) one, which
+    binds the result no more than the TPU layout does. ``sweep``: the chunk
+    whose windows the aging sweeps read, row by row
+    (``window_update_readout``'s ``sweep``; default ``chunk``).
     """
+    if evict_policy not in EVICT_POLICIES:
+        raise ValueError(f"evict_policy must be one of {EVICT_POLICIES}, "
+                         f"got {evict_policy!r}")
     k, w_lanes = chunk.bucket.shape
     if sweep is None:
         sweep = chunk
     dev = state.regs.device
-    n_ev = torch.zeros((), dtype=torch.int32, device=dev)
-    n_ov = torch.zeros((), dtype=torch.int32, device=dev)
     kw = dict(evict_age=evict_age, saturate=saturate,
               evict_policy=evict_policy, lru_occupancy=lru_occupancy)
     if use_kernel is False:
+        n_ev = torch.zeros((), dtype=torch.int32, device=dev)
+        n_ov = torch.zeros((), dtype=torch.int32, device=dev)
         xs = []
         for i in range(k):
             state, x, ev, ov = window_update_readout(
@@ -559,14 +581,13 @@ def chunk_update_readout(state: FlowTableState, chunk: PacketChunk, *,
             xs.append(x)
             n_ev, n_ov = n_ev + ev, n_ov + ov
         return state, torch.stack(xs), n_ev, n_ov
-    rows = []
+    xs = torch.empty((k, w_lanes, FLOW_FEATURES), dtype=torch.float32,
+                     device=dev)
+    counts = torch.zeros((2, k), dtype=torch.int32, device=dev)
     for i in range(k):
-        state, r, ev, ov = _register_half(state, chunk.window_at(i),
-                                          sweep=sweep.window_at(i), **kw)
-        rows.append(r)
-        n_ev, n_ov = n_ev + ev, n_ov + ov
-    raw = torch.stack(rows, dim=1).reshape(len(REGISTER_FIELDS), k * w_lanes)
-    xs = table_from_registers(*raw).reshape(k, w_lanes, FLOW_FEATURES)
+        state = _register_half(state, chunk.window_at(i), xs[i], counts[:, i],
+                               sweep=sweep.window_at(i), **kw)
+    n_ev, n_ov = counts.sum(dim=1, dtype=torch.int32)
     return state, xs, n_ev, n_ov
 
 

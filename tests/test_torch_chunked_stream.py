@@ -561,3 +561,95 @@ def test_chunk_windows_auto_serves_like_per_window(chunk_setup):
     assert_bit_equal(p_ref, p)
     _stats_equal(s_ref, s, flushes=False)
     tserving.clear_chunk_tune_cache()
+
+
+def _guard_chunk(lanes, k, w=8):
+    """(k, w) chunk from {window: [(bucket, valid), ...]}: every packet one
+    byte, forward, at ts = window / 10; the other lanes pad lanes (bucket 0,
+    invalid), a window with no entry dead."""
+    arrays = dict(bucket=np.zeros((k, w), np.int32),
+                  ts=np.zeros((k, w), np.float32),
+                  length=np.zeros((k, w), np.float32),
+                  is_fwd=np.zeros((k, w), np.float32),
+                  valid=np.zeros((k, w), bool))
+    for i, entries in lanes.items():
+        for j, (b, ok) in enumerate(entries):
+            arrays["bucket"][i, j], arrays["valid"][i, j] = b, ok
+            arrays["ts"][i, j] = np.float32(i / 10)
+            arrays["length"][i, j] = arrays["is_fwd"][i, j] = 1.0
+    return tstream.packet_chunk_from_arrays(**arrays, device="cpu")
+
+
+GUARD_CASES = {
+    # column 5 crosses 2^24 by three valid lanes of window 1
+    "valid_crossing": ({5: -2.0}, [{1: [(5, True)] * 3}]),
+    # column 7 sits at the limit, named only by invalid lanes; 5 crosses
+    "invalid_lanes_at_limit": ({5: -1.0, 7: 0.0},
+                               [{0: [(7, False)] * 4 + [(5, True)] * 2}]),
+    # column 9 sits above the limit and no lane names it; 5 crosses
+    "unnamed_above_limit": ({5: -1.0, 9: 2.0}, [{2: [(5, True)] * 2}]),
+    # column 5 nears the limit in a chunk's last window, crosses in the
+    # next chunk's first
+    "chunk_boundary": ({5: -3.0}, [{2: [(5, True)]}, {0: [(5, True)] * 2}]),
+    # window 1 is dead (its lanes name column 0, one below the limit);
+    # column 5 crosses in window 2
+    "dead_window": ({0: -1.0, 5: -1.0}, [{0: [(3, True)],
+                                          2: [(5, True)] * 2}]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GUARD_CASES))
+def test_plain_route_overflow_count_equals_saturate_counts(case):
+    """The chunk register half's plain route (a CPU tensor, B5's plain
+    version and the count's plain form) counts the newly saturated slots
+    that ``saturate_counts(prev=)`` counts over the whole file, window by
+    window, and leaves the same registers and readout as the stepwise
+    plain composition."""
+    lim = tstream.OVERFLOW_LIMIT
+    columns, chunk_lanes = GUARD_CASES[case]
+    k, n = 3, 64
+    regs = tstream.init_flow_table(n, device="cpu").regs
+    for col, offset in columns.items():
+        regs[[0, 1, 4, 5, 6, 7], col] = lim + offset
+        regs[2, col], regs[3, col] = -1.0, -0.5
+    state = tstream.FlowTableState(regs)
+    s_ref = state.clone()
+    total = 0
+    for lanes in chunk_lanes:
+        chunk = _guard_chunk(lanes, k)
+        state, xs, n_ev, n_ov = tstream.chunk_update_readout(
+            state, chunk, saturate=True)
+        want = 0
+        for i in range(k):
+            w = chunk.window_at(i)
+            after = tstream.update_flow_table(s_ref, w)
+            s_ref, n_new = tstream.saturate_counts(after, prev=s_ref)
+            want += int(n_new)
+            assert_bit_equal(tstream.flow_table_readout(s_ref, w.bucket),
+                             xs[i])
+        assert int(n_ov) == want
+        assert int(n_ev) == 0
+        assert_bit_equal(s_ref.regs, state.regs)
+        total += want
+    assert total > 0
+    assert float(state.pkt_count[5]) == lim
+    for col, offset in columns.items():
+        if offset >= 0:                  # at or above the limit: clamped
+            assert (state.regs[[0, 1, 4, 5, 6, 7], col] == lim).all()
+
+
+@pytest.mark.parametrize("route", ["window", "chunk"])
+@pytest.mark.parametrize("use_kernel", [None, False])
+def test_register_half_rejects_an_unknown_evict_policy(route, use_kernel):
+    """The register half names a mistyped eviction policy whether or not
+    an aging sweep runs (``evict_age`` None here)."""
+    chunk = _guard_chunk({0: [(5, True)]}, 2)
+    state = tstream.init_flow_table(64, device="cpu")
+    with pytest.raises(ValueError, match="evict_policy"):
+        if route == "window":
+            tstream.window_update_readout(state, chunk.window_at(0),
+                                          evict_policy="lru",
+                                          use_kernel=use_kernel)
+        else:
+            tstream.chunk_update_readout(state, chunk, evict_policy="lru",
+                                         use_kernel=use_kernel)

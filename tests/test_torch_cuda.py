@@ -670,6 +670,175 @@ def test_stream_update_kernel_rejects_bad_operands(cuda):
         su.stream_update(regs, cols[0].cpu(), *cols[1:])
 
 
+@pytest.mark.parametrize("n,w,kind", [
+    (8192, 1024, "random"), (8192, 1024, "crossing"), (257, 4096, "hot"),
+    (600, 96, "small_counts"), (8209, 1024, "invalid"), (8192, 1, "random"),
+    (300, 5000, "random"), (8192, 1024, "no_limit")])
+def test_stream_update_features_equals_plain(cuda, n, w, kind):
+    """B5's feature-row mode against its plain version, bit for bit: the
+    register file, each lane's feature row (``table_from_registers`` of
+    ``stream_update_ref``'s rows) written into a window's slice of a
+    (K, W, 8) readout, and the count added into one word of a (2, K)
+    counter (``_newly_saturated`` of the files before and after): columns
+    crossing 2^24, untouched columns (+-inf timestamps), counts of 0, 1
+    and 2, pad lanes, lanes outside [0, N), a window with no valid lane, no
+    limit (no count)."""
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.netsim.features import table_from_registers
+    from repro_torch.netsim.stream import _newly_saturated
+    lim = None if kind == "no_limit" else float(1 << 24)
+    rng = np.random.default_rng(n + w + 1)
+    base = float(1 << 24) - 60000.0 if kind == "hot" else 0.0
+    regs, cols = _stream_case(rng, n, w, cuda, hot=kind == "hot", base=base,
+                              outside=kind != "hot")
+    if kind == "hot":                   # bucket 0 holds a flow from `base`
+        regs[[0, 1, 4, 5, 6, 7], 0] = base + 1.0
+        regs[2, 0], regs[3, 0] = -3.0, -1.0
+    elif kind == "crossing":            # 64 columns two below the limit
+        hot = cols[0][4:68].long()
+        regs[[0, 1, 4, 5, 6, 7]] = regs[[0, 1, 4, 5, 6, 7]].index_fill(
+            1, hot, float(1 << 24) - 2.0)
+        cols[4][4:68] = True
+    elif kind == "small_counts":        # fresh columns end at 0, 1 or 2
+        regs[:, :] = 0.0
+        regs[2], regs[3] = float("inf"), float("-inf")
+        cols[0][:] = torch.arange(w, device=cuda) % 3
+        cols[4][:] = False
+        cols[4][[1, 2, 5]] = True       # one lane on column 1, two on 2
+    elif kind == "invalid":
+        cols = cols[:4] + (torch.zeros_like(cols[4]),)
+    want_regs, want_rows = su.stream_update_ref(regs, *cols, limit=lim)
+    want_x = table_from_registers(*want_rows)
+    want_n = 0 if lim is None else int(_newly_saturated(regs, want_regs,
+                                                         lim))
+    xs = torch.full((3, w, 8), float("nan"), device=cuda)
+    counts = torch.full((2, 3), 7, dtype=torch.int32, device=cuda)
+    before = su.LAUNCHES["stream_update"]
+    got = su.stream_update_features(
+        regs, *cols, xs[1], limit=lim,
+        n_over=None if lim is None else counts[1, 1])
+    torch.cuda.synchronize()
+    assert su.LAUNCHES["stream_update"] == before + 1
+    assert got.data_ptr() == regs.data_ptr()            # updated in place
+    assert torch.equal(got, want_regs)
+    assert torch.equal(xs[1], want_x)
+    assert xs[0].isnan().all() and xs[2].isnan().all()
+    want_counts = torch.full((2, 3), 7, dtype=torch.int32)
+    want_counts[1, 1] += want_n
+    assert torch.equal(counts.cpu(), want_counts)
+    if kind in ("hot", "crossing"):
+        assert want_n > 0
+    if kind == "small_counts":
+        assert set(xs[1][:, 0].tolist()) == {0.0, 1.0, 2.0}
+        assert (xs[1][xs[1][:, 0] == 2.0, 3] > 0).all()   # a mean IAT
+
+
+def test_stream_update_features_rejects_bad_operands(cuda):
+    from repro_torch.kernels import stream_update as su
+    rng = np.random.default_rng(0)
+    regs, cols = _stream_case(rng, 64, 16, cuda)
+    out = torch.empty((16, 8), device=cuda)
+    n_over = torch.zeros((), dtype=torch.int32, device=cuda)
+    before = su.LAUNCHES["stream_update"]
+    with pytest.raises(ValueError):                   # a CPU register file
+        su.stream_update_features(regs.cpu(), *(c.cpu() for c in cols),
+                                  out.cpu())
+    with pytest.raises(ValueError):                   # rows misaligned
+        su.stream_update_features(
+            regs, *cols, torch.empty(16 * 8 + 1, device=cuda)[1:].view(16, 8))
+    with pytest.raises(ValueError):
+        su.stream_update_features(regs, *cols, out[:8])
+    with pytest.raises(ValueError):                   # a count needs the clamp
+        su.stream_update_features(regs, *cols, out, n_over=n_over)
+    with pytest.raises(ValueError):
+        su.stream_update_features(regs, *cols, out, limit=1000.0,
+                                  n_over=n_over.long())
+    with pytest.raises(TypeError):
+        su.stream_update_features(regs, cols[0].long(), *cols[1:], out)
+    assert su.LAUNCHES["stream_update"] == before
+
+
+def _served_register_case(rng, dev, shards=1, k=16, n=8192, w=1024):
+    """The served register half's shape: an (8, N / shards) file, 40%
+    occupied, last seen before t = 5, 64 columns two below 2^24; a (K, W)
+    chunk over 30 s as the chunk iterators pack one: its first window names
+    the 64 columns (as the last shard's), the last live window ends in pad
+    lanes (the window's last packet again, invalid), the last window is
+    dead."""
+    from repro_torch.netsim.stream import (FlowTableState,
+                                           packet_chunk_from_arrays,
+                                           pack_chunk_columns)
+    regs, _ = _stream_case(rng, n // shards, 1, "cpu")
+    hot = rng.choice(n // shards, 64, replace=False)
+    regs[[0, 1, 4, 5, 6, 7]] = regs[[0, 1, 4, 5, 6, 7]].index_fill(
+        1, torch.from_numpy(hot), float(1 << 24) - 2.0)
+    regs[2, hot], regs[3, hot] = 1.0, 2.0
+    p = (k - 1) * w - 100
+    cols = dict(bucket=rng.integers(0, n, p).astype(np.int32),
+                ts=np.sort(rng.uniform(0, 30, p)).astype(np.float32),
+                length=rng.integers(40, 1500, p).astype(np.float32),
+                is_fwd=rng.integers(0, 2, p).astype(np.float32))
+    cols["bucket"][:128] = np.repeat(hot, 2) * shards + shards - 1
+    full, valid = pack_chunk_columns(cols, p, w, k)
+    chunk = packet_chunk_from_arrays(
+        **{f: a.reshape(k, w) for f, a in full.items()},
+        valid=valid.reshape(k, w), device=dev)
+    return FlowTableState(regs.to(dev)), chunk
+
+
+@pytest.mark.parametrize("caller", ["chunk", "window", "sharded"])
+def test_register_half_card_equals_plain_on_the_served_shape(cuda, caller):
+    """The register half on the card (K launches of B5's feature-row mode
+    and K of B6's sweep) against the plain route on the CPU (B5's plain
+    version and the count's plain form) and the plain composition
+    (use_kernel=False), at the served shape (N = 8192, W = 1024, K = 16)
+    with eviction and the guard on: the state, the readout rows and both
+    counters, bit for bit, for the chunk, the window (K = 1) and a shard's
+    window (the second of two shards, the full window swept)."""
+    from repro_torch.kernels import evict as ev
+    from repro_torch.kernels import stream_update as su
+    from repro_torch.netsim.shard_stream import shard_window_update
+    from repro_torch.netsim.stream import (chunk_update_readout,
+                                           window_update_readout)
+    shards = 2 if caller == "sharded" else 1
+    state, chunk = _served_register_case(np.random.default_rng(33), cuda,
+                                         shards)
+    host_state, host_chunk = _served_register_case(np.random.default_rng(33),
+                                                   "cpu", shards)
+    kw = dict(evict_age=5.0, saturate=True)
+
+    def run(s, c, use_kernel=None):
+        if caller == "chunk":
+            s, x, n_ev, n_ov = chunk_update_readout(
+                s, c, use_kernel=use_kernel, **kw)
+            return s, x, int(n_ev), int(n_ov)
+        xs, n_ev, n_ov = [], 0, 0
+        for i in range(c.n_windows):
+            w = c.window_at(i)
+            if caller == "window":
+                s, x, e, o = window_update_readout(
+                    s, w, use_kernel=use_kernel, **kw)
+            else:
+                s, _, _, x, e, o = shard_window_update(
+                    s, w, 2, 1, use_kernel=use_kernel, **kw)
+            xs.append(x)
+            n_ev, n_ov = n_ev + int(e), n_ov + int(o)
+        return s, torch.stack(xs), n_ev, n_ov
+
+    before = (su.LAUNCHES["stream_update"], ev.LAUNCHES["evict_fill"])
+    got = run(state, chunk)
+    torch.cuda.synchronize()
+    assert (su.LAUNCHES["stream_update"] - before[0],
+            ev.LAUNCHES["evict_fill"] - before[1]) == (16, 16)
+    plain = run(host_state.clone(), host_chunk)
+    composed = run(host_state.clone(), host_chunk, use_kernel=False)
+    for want in (plain, composed):
+        assert torch.equal(got[0].regs.cpu(), want[0].regs)
+        assert torch.equal(got[1].cpu(), want[1])
+        assert got[2:] == want[2:]
+    assert got[2] > 0 and got[3] > 0
+
+
 # -- B6: the eviction fill ---------------------------------------------------------
 
 @pytest.mark.parametrize("mask_kind", ["random", "all", "none", "offset"])
@@ -2396,6 +2565,33 @@ def test_chunk_graph_replays_split_by_their_marks(stream_served):
     assert sum(k for k, _ in out["phase_ops"]["switch"].values()) >= n
     assert out["entry_copy_ops"] == 9 * n
     assert out["entry_other_s"] == 0.0
+
+
+def test_chunk_graph_register_phase_is_b5_and_b6(stream_served):
+    """One replay of the chunk step's graph, split by its marks: the
+    ``register`` phase holds exactly K B5 and K B6 launches, in window
+    order, and at most four other device ops (the counters' zero fill and
+    their sum), so no glue around the two kernels goes unseen."""
+    from repro_torch.netsim.stream import iter_chunks
+    from repro_torch.serving.stream_serving import StreamingHybridServer
+    trace, art, _, big_dev = stream_served
+    k = 8
+    srv = StreamingHybridServer(art, _rf_backend(big_dev), chunk_windows=k,
+                                **_stream_kw(True))
+    chunks = list(iter_chunks(trace, 256, k, 4096))
+    for c in chunks[:2]:                       # the probe, the capture
+        srv.step_chunk(c)
+    (_, marks), = srv.graph_phases().items()
+    assert dict(marks)["register"] <= 2 * k + 4
+    out = _breakdown(srv, lambda: srv.step_chunk(chunks[2]))
+    assert out["replays"] == 1
+    ops = out["phase_ops"]["register"]
+    b5 = sum(n for name, (n, _) in ops.items()
+             if "stream_update_kernel" in name)
+    b6 = sum(n for name, (n, _) in ops.items()
+             if "evict_sweep_kernel" in name)
+    assert (b5, b6) == (k, k)
+    assert sum(n for n, _ in ops.values()) - b5 - b6 <= 4
 
 
 def test_batch_graph_replays_split_by_their_marks(served):

@@ -158,8 +158,12 @@ def _replay_kernel(regs, bucket, ts, length, is_fwd, valid, limit, order,
     from +-inf, in the order of _order_key); the q partial folds meet in
     xor-shuffle order; the column settles (regs + fold, the clamp; the
     ordered min/max of register and fold); and the block writes the row of
-    every lane whose gather column it owns. -> (regs, rows, writes), writes
-    counting the times each lane's row was written."""
+    every lane whose gather column it owns. -> (regs, rows, writes, over,
+    feats): writes counting the times each lane's row was written, over the
+    feature-row mode's count (with a limit: count slots of every column of
+    every tile settled at or above it from below), feats its (W, 8) rows
+    (duration and mean IAT derived once a column as it settles, each lane
+    given its column's row)."""
     regs = regs.copy()
     n = regs.shape[1]
     w = bucket.shape[0]
@@ -167,13 +171,16 @@ def _replay_kernel(regs, bucket, ts, length, is_fwd, valid, limit, order,
     tile = tsu.tile_columns(n, sms)
     q = K_BLOCK // tile
     rows = np.full((8, w), np.nan, np.float32)
+    feats = np.full((w, 8), np.nan, np.float32)
     writes = np.zeros(w, int)
+    over = 0
     g = np.where(bucket < 0, bucket + n, bucket).clip(0, n - 1)
     for c0 in range(0, n, tile):
         cols = min(tile, n - c0)
         listed = [i for i in order
                   if valid[i] and c0 <= bucket[i] < c0 + cols]
         settled = np.zeros((8, cols), np.float32)
+        featured = np.zeros((cols, 8), np.float32)
         for c in range(cols):
             part = np.zeros((q, 8), np.float32)
             part[:, 2], part[:, 3] = np.inf, -np.inf
@@ -203,13 +210,21 @@ def _replay_kernel(regs, bucket, ts, length, is_fwd, valid, limit, order,
                     v = f32(reg + fold)
                     if limit is not None and v > f32(limit):
                         v = f32(limit)
+                    if limit is not None:
+                        over += int(v >= f32(limit) and reg < f32(limit))
                 regs[r, c0 + c] = v
                 settled[r, c] = v
+            cnt, col = settled[0, c], settled[:, c]
+            dur = f32(col[3] - col[2]) if cnt > 0 else f32(0.0)
+            iat = (f32(dur / max(f32(cnt - f32(1.0)), f32(1.0)))
+                   if cnt > 1 else f32(0.0))
+            featured[c] = (cnt, col[1], dur, iat, *col[4:])
         for i in range(w):
             if c0 <= g[i] < c0 + cols:
                 rows[:, i] = settled[:, g[i] - c0]
+                feats[i] = featured[g[i] - c0]
                 writes[i] += 1
-    return regs, rows, writes
+    return regs, rows, writes, over, feats
 
 
 @pytest.mark.parametrize("limit", [None, 1000.0, OVERFLOW_LIMIT])
@@ -230,6 +245,63 @@ def test_kernel_algorithm_is_order_free(limit):
         assert_bit_equal(plain[0], got[0])
         assert_bit_equal(plain[1], got[1])
         assert (got[2] == 1).all()
+
+
+@pytest.mark.parametrize("case", ["crossing", "at_limit_unnamed",
+                                  "above_limit_unnamed", "invalid_at_limit",
+                                  "small_counts"])
+def test_kernel_feature_rows_and_count_equal_plain(case):
+    """The feature-row mode's algorithm: the count taken over every column
+    of every tile equals ``saturate_counts(prev=)``'s count over the file
+    (columns already at or above the limit that no valid lane names count
+    0), and each lane's feature row is ``table_from_registers`` of its
+    plain row, bit for bit (untouched columns, counts 0, 1 and 2, pad
+    lanes)."""
+    from repro_torch.netsim.features import table_from_registers
+    rng = np.random.default_rng(11)
+    n, w, sms, limit = 257, 96, 8, OVERFLOW_LIMIT
+    regs = _regs(n, rng, occupied=0.5)
+    cols = _window(w, n, rng)
+    counts = [0, 1, 4, 5, 6, 7]
+    if case == "crossing":
+        regs[np.ix_(counts, [3, 40, 200])] = limit - 2.0
+        cols[0][:12] = np.repeat([3, 40, 200], 4)
+        cols[4][:12] = True
+    elif case == "at_limit_unnamed":
+        named = np.zeros(n, bool)
+        named[cols[0][cols[4]]] = True
+        regs[np.ix_(counts, np.flatnonzero(~named)[:20])] = limit
+        regs[np.ix_(counts, [3])] = limit - 1.0
+        cols[0][:2], cols[4][:2] = 3, True
+    elif case == "above_limit_unnamed":
+        named = np.zeros(n, bool)
+        named[cols[0][cols[4]]] = True
+        regs[np.ix_(counts, np.flatnonzero(~named)[:20])] = limit + 2.0
+    elif case == "invalid_at_limit":
+        regs[np.ix_(counts, [7])] = limit
+        cols[0][:10], cols[4][:10] = 7, False
+        cols[4][cols[0] == 7] = False
+    else:                    # columns that end at counts 0, 1 and 2
+        regs = _regs(n, rng, occupied=0.0)
+        cols[0][:] = rng.integers(0, 8, w)
+        cols[4][:] = False
+        cols[4][[0, 1, 2]] = True
+        cols[0][[0, 1, 2]] = [1, 2, 2]
+        cols[0][3:] = np.where(cols[0][3:] < 3, 3, cols[0][3:])
+    plain_regs, plain_rows = tops.stream_update(*_port(regs, cols),
+                                                limit=limit)
+    _, n_new = tstream.saturate_counts(
+        tstream.update_flow_table(tstream.FlowTableState(_port(regs, cols)[0]),
+                                  tstream.PacketWindow(*_port(regs, cols)[1:])),
+        prev=tstream.FlowTableState(_port(regs, cols)[0]))
+    got = _replay_kernel(regs, *cols, limit, rng.permutation(w), sms=sms)
+    assert_bit_equal(plain_regs, got[0])
+    assert got[3] == int(n_new)
+    assert_bit_equal(table_from_registers(*plain_rows), got[4])
+    if case == "crossing":
+        assert got[3] > 0
+    if case == "small_counts":
+        assert sorted(set(got[4][:, 0].tolist())) == [0.0, 1.0, 2.0]
 
 
 @pytest.mark.parametrize("n,sms,tile", [(8192, 132, 32), (600, 132, 32),
