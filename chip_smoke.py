@@ -366,6 +366,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989.4e12   # H100 SXM dense bf16 tensor rate (data sheet)
 REPS = 30
 
 
@@ -1053,6 +1054,11 @@ def main() -> int:
         print("times (phase 5, the LM mesh path): " + json.dumps(mesh))
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # -- 5b. B9 at the dsv3-anomaly cell's shape, and its launches through
+    # HybridServer over a full-width DeepSeek-V3 (after phase 4p, once the
+    # LM models are freed)
+    kernel_rows.append(b9_row(torch, smi))
 
     # -- 6. results ----------------------------------------------------------
     print("kernels: " + json.dumps([r["name"] for r in kernel_rows]))
@@ -4795,9 +4801,16 @@ FAMILY_MAX_LEN = 2048       # recurrentgemma's local window: its ring is full
 
 
 def _family_cfg(name, depth):
+    """The family at its published widths in float32 master weights; the
+    DeepSeek id with the JAX package's settings (softmax router, plain
+    RoPE): its published route is the served one (``--b9``, the
+    benchmark's DeepSeek cell)."""
     import dataclasses
     from repro_torch.configs import get_config
+    from repro_torch.configs.deepseek_v3_671b import reference_settings
     cfg = get_config(name)
+    if name == "deepseek-v3-671b":
+        cfg = reference_settings(cfg)
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth, mtp=False)
     return cfg
@@ -5900,7 +5913,237 @@ def kernel_times(src, label) -> int:
     return 0
 
 
+# -- B9, the grouped expert GEMM, at the dsv3-anomaly cell's shape ----------
+
+B9_SHAPE = (8192, 8, 256, 7168, 2048)      # tokens, K, experts, D, F
+
+
+def _b9_inputs(torch, dev, t, k, e, d, f, skew, seed):
+    """x (T, D) bf16, the fp8 experts drawn N(0, 1 / fan_in) a matrix at a
+    time and quantized in 128 x 128 blocks, the routing (uniform over the
+    experts, or ``skew``: every token to experts 0 .. K-1) and its
+    weights."""
+    from repro_torch.core.quantize import quantize_blocks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    experts = {}
+    for name, (n_out, n_in) in (("gate", (f, d)), ("up", (f, d)),
+                                ("down", (d, f))):
+        codes = torch.empty((e, n_out, n_in), dtype=torch.float8_e4m3fn,
+                            device=dev)
+        scales = torch.empty((e, n_out // 128, n_in // 128),
+                             dtype=torch.float32, device=dev)
+        for i in range(e):
+            w = torch.randn((n_out, n_in), generator=gen, device=dev)
+            codes[i], scales[i] = quantize_blocks(w * n_in ** -0.5, 128)
+        experts[name], experts[name + "_scale"] = codes, scales
+    if skew:
+        ids = torch.arange(k, device=dev).expand(t, k).contiguous()
+    else:
+        ids = torch.rand((t, e), generator=gen, device=dev).topk(k).indices
+    w = torch.rand((t, k), generator=gen, device=dev)
+    return x, ids, experts, w
+
+
+def _b9_library(torch, x, plan, experts, w):
+    """The same layer with ``torch._grouped_mm`` on bf16 copies of the
+    dequantized weights (the yardstick; the port never calls it), or None
+    where the installed torch has no such call or refuses the operands."""
+    import torch.nn.functional as F
+    from repro_torch.core.quantize import dequantize_blocks
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None
+    wt = {n: dequantize_blocks(experts[n], experts[n + "_scale"], 128,
+                               torch.bfloat16).transpose(-2, -1)
+          for n in ("gate", "up", "down")}
+    offs = torch.cumsum(plan.counts, 0).to(torch.int32)
+    ws = w.reshape(-1)[plan.order][:, None]
+
+    def call():
+        a = x[plan.src.long()]
+        h = F.silu(fn(a, wt["gate"], offs=offs)) * fn(a, wt["up"], offs=offs)
+        y = (fn(h, wt["down"], offs=offs) * ws).to(torch.bfloat16)
+        return torch.empty_like(y).index_copy_(0, plan.order, y)
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, TypeError, ValueError) as exc:
+        print(f"B9 library: torch._grouped_mm refused: {exc}",
+              file=sys.stderr)
+        return None
+    return call
+
+
+B9_SOURCE = "src/repro_torch/csrc/grouped_gemm.cu"
+
+
+def _time_b9(torch, smi) -> dict:
+    """B9's row of the kernel table at ``B9_SHAPE`` (the dsv3-anomaly
+    cell's MoE layer: 8192 tokens, top-8 of 256 experts, D 7168, F 2048),
+    routed uniformly and with every token on experts 0-7, each checked
+    against the plain composition (dequantize, matmul, SiLU, matmul):
+    the dequantized weights, H and Y are rounded to bf16 on both sides and
+    the sums run in another order, so each Y element may sit a few bf16
+    ulps apart; the limit is
+    ||Y - Y_plain|| <= 5e-3 ||Y_plain|| and max |Y - Y_plain| <= 0.05
+    RMS(Y_plain). The rows B9 stored (its ``stored`` count) must be every
+    pair in every column block. Times: the call (both launches and the
+    plan's gather) from a CUDA graph of 5 and eager, and with the stored
+    count as served (``ms_counted``), each kernel's device
+    time under the profiler, the plain composition eager (it reads the
+    counts on the host, so no graph holds it), ``torch._grouped_mm`` on
+    bf16 copies as ``library_ms``. The row's figures are the uniform
+    case's; ``skew`` holds the other. Raises on a check that fails."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import grouped_gemm as gg
+    dev = torch.device("cuda")
+    _build.load("grouped_gemm")
+    t, k, e, d, f = B9_SHAPE
+    flops = 2.0 * 3 * t * k * d * f
+    n_bytes = 3 * e * d * f + 2 * t * d + 2 * t * k * (f + d)
+    res = {"name": "grouped_gemm", "route": "cuda", "source": B9_SOURCE,
+           "replaces": "none (the JAX package's MoE is an XLA batched "
+                       "matmul with capacity drops)",
+           "launches": 0, "bound_ms": 1e3 * max(flops / BF16_TENSOR_OPS_PER_S,
+                                                n_bytes / HBM_BYTES_PER_S),
+           "bound_by": "operations at the bf16 tensor rate",
+           "bytes": n_bytes, "ops": flops, "plain_ms": None,
+           "shape": {"T": t, "K": k, "E": e, "D": d, "F": f,
+                     "block": gg.BLOCK, "BM": gg.BM}}
+    for case in ("uniform", "skew"):
+        x, ids, experts, w = _b9_inputs(torch, dev, t, k, e, d, f,
+                                        case == "skew", seed=9)
+        plan = gg.expert_plan(ids, e)
+        stored = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def call():
+            return gg.grouped_ffn(x, plan, experts, w)
+        got = gg.grouped_ffn(x, plan, experts, w, stored).float()
+        t0 = time.perf_counter()
+        ref = gg.grouped_ffn_ref(x, plan, experts, w).float()
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        rms = float(ref.pow(2).mean().sqrt())
+        rel = float((got - ref).norm() / ref.norm())
+        worst = float((got - ref).abs().max()) / rms
+        row = {"rel_fro": rel, "max_over_rms": worst,
+               "max_abs_err": float((got - ref).abs().max()),
+               "stored": int(stored), "plain_ms_eager": plain_ms}
+        if not (rel <= 5e-3 and worst <= 0.05
+                and row["stored"] == t * k * gg.column_blocks(d)):
+            raise AssertionError(f"B9 != plain ({case}): {row}")
+        del got, ref
+        row["ms"] = _graph_ms(torch, call, inner=5)
+        row["ms_eager"] = _median_ms(torch, call)
+        # the same call adding its stored rows to a count, as served
+        row["ms_counted"] = _graph_ms(
+            torch, lambda: gg.grouped_ffn(x, plan, experts, w, stored),
+            inner=5)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                call()
+            torch.cuda.synchronize()
+        row["kernel_ms"] = {
+            ("gate_up" if "<2>" in ev.key else "down"):
+                ev.self_device_time_total / 5e3
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and "grouped_gemm_kernel" in ev.key}
+        row["tflops"] = flops / (sum(row["kernel_ms"].values()) * 1e9)
+        lib = _b9_library(torch, x, plan, experts, w)
+        row["library_ms"] = None if lib is None else _graph_ms(torch, lib,
+                                                               inner=5)
+        if case == "uniform":
+            res.update(row)
+        else:
+            res["skew"] = row
+        del x, ids, experts, w, plan, lib
+        torch.cuda.empty_cache()
+    print(f"time grouped_gemm: kernel {res['ms']:.5f} ms (graph), "
+          f"{res['ms_eager']:.5f} ms (eager call); plain "
+          f"{res['plain_ms_eager']:.5f} ms (eager); library "
+          f"{res['library_ms']} ms; bound {res['bound_ms']:.6f} ms "
+          f"({res['bound_by']}); shape {res['shape']}; on {smi}")
+    return res
+
+
+def _b9_main_path(torch, smi) -> dict:
+    """B9's launches on the main path: ``HybridServer.classify`` over
+    ``lm_backend`` of DeepSeek-V3 at its published widths with 1 dense and
+    1 MoE layer (``launch.serve.lm_config``, the served fp8 params of
+    ``init_serving_model``), an RF 10x5 switch, tau 0.9, capacity 1024 and
+    16,384 rows a batch, as the dsv3-anomaly cell serves it. The counts
+    are set to 0 just before each of three classify calls and read after
+    it: the probe (one eager step: 2 launches a MoE layer), the capture
+    (the warm-up step and the captured one: 4 a MoE layer; the replay
+    after them runs the step a second time) and a replay (none: the graph
+    holds them). The pairs whose rows B9 stored must be 8 x 8192 a MoE
+    layer for each step run, and the backend must be in the classify
+    graph. -> {"probe", "capture", "replay", "moe_layers",
+    "per_cell_request"}."""
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.data.unsw_like import make_unsw_like
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.launch.serve import lm_backend, lm_config
+    from repro_torch.ml.trees import fit_random_forest
+    from repro_torch.models import model as M
+    from repro_torch.serving.hybrid_serving import HybridServer
+    dev = torch.device("cuda")
+    cfg = lm_config("deepseek-v3-671b", 2)
+    n_moe = cfg.n_layers - cfg.moe.n_dense_layers
+    x, y = make_unsw_like(16384 + 4000, seed=7, n_features=5)
+    forest = fit_random_forest(x[:4000], y[:4000], n_classes=2, n_trees=10,
+                               max_depth=5, seed=0, device="cpu")
+    backend = lm_backend(cfg, M.init_serving_model(cfg, 11, device=dev))
+    server = HybridServer(map_tree_ensemble(forest, 5), backend,
+                          threshold=0.9, capacity=1024, fuse=None,
+                          device=dev)
+    rows = torch.as_tensor(x[4000:], device=dev)
+    out = {"moe_layers": n_moe}
+    for step, runs in (("probe", 1), ("capture", 2), ("replay", 1)):
+        backend.reset_counters()
+        gg.reset_launches()
+        server.classify(rows)
+        torch.cuda.synchronize()
+        out[step] = gg.LAUNCHES["grouped_gemm"]
+        pairs = backend.routed_pairs().tolist()
+        if pairs != [runs * 8.0 * 1024 * 8] * n_moe:
+            raise AssertionError(f"B9 stored {pairs} pairs at the {step}, "
+                                 f"not {runs * 8 * 1024 * 8} a MoE layer")
+    want = {"probe": 2 * n_moe, "capture": 4 * n_moe, "replay": 0}
+    if server._fused_ok is not True or any(out[k] != v
+                                           for k, v in want.items()):
+        raise AssertionError(f"B9 on the main path: {out}, fused "
+                             f"{server._fused_ok}; want {want}")
+    out["per_cell_request"] = 2 * 4          # the cell's 4 MoE layers
+    print(f"launches grouped_gemm (HybridServer, DeepSeek-V3 1 dense + 1 "
+          f"MoE, full width): {json.dumps(out)} on {smi}")
+    del server, backend, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def b9_row(torch, smi) -> dict:
+    """B9's kernel row with its main-path launches: the probe's count
+    (eager, 2 a MoE layer) of ``_b9_main_path``'s run."""
+    path = _b9_main_path(torch, smi)
+    row = _time_b9(torch, smi)
+    row["launches"] = path["probe"]
+    row["main_path"] = path
+    return row
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--b9":
+        import torch
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "src"))
+        print("B9 " + json.dumps(b9_row(torch, _smi())), flush=True)
+        sys.exit(0)
     if len(sys.argv) > 1 and sys.argv[1] == "--kernels":
         here = os.path.dirname(os.path.abspath(__file__))
         sys.exit(kernel_times(

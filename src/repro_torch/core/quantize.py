@@ -54,3 +54,50 @@ def relative_error(fp: FixedPoint, v) -> float:
     v = torch.as_tensor(np.asarray(v, np.float32), device=d.device)
     denom = torch.clamp(torch.abs(v), min=1e-9)
     return float(mean(torch.abs(d - v) / denom))
+
+
+# ---------------------------------------------------------------------------
+# fp8 block scaling (the served weights of DeepSeek-V3: e4m3 codes, one
+# float32 scale a block x block tile of the (out, in) weight, tech report
+# §3.3)
+# ---------------------------------------------------------------------------
+
+FP8 = torch.float8_e4m3fn
+FP8_MAX = 448.0                     # e4m3fn's largest finite value
+
+
+def _block_view(w: torch.Tensor, block: int):
+    """w (..., N, K) zero-padded to whole blocks and viewed as (..., N/b, b,
+    K/b, b)."""
+    n, k = w.shape[-2:]
+    pn, pk = -n % block, -k % block
+    if pn or pk:
+        w = torch.nn.functional.pad(w, (0, pk, 0, pn))
+    lead = w.shape[:-2]
+    return w.reshape(*lead, (n + pn) // block, block, (k + pk) // block,
+                     block)
+
+
+def quantize_blocks(w: torch.Tensor, block: int):
+    """w (..., N, K) float32 -> (codes (..., N, K) e4m3, scales (...,
+    ceil(N/b), ceil(K/b)) float32): each block's scale is its largest
+    magnitude over 448 (1 for a block of zeros), its codes w / scale
+    rounded to e4m3."""
+    n, k = w.shape[-2:]
+    v = _block_view(w.to(torch.float32), block)
+    amax = v.abs().amax(dim=(-3, -1))
+    scale = torch.where(amax > 0, amax / FP8_MAX, torch.ones_like(amax))
+    q = (v / scale[..., :, None, :, None]).to(FP8)
+    q = q.reshape(*q.shape[:-4], q.shape[-4] * block, q.shape[-2] * block)
+    return q[..., :n, :k].contiguous(), scale
+
+
+def dequantize_blocks(q: torch.Tensor, scale: torch.Tensor, block: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """codes (..., N, K) e4m3 and their block scales -> (..., N, K) in
+    ``dtype``: each code times its block's scale, in float32 (exact: an
+    e4m3 code has 4 significant bits), then rounded once to ``dtype``."""
+    n, k = q.shape[-2:]
+    s = scale.repeat_interleave(block, dim=-2)[..., :n, :]
+    s = s.repeat_interleave(block, dim=-1)[..., :k]
+    return (q.to(torch.float32) * s).to(dtype)

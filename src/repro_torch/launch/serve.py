@@ -14,9 +14,12 @@ finance use case (Jane-Street-like, §7.1.2) the switch sees the five
 request carries its full payload, which the launcher emulates by a side
 channel set per batch (``backend_fn.full_rows`` and ``backend_fn.idx``, the
 dispatch order recomputed with the server's own switch realization and
-tiles). ``--backend lm`` scores the forwarded rows with a smoke-size
-qwen3-4b instead (``lm_backend``): each row is re-encoded as 8 tokens and
-the class read from the last position's logits, as the reference does; the
+tiles). ``--backend lm`` scores the forwarded rows with a language model
+instead (``lm_backend``): the smoke-size qwen3-4b, or with ``--arch`` any
+registry id at its published widths (``--lm-layers`` cuts its depth;
+DeepSeek-V3 is served as its fp8 checkpoint holds it). Each row is
+re-encoded as 8 tokens and the class read from the last position's
+logits, as the reference does; the
 server probes whether that backend can be captured into its fused step
 (``fuse=None``, as the reference passes it) and the launcher prints the
 route taken.
@@ -28,21 +31,24 @@ served (predictions, stats, server, models) for callers that check it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
 
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.mapping import map_tree_ensemble
 from repro_torch.core.hybrid import dispatch
 from repro_torch.data import janestreet_like, unsw_like
 from repro_torch.device import resolve_device
+from repro_torch.kernels.grouped_gemm import column_blocks
 from repro_torch.kernels.ops import fused_classify
 from repro_torch.kernels.tuning import TileConfig
 from repro_torch.ml.metrics import accuracy, precision_recall_f1
 from repro_torch.ml.trees import (fit_random_forest, fit_xgboost,
                                   predict_margin_xgboost)
 from repro_torch.models import model as M
+from repro_torch.models.moe import attach_route_log
 from repro_torch.serving.hybrid_serving import HybridServer
 
 
@@ -74,17 +80,89 @@ def side_channel_backend(model):
     return backend_fn
 
 
-def lm_backend(cfg, params):
+class LMBackend:
     """The reference's LM scorer: each forwarded row becomes 8 tokens,
     ``int(|x[:, :8]| * 7) % vocab`` padded with zeros, and its class is
-    ``logits[:, 0] > logits[:, 1]`` of the prompt's last position."""
-    def backend_fn(rows):
+    ``logits[:, 0] > logits[:, 1]`` of the prompt's last position.
+
+    Besides the classes it keeps, in tensors of its own that a captured
+    step writes in place (allocated at the first call, sized by its rows):
+    ``logits``, each call's two class logits of every row (rows, 2) f32;
+    and for a model whose MoE layers route as DeepSeek-V3's (served
+    params), each layer's route buffers (``models.moe.attach_route_log``):
+    its experts' tokens and the rows its grouped GEMM stored, summed over
+    calls, and the last call's chosen experts."""
+
+    def __init__(self, cfg, params):
+        self.cfg, self.params = cfg, params
+        self.logits = None
+        self.routes = []
+
+    def __call__(self, rows):
+        cfg = self.cfg
         toks = (rows[:, :8].abs() * 7).to(torch.int32) % cfg.vocab_size
         toks = torch.nn.functional.pad(toks, (0, max(0, 8 - toks.shape[1])))
-        logits, _ = M.prefill(params, cfg, {"tokens": toks})
+        if self.logits is None:
+            self.logits = torch.zeros((rows.shape[0], 2),
+                                      dtype=torch.float32,
+                                      device=rows.device)
+            if cfg.moe is not None and cfg.moe.scoring == "sigmoid" \
+                    and cfg.precision is not None:
+                self.routes = attach_route_log(self.params, cfg,
+                                               toks.numel())
+        logits, _ = M.prefill(self.params, cfg, {"tokens": toks})
+        self.logits.copy_(logits[:, :2])
         return (logits[:, 0] > logits[:, 1]).to(torch.int32)
 
-    return backend_fn
+    def expert_tokens(self) -> torch.Tensor:
+        """(MoE layers, E) int64: each expert's routed tokens, summed over
+        the calls since the last ``reset_counters``."""
+        return torch.cat([r["tokens"].reshape(-1, r["tokens"].shape[-1])
+                          for r in self.routes])
+
+    def routed_pairs(self) -> torch.Tensor:
+        """(MoE layers,) float64: the routed pairs whose rows B9 stored,
+        summed likewise (the stored count over ``column_blocks(D)``; a row
+        stored in only some column blocks reads as a fraction)."""
+        stored = torch.cat([r["stored"].reshape(-1) for r in self.routes])
+        return stored.double() / column_blocks(self.cfg.d_model)
+
+    def chosen(self) -> torch.Tensor:
+        """(MoE layers, tokens, K) int32: the last call's experts."""
+        return torch.cat([r["ids"].reshape(-1, *r["ids"].shape[-2:])
+                          for r in self.routes])
+
+    def reset_counters(self) -> None:
+        for r in self.routes:
+            r["tokens"].zero_()
+            r["stored"].zero_()
+
+
+def lm_backend(cfg, params) -> LMBackend:
+    """The LM backend of ``cfg`` with ``params`` (``LMBackend``)."""
+    return LMBackend(cfg, params)
+
+
+def lm_config(arch: str, layers: int = None):
+    """Registry id ``arch`` at its published widths; ``layers`` cuts its
+    depth: the leading dense layers count once (a MoE model keeps one),
+    the rest follow, and the MTP module is left out."""
+    cfg = get_config(arch)
+    if layers is None or layers >= cfg.n_layers:
+        return cfg
+    moe = cfg.moe
+    if moe is not None and moe.n_dense_layers:
+        moe = dataclasses.replace(moe, n_dense_layers=1)
+    return dataclasses.replace(cfg, n_layers=layers, moe=moe, mtp=False)
+
+
+def lm_params(cfg, seed: int, device):
+    """A served precision's params (``models.model.init_serving_model``)
+    where ``cfg`` states one, else float32 ones, from ``seed``."""
+    if cfg.precision is not None:
+        return M.init_serving_model(cfg, seed, device=device)
+    return M.init_model(cfg, torch.Generator(device=device).manual_seed(seed),
+                        device=device)
 
 
 def serve_batches(server: HybridServer, x_test: torch.Tensor, batch: int, *,
@@ -125,6 +203,12 @@ def parse_args(argv=None):
     ap.add_argument("--backend", default="ensemble", choices=["ensemble", "lm"])
     ap.add_argument("--backend-trees", type=int, default=60)
     ap.add_argument("--backend-depth", type=int, default=6)
+    ap.add_argument("--arch", default=None,
+                    help="--backend lm: a registry id at its published "
+                         "widths (default: the smoke qwen3-4b)")
+    ap.add_argument("--lm-layers", type=int, default=None,
+                    help="--backend lm with --arch: the layers served "
+                         "(leading dense layers count once)")
     ap.add_argument("--batch", type=int, default=2048)
     ap.add_argument("--n-samples", type=int, default=20000,
                     help="dataset size before the 80/20 split")
@@ -159,9 +243,9 @@ def main(argv=None) -> dict:
             def backend_fn(rows):
                 return (predict_margin_xgboost(big, rows) > 0).to(torch.int32)
     else:
-        cfg = get_smoke_config("qwen3-4b")
-        big = M.init_model(cfg, torch.Generator(device=dev).manual_seed(0),
-                           device=dev)
+        cfg = (get_smoke_config("qwen3-4b") if args.arch is None
+               else lm_config(args.arch, args.lm_layers))
+        big = lm_params(cfg, 0, dev)
         backend_fn = lm_backend(cfg, big)
 
     # the ensemble backend is served eagerly (fuse=False) and the LM backend

@@ -31,7 +31,7 @@ from repro_torch.distributed.sharding import (dense, hint_batch_heads,
                                               write_row_)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, as_position, dense_init,
-                                       rmsnorm)
+                                       rmsnorm, yarn_softmax_scale)
 
 F32 = torch.float32
 MASKED = -1e30          # the reference's masked score
@@ -106,8 +106,8 @@ def _project_qkv(p, cfg, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"])
         k = rmsnorm(k, p["k_norm"])
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     return q, k, v
 
 
@@ -336,6 +336,15 @@ def gqa_decode(p, cfg, x, pos, cache, *, window=None):
 # MLA (DeepSeek-V2/V3 latent attention)
 # ---------------------------------------------------------------------------
 
+def _mla_scale(cfg) -> float:
+    """MLA's softmax scale: 1 / sqrt(nope + rope), times YaRN's mscale
+    squared where the config scales its rotary embedding (DeepSeek-V3:
+    0.1 ln 40 + 1 = 1.369, squared 1.874)."""
+    m = cfg.mla
+    return _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim) * yarn_softmax_scale(
+        cfg.rope_scaling)
+
+
 def _mla_q(p, cfg, x, positions):
     m = cfg.mla
     b, s, _ = x.shape
@@ -343,7 +352,7 @@ def _mla_q(p, cfg, x, positions):
     q = dense(rmsnorm(x @ p["wq_a"], p["q_norm"]), p["wq_b"])
     q = reshape(q, b, s, h, m.qk_nope_dim + m.qk_rope_dim)
     q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, cfg.rope_scaling)
     return q_nope, q_rope
 
 
@@ -352,8 +361,8 @@ def _mla_ckv(p, cfg, x, positions):
     kv = x @ p["wkv_a"]
     c_kv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
     c_kv = rmsnorm(c_kv, p["kv_norm"])
-    k_rope = apply_rope(k_rope[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]         # shared head
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta,
+                        cfg.rope_scaling)[:, :, 0, :]       # shared head
     return c_kv, k_rope
 
 
@@ -371,7 +380,7 @@ def mla_forward(p, cfg, x, positions):
     c_kv, k_rope = _mla_ckv(p, cfg, x, positions)
     kv = reshape(dense(c_kv, p["wkv_b"]), b, s, h, m.qk_nope_dim + m.v_head_dim)
     k_nope, v = kv[..., :m.qk_nope_dim], kv[..., m.qk_nope_dim:]
-    scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scale = _mla_scale(cfg)
     if s >= 2048:
         qf = torch.cat([q_nope, q_rope], dim=-1)
         kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(
@@ -429,7 +438,7 @@ def mla_decode(p, cfg, x, pos, cache, *, absorb=True):
     write_row_(krp, 1, slot, r_new.to(krp.dtype))
     s_max = ckv.shape[1]
     valid = torch.arange(s_max, device=x.device) <= pos
-    scale = _inv_sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    scale = _mla_scale(cfg)
     wkv_b = reshape(p["wkv_b"], m.kv_lora_rank, h,
                     m.qk_nope_dim + m.v_head_dim)
     w_uk = wkv_b[..., :m.qk_nope_dim]                   # (lora, H, nope)

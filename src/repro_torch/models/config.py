@@ -21,6 +21,17 @@ class MoEConfig:
     capacity_factor: float = 1.25
     router_aux_weight: float = 0.001
     n_dense_layers: int = 0     # leading layers that use a dense FFN instead
+    # the router. "softmax": softmax over the experts, top-k, the k weights
+    # renormalised, units past ``capacity_factor`` dropped (the reference's).
+    # "sigmoid": DeepSeek-V3's (arXiv:2412.19437 §2.1.2), s = sigmoid(x W_r);
+    # the experts chosen by s + b (b a correction bias) inside the
+    # ``topk_group`` of ``n_group`` groups whose top-2 sums of s + b are
+    # largest; weights s / sum(s) * ``routed_scale`` over the k chosen;
+    # dropless (every token reaches its k experts; capacity_factor unread).
+    scoring: str = "softmax"
+    n_group: int = 1
+    topk_group: int = 1
+    routed_scale: float = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +41,35 @@ class MLAConfig:
     qk_nope_dim: int = 128
     qk_rope_dim: int = 64
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnConfig:
+    """YaRN rotary scaling (arXiv:2309.00071), as DeepSeek-V3's config.json
+    gives it under ``rope_scaling``: the frequencies of the dimensions that
+    turn fewer than ``beta_slow`` times over ``original_max_position``
+    positions are divided by ``factor``, those that turn more than
+    ``beta_fast`` times are kept, a linear ramp between; the softmax scale
+    is multiplied by ``mscale(factor, mscale_all_dim) ** 2`` (MLA's
+    attention) and the rotary cos / sin by ``mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim)``, ``mscale(f, m) = 0.1 m ln f + 1``."""
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionConfig:
+    """How a served model is held: its linear weights as ``weights`` in
+    ``block`` x ``block`` blocks, each with a float32 scale (DeepSeek-V3's
+    checkpoint: fp8 e4m3, 128 x 128, tech report §3.3), its activations in
+    ``activations``. None on an ``ArchConfig``: float32 master weights."""
+    weights: str = "float8_e4m3fn"
+    block: int = 128
+    activations: str = "bfloat16"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +91,8 @@ class ArchConfig:
     sliding_window: Optional[int] = None  # SWA width (h2o-danube)
     local_window: Optional[int] = None    # local-attn width (recurrentgemma)
     rope_theta: float = 10000.0
+    rope_scaling: Optional[YarnConfig] = None
+    precision: Optional[PrecisionConfig] = None   # how it is served
 
     # mixture / latent configs
     moe: Optional[MoEConfig] = None

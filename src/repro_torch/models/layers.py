@@ -9,6 +9,9 @@ the tanh approximation.
 
 from __future__ import annotations
 
+import hashlib
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,26 @@ def dense_init(gen, shape, scale=None, *, device, lead=()):
     if out.device.type == "meta":
         return out
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return out.mul_(std)
+
+
+def derive_seed(seed: int, *parts) -> int:
+    """A 63-bit seed for the tensor named by ``parts`` (layer, name,
+    expert...) of a model drawn from ``seed``: the first 8 bytes of the
+    SHA-256 of ``"seed/part/part..."``, little-endian."""
+    key = "/".join(str(x) for x in (int(seed),) + tuple(parts)).encode()
+    return int.from_bytes(hashlib.sha256(key).digest()[:8],
+                          "little") & ((1 << 63) - 1)
+
+
+def seeded_normal(seed: int, parts, shape, std: float, device):
+    """(shape) float32 N(0, std^2) on ``device`` from its own generator,
+    seeded ``derive_seed(seed, *parts)``: any one tensor of a model can be
+    drawn again alone, on the same device, bit for bit."""
+    gen = torch.Generator(device=device).manual_seed(
+        derive_seed(seed, *parts))
+    out = torch.randn(tuple(shape), generator=gen, device=device,
+                      dtype=F32)
     return out.mul_(std)
 
 
@@ -79,18 +102,56 @@ def as_position(pos, device) -> torch.Tensor:
 # rotary embeddings
 # ---------------------------------------------------------------------------
 
-def rope_freqs(dim, theta, device=None):
+def yarn_mscale(factor: float, m: float) -> float:
+    """YaRN's attention factor ``0.1 m ln(factor) + 1`` (1 at factor <= 1)."""
+    return 0.1 * m * math.log(factor) + 1.0 if factor > 1 else 1.0
+
+
+def yarn_softmax_scale(scaling) -> float:
+    """What YaRN multiplies an attention's softmax scale by: the square of
+    ``yarn_mscale(factor, mscale_all_dim)``; 1 without scaling."""
+    if scaling is None:
+        return 1.0
+    return yarn_mscale(scaling.factor, scaling.mscale_all_dim) ** 2
+
+
+def _yarn_dim(rotations, dim, theta, max_pos):
+    """The rotary dimension whose frequency turns ``rotations`` times over
+    ``max_pos`` positions."""
+    return (dim * math.log(max_pos / (rotations * 2 * math.pi))
+            / (2 * math.log(theta)))
+
+
+def rope_freqs(dim, theta, device=None, scaling=None):
+    """(dim/2,) f32 inverse frequencies; with ``scaling`` (a ``YarnConfig``)
+    YaRN's: divided by the factor below the ramp, kept above it."""
     exps = torch.arange(0, dim, 2, dtype=F32, device=device) / dim
-    return 1.0 / (theta ** exps)
+    freqs = 1.0 / (theta ** exps)
+    if scaling is None:
+        return freqs
+    n = scaling.original_max_position
+    low = max(math.floor(_yarn_dim(scaling.beta_fast, dim, theta, n)), 0)
+    high = min(math.ceil(_yarn_dim(scaling.beta_slow, dim, theta, n)),
+               dim - 1)
+    ramp = ((torch.arange(dim // 2, dtype=F32, device=device) - low)
+            / max(high - low, 1e-3)).clamp(0.0, 1.0)
+    keep = 1.0 - ramp
+    return freqs / scaling.factor * (1.0 - keep) + freqs * keep
 
 
-def apply_rope(x, positions, theta=10000.0):
-    """x (..., S, H, hd), positions (..., S) -> same shape, rotated."""
+def apply_rope(x, positions, theta=10000.0, scaling=None):
+    """x (..., S, H, hd), positions (..., S) -> same shape, rotated (the
+    two halves of the head dim as the pairs; YaRN with ``scaling``)."""
     hd = x.shape[-1]
-    freqs = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    freqs = rope_freqs(hd, theta, x.device, scaling)        # (hd/2,)
     angles = positions[..., :, None].to(F32) * freqs        # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                   # (..., S, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
+    if scaling is not None:
+        m = (yarn_mscale(scaling.factor, scaling.mscale)
+             / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = torch.chunk(x, 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -41,6 +41,13 @@ def init_model(cfg: ArchConfig, gen=None, *, device=None):
     return tfm.init_params(cfg, gen, device=device)
 
 
+def init_serving_model(cfg: ArchConfig, seed: int, *, device=None):
+    """Params as ``cfg.precision`` serves them, drawn on ``device`` from
+    ``seed`` (``transformer.init_serving_params``: DeepSeek-V3's fp8
+    weights). device=None means CUDA."""
+    return tfm.init_serving_params(cfg, seed, device=device)
+
+
 def model_param_shapes(cfg: ArchConfig):
     """Shape tree (``torch.Size`` leaves) without allocating."""
     if cfg.encdec:

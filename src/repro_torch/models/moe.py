@@ -26,6 +26,22 @@ Departures from the reference, each kept on purpose:
   without a data-dependent shape, so the MoE runs inside the decode graph.
 - Nothing here takes ``nonzero``, a boolean-mask index or ``one_hot``
   (whose CPU checks read the data on the host).
+
+DeepSeek-V3's published layer (``scoring="sigmoid"``; the JAX package has
+no such route) goes through ``moe_sigmoid``: the sigmoid router with its
+correction bias and group limit (``route_sigmoid``), and dropless experts
+held as fp8 block-scaled codes under ``p["experts"]`` (the served params
+of ``models.model.init_serving_model``): the pairs are sorted by expert on
+the device and the experts run as the grouped GEMM B9
+(``kernels.grouped_gemm``); a token's K rows are then summed in float32 in
+a fixed order, so nothing is dropped, nothing is read on the host and no
+shape depends on the routing. The layer adds its shared expert once.
+Params without served experts raise: the JAX package's softmax route of
+the same id is ``configs.deepseek_v3_671b.reference_settings``. Where
+``p["route"]`` holds buffers (``attach_route_log``), the layer adds each
+expert's tokens and the rows B9 stored into them in place and copies the
+chosen experts out: the counters a benchmark reads once after its
+window.
 """
 
 from __future__ import annotations
@@ -36,7 +52,9 @@ import torch.nn.functional as F
 from repro_torch.device import mean
 from repro_torch.distributed.sharding import (hint_batch, is_sharded, reshape,
                                               shard_hint)
+from repro_torch.kernels.grouped_gemm import expert_plan, grouped_ffn
 from repro_torch.models.layers import dense_init, swiglu, swiglu_params
+from repro_torch.obs.profiling import phase
 
 F32 = torch.float32
 BF16 = torch.bfloat16
@@ -76,6 +94,8 @@ def _rows(table, ids):
 def moe_forward(p, cfg, x):
     """x (B, S, D) -> (out (B, S, D), aux_loss scalar)."""
     m = cfg.moe
+    if m.scoring == "sigmoid":
+        return moe_sigmoid(p, cfg, x)
     b, s, d = x.shape
     t = b * s
     e, k = m.n_experts, m.top_k
@@ -140,3 +160,86 @@ def moe_forward(p, cfg, x):
     if m.dense_residual:
         out = out + swiglu(p["dense"], xf).to(F32)
     return reshape(out, b, s, d).to(x.dtype), aux
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V3's layer: sigmoid router, group limit, dropless experts
+# ---------------------------------------------------------------------------
+
+def route_sigmoid(p, m, xf):
+    """xf (T, D) -> (ids (T, K) int64, weights (T, K) f32, s + b (T, E)
+    f32). s = sigmoid(xf W_r) in float32; the experts are chosen by s + b
+    (b, ``router_bias``, zero where the params hold none) among the
+    ``topk_group`` groups of ``n_group`` whose top-2 sums of s + b are
+    largest; each chosen expert's weight is its s over the chosen s's sum,
+    times ``routed_scale``."""
+    s = torch.sigmoid(xf.to(F32) @ p["router"].to(F32))
+    bias = p.get("router_bias")
+    sb = s if bias is None else s + bias.to(F32)
+    t, e = sb.shape
+    grouped = sb.reshape(t, m.n_group, e // m.n_group)
+    top2 = grouped.topk(min(2, e // m.n_group), dim=-1).values.sum(-1)
+    chosen = top2.topk(m.topk_group, dim=-1).indices            # (T, G')
+    keep = torch.zeros_like(top2, dtype=torch.bool).scatter_(1, chosen, True)
+    masked = grouped.masked_fill(~keep[..., None], float("-inf"))
+    ids = masked.reshape(t, e).topk(m.top_k, dim=-1).indices    # (T, K)
+    w = s.gather(1, ids)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * m.routed_scale
+    return ids, w, sb
+
+
+def attach_route_log(params, cfg, tokens: int):
+    """Give every MoE layer of the served ``params`` (a tree of
+    ``models.transformer``) its route buffers, zeroed: ``tokens`` (E,)
+    int64, each expert's routed tokens, and ``stored`` () int64, the rows
+    B9 stored (``grouped_gemm.grouped_ffn``'s count: the routed pairs
+    written, times ``column_blocks(D)``), both summed in place over calls;
+    ``ids`` (``tokens``, K) int32, the last call's chosen experts. -> the
+    list of the layers' buffers, stacked layers as one dict of (n, ...)
+    tensors."""
+    m = cfg.moe
+    out = []
+    for seg in params["segments"]:
+        for layer in seg:
+            ffn = layer.get("ffn", {})
+            if "router" not in ffn:
+                continue
+            lead = tuple(ffn["router"].shape[:-2])
+            dev = ffn["router"].device
+            ffn["route"] = {
+                "tokens": torch.zeros(lead + (m.n_experts,),
+                                      dtype=torch.int64, device=dev),
+                "stored": torch.zeros(lead, dtype=torch.int64, device=dev),
+                "ids": torch.zeros(lead + (tokens, m.top_k),
+                                   dtype=torch.int32, device=dev)}
+            out.append(ffn["route"])
+    return out
+
+
+def moe_sigmoid(p, cfg, x):
+    """DeepSeek-V3's MoE layer, dropless. x (B, S, D) -> (out, aux 0)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    if "experts" not in p:
+        raise ValueError("DeepSeek-V3's sigmoid route runs fp8 experts: "
+                         "draw the params with models.model."
+                         "init_serving_model, or take the JAX package's "
+                         "softmax route through configs.deepseek_v3_671b."
+                         "reference_settings")
+    ids, w, _ = route_sigmoid(p, m, xf)
+    phase("lm.experts")
+    plan = expert_plan(ids, m.n_experts)
+    route = p.get("route")
+    y = grouped_ffn(xf.contiguous(), plan, p["experts"], w,
+                    None if route is None else route["stored"])
+    out = y.reshape(t, m.top_k, d).sum(1, dtype=F32)
+    if route is not None:
+        route["tokens"] += plan.counts
+        route["ids"].copy_(ids)
+    if m.n_shared:
+        phase("lm.shared_ffn")
+        out = out + swiglu(p["shared"], xf).to(F32)
+    aux = torch.zeros((), dtype=F32, device=x.device)
+    return out.reshape(b, s, d).to(x.dtype), aux

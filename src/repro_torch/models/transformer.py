@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.core.quantize import dequantize_blocks, quantize_blocks
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (dense, gather_data,
                                               hint_batch, is_sharded,
@@ -48,7 +49,9 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import recurrent as rec
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import (apply_norm, as_position, dense_init,
-                                       norm_params, swiglu, swiglu_params)
+                                       norm_params, seeded_normal, swiglu,
+                                       swiglu_params)
+from repro_torch.obs.profiling import phase
 
 F32 = torch.float32
 
@@ -200,6 +203,180 @@ def param_shapes(cfg: ArchConfig):
 
 
 # ---------------------------------------------------------------------------
+# served params: DeepSeek-V3 as its fp8 checkpoint holds it
+# ---------------------------------------------------------------------------
+
+ROUTER_BIAS_STD = 0.01      # the correction bias's draw (not published)
+EXPERT_CHUNK = 16           # experts quantized a call by the served init
+
+
+def _activations(cfg) -> torch.dtype:
+    return getattr(torch, cfg.precision.activations)
+
+
+def _served_linear(cfg, seed, key, n_out, n_in, device):
+    """A linear weight drawn (n_out, n_in) from ``key``, N(0, 1 / n_in),
+    quantized to fp8 in blocks and held as the copy of its dequantized
+    values in the activations' type, transposed to the port's (n_in,
+    n_out)."""
+    block = cfg.precision.block
+    q, sc = quantize_blocks(
+        seeded_normal(seed, key, (n_out, n_in), n_in ** -0.5, device), block)
+    return dequantize_blocks(q, sc, block, _activations(cfg)).T.contiguous()
+
+
+def _served_ones(cfg, n, device):
+    return {"w": torch.ones(n, dtype=_activations(cfg), device=device)}
+
+
+def _served_layer(cfg, seed, li, spec, device, experts):
+    """Layer ``li``'s served params; ``experts`` (MoE): the views its fp8
+    expert codes and scales are written into."""
+    block, ffn = spec
+    if block != "mla" or ffn == "none":
+        raise ValueError("the served init holds DeepSeek-V3's layers (MLA, "
+                         f"then a dense or MoE FFN), not {spec}")
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    lin = lambda name, n_out, n_in: _served_linear(
+        cfg, seed, (li, name), n_out, n_in, device)
+    p = {"norm1": _served_ones(cfg, d, device),
+         "block": {
+             "wq_a": lin("wq_a", m.q_lora_rank, d),
+             "q_norm": _served_ones(cfg, m.q_lora_rank, device)["w"],
+             "wq_b": lin("wq_b", h * (m.qk_nope_dim + m.qk_rope_dim),
+                         m.q_lora_rank),
+             "wkv_a": lin("wkv_a", m.kv_lora_rank + m.qk_rope_dim, d),
+             "kv_norm": _served_ones(cfg, m.kv_lora_rank, device)["w"],
+             "wkv_b": lin("wkv_b", h * (m.qk_nope_dim + m.v_head_dim),
+                          m.kv_lora_rank),
+             "wo": lin("wo", d, h * m.v_head_dim)},
+         "norm2": _served_ones(cfg, d, device)}
+    if ffn == "dense":
+        p["ffn"] = {"gate": lin("ffn.gate", cfg.d_ff, d),
+                    "up": lin("ffn.up", cfg.d_ff, d),
+                    "down": lin("ffn.down", d, cfg.d_ff)}
+        return p
+    e, f = cfg.moe.n_experts, cfg.moe.d_expert
+    bsz = cfg.precision.block
+    for name, (n_out, n_in) in (("gate", (f, d)), ("up", (f, d)),
+                                ("down", (d, f))):
+        # a chunk of experts drawn one matrix at a time, quantized at once
+        buf = torch.empty((EXPERT_CHUNK, n_out, n_in), dtype=F32,
+                          device=device)
+        for lo in range(0, e, EXPERT_CHUNK):
+            n = min(EXPERT_CHUNK, e - lo)
+            for j in range(n):
+                buf[j].copy_(seeded_normal(
+                    seed, (li, "experts." + name, lo + j), (n_out, n_in),
+                    n_in ** -0.5, device))
+            q, sc = quantize_blocks(buf[:n], bsz)
+            experts[name][lo:lo + n].copy_(q)
+            experts[name + "_scale"][lo:lo + n].copy_(sc)
+        del buf
+    fs = f * cfg.moe.n_shared
+    # the router's gate is held in bf16 by the checkpoint and read in f32
+    router = seeded_normal(seed, (li, "router"), (e, d), d ** -0.5, device)
+    p["ffn"] = {
+        "router": router.to(torch.bfloat16).to(F32).T.contiguous(),
+        "router_bias": seeded_normal(seed, (li, "router_bias"), (e,),
+                                     ROUTER_BIAS_STD, device),
+        "experts": experts,
+        "shared": {"gate": lin("shared.gate", fs, d),
+                   "up": lin("shared.up", fs, d),
+                   "down": lin("shared.down", d, fs)}}
+    return p
+
+
+def _served_experts(cfg, lead, device):
+    """Uninitialized fp8 expert codes (E, F, D) / (E, D, F) and their
+    float32 block scales, with ``lead`` stacked dims."""
+    e, f, d = cfg.moe.n_experts, cfg.moe.d_expert, cfg.d_model
+    b = cfg.precision.block
+    fb, db = -(-f // b), -(-d // b)
+    shapes = {"gate": (e, f, d), "up": (e, f, d), "down": (e, d, f),
+              "gate_scale": (e, fb, db), "up_scale": (e, fb, db),
+              "down_scale": (e, db, fb)}
+    return {k: torch.empty(tuple(lead) + v, device=device,
+                           dtype=F32 if k.endswith("scale")
+                           else torch.float8_e4m3fn)
+            for k, v in shapes.items()}
+
+
+def init_serving_params(cfg: ArchConfig, seed: int, *, device=None) -> dict:
+    """The params of ``cfg`` as its precision serves them
+    (``cfg.precision``: DeepSeek-V3's fp8 checkpoint), drawn on ``device``
+    (None: CUDA) from ``seed``, each tensor (each expert's each matrix) from
+    its own generator, seeded by ``layers.derive_seed(seed, layer, name[,
+    expert])``, so any one of them can be drawn again alone:
+
+    * a linear weight (out, in): N(0, 1 / in), quantized to e4m3 in
+      ``block`` x ``block`` blocks with float32 scales (``core.quantize``);
+      the routed experts kept as codes and scales (the grouped GEMM B9 reads
+      them), every other one held as the copy of its dequantized values in
+      the activations' type (bf16 as served);
+    * the router (E, D): N(0, 1 / D) rounded to bf16, read in float32; its
+      correction bias N(0, ``ROUTER_BIAS_STD``^2);
+    * the embedding ("embed") N(0, 1) and the head ("lm_head") N(0, 1 / D)
+      rounded to bf16; the norms' gains ones.
+
+    The MTP module is left out: serving reads the last position's logits.
+    The 45 GB of experts at DeepSeek-V3's width never pass through float32
+    weights whole: ``EXPERT_CHUNK`` experts' matrices at a time are drawn,
+    quantized and copied in (0.9 GB of float32 at that width).
+    """
+    if cfg.precision is None or cfg.precision.weights != "float8_e4m3fn":
+        raise ValueError(f"{cfg.name}: the served init holds fp8 e4m3 "
+                         f"weights, not {cfg.precision}")
+    dev = resolve_device(device)
+    segs, li = [], 0
+    for seg in layer_plan(cfg):
+        n, specs = seg["n_periods"], seg["specs"]
+        layers = []
+        for j, spec in enumerate(specs):
+            lead = () if n == 1 else (n,)
+            stacked = (_served_experts(cfg, lead, dev) if spec[1] == "moe"
+                       else None)
+            per = []
+            for k in range(n):
+                views = None if stacked is None else (
+                    stacked if n == 1 else {a: t[k]
+                                            for a, t in stacked.items()})
+                per.append(_served_layer(cfg, seed, li + j + k * len(specs),
+                                         spec, dev, views))
+            if n == 1:
+                layers.append(per[0])
+                continue
+
+            def stack(*leaves):
+                return torch.stack(leaves)
+            merged = _tree_zip(stack, per, skip=("experts",))
+            if stacked is not None:
+                merged["ffn"]["experts"] = stacked
+            layers.append(merged)
+        segs.append(layers)
+        li += n * len(specs)
+    # the checkpoint holds both in bf16; held in the activations' type
+    embed = seeded_normal(seed, ("embed",), (cfg.vocab_size, cfg.d_model),
+                          1.0, dev).to(torch.bfloat16).to(_activations(cfg))
+    head = seeded_normal(seed, ("lm_head",), (cfg.vocab_size, cfg.d_model),
+                         cfg.d_model ** -0.5, dev).to(torch.bfloat16).to(
+                             _activations(cfg))
+    return {"embed": embed, "segments": segs,
+            "final_norm": _served_ones(cfg, cfg.d_model, dev),
+            "lm_head": head.T.contiguous()}
+
+
+def _tree_zip(fn, trees, skip=()):
+    """``fn`` over the leaves of equal trees (dicts of dicts), leaf by
+    leaf; a key in ``skip`` is left out."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_zip(fn, [t[k] for t in trees], skip)
+                for k in first if k not in skip}
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
 # per-layer forward (mode in {"train", "prefill", "decode"})
 # ---------------------------------------------------------------------------
 
@@ -258,6 +435,7 @@ def _layer_apply(p, cfg, spec, x, positions, mode, cache, pos):
     """-> (x, new_cache, aux)."""
     block, ffn = spec
     p = gather_data(p)
+    phase("lm.attention")
     # on a mesh, each norm's output enters its block with the batch sharded
     # and d_model whole (Megatron's layout); identity on a plain tensor
     h = hint_batch(apply_norm(cfg, p["norm1"], x))
@@ -266,8 +444,10 @@ def _layer_apply(p, cfg, spec, x, positions, mode, cache, pos):
     x = x + y
     aux = torch.zeros((), dtype=F32, device=x.device)
     if ffn == "dense":
+        phase("lm.shared_ffn")
         x = x + swiglu(p["ffn"], hint_batch(apply_norm(cfg, p["norm2"], x)))
     elif ffn == "moe":
+        phase("lm.route")
         y, aux = moe_mod.moe_forward(p["ffn"], cfg,
                                      hint_batch(apply_norm(cfg, p["norm2"],
                                                            x)))
@@ -434,6 +614,7 @@ def forward_prefill(params, cfg: ArchConfig, tokens, *, patch_embeds=None):
     positions = _positions(b, s, x.device)
     x, caches, _ = _run_segments(params, cfg, x, positions, "prefill",
                                  None, None)
+    phase("lm.head")
     return _logits(params, cfg, x[:, -1]), caches
 
 

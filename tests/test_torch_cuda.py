@@ -2630,3 +2630,125 @@ def test_window_deferred_and_flush_graphs_split_by_their_marks(
     assert set(out["phases"]) == {"register", "switch", "dispatch",
                                   "backend", "combine"}
     assert _ops_in(out, "ensemble_lookup_kernel") == {"switch"}
+
+
+# ---------------------------------------------------------------------------
+# B9: the grouped expert GEMM (DeepSeek-V3's dropless MoE, fp8 experts)
+# ---------------------------------------------------------------------------
+
+def _b9_case(dev, t, k, e, d, f, route, seed):
+    from repro_torch.core.quantize import quantize_blocks
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((t, d), generator=gen, device=dev).to(torch.bfloat16)
+    experts = {}
+    for name, (n_out, n_in) in (("gate", (f, d)), ("up", (f, d)),
+                                ("down", (d, f))):
+        w = torch.randn((e, n_out, n_in), generator=gen, device=dev)
+        experts[name], experts[name + "_scale"] = quantize_blocks(
+            w * n_in ** -0.5, 128)
+    if route == "one":
+        ids = torch.zeros((t, 1), dtype=torch.int64, device=dev).expand(
+            t, k).contiguous() + torch.arange(k, device=dev)
+    else:
+        ids = torch.rand((t, e), generator=gen, device=dev).topk(k).indices
+    return x, ids, experts, torch.rand((t, k), generator=gen, device=dev)
+
+
+@pytest.mark.parametrize("t, k, e, d, f, route", [
+    (37, 4, 16, 256, 128, "uniform"), (300, 8, 32, 384, 256, "uniform"),
+    (130, 8, 16, 256, 384, "one"), (1, 2, 8, 128, 128, "uniform")])
+def test_grouped_gemm_equals_plain(cuda, t, k, e, d, f, route):
+    """B9 against its plain composition: the dequantized weights, H and Y
+    rounded to bf16 on both sides, the f32 sums in another order, so the
+    two agree to a few bf16 ulps of Y (``||dY|| <= 5e-3 ||Y||``); every
+    row of Y written."""
+    from repro_torch.kernels import grouped_gemm as gg
+    x, ids, experts, w = _b9_case(cuda, t, k, e, d, f, route, 3)
+    plan = gg.expert_plan(ids, e)
+    before = gg.LAUNCHES["grouped_gemm"]
+    stored = torch.zeros((), dtype=torch.int64, device=cuda)
+    got = gg.grouped_ffn(x, plan, experts, w, stored).float()
+    assert gg.LAUNCHES["grouped_gemm"] == before + 2
+    ref = gg.grouped_ffn_ref(x, plan, experts, w).float()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - ref).norm()) <= 5e-3 * float(ref.norm())
+    assert int(stored) == t * k * gg.column_blocks(d)
+
+
+def test_grouped_gemm_counts_the_rows_it_stored(cuda):
+    """B9's ``stored`` counts the rows its down blocks wrote, not the
+    plan: with the last tile cut from ``tile_start`` (the blocks past it
+    exit) the count falls short by that tile's rows in every column
+    block."""
+    from repro_torch.kernels import grouped_gemm as gg
+    t, k, e, d, f = 300, 8, 16, 256, 128
+    x, ids, experts, w = _b9_case(cuda, t, k, e, d, f, "uniform", 5)
+    plan = gg.expert_plan(ids, e)
+    last = int((plan.counts > 0).nonzero().max())
+    tail = int(plan.counts[last]) - gg.BM * (
+        (int(plan.counts[last]) - 1) // gg.BM)
+    plan.tile_start[last + 1:] -= 1
+    stored = torch.zeros((), dtype=torch.int64, device=cuda)
+    gg.grouped_ffn(x, plan, experts, w, stored)
+    torch.cuda.synchronize()
+    assert int(stored) == (t * k - tail) * gg.column_blocks(d)
+
+
+def test_grouped_gemm_rejects_bad_operands(cuda):
+    from repro_torch.kernels import grouped_gemm as gg
+    x, ids, experts, w = _b9_case(cuda, 8, 2, 4, 256, 128, "uniform", 4)
+    plan = gg.expert_plan(ids, 4)
+    with pytest.raises(ValueError):
+        gg.grouped_ffn(x.float(), plan, experts, w)
+    bad = dict(experts, gate=experts["gate"][:, :, :128].contiguous())
+    with pytest.raises(ValueError):
+        gg.grouped_ffn(x, plan, bad, w)
+
+
+def test_deepseek_backend_in_the_fused_classify_graph(cuda):
+    """A small DeepSeek-V3 (the published mechanisms, fp8 experts, bf16)
+    behind ``HybridServer`` on the card: the backend is captured in the
+    classify graph (``_fused_ok``), replays answer as the eager step on
+    the same batch, the routed pairs are 8 x the tokens every call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mapping import map_tree_ensemble
+    from repro_torch.data.unsw_like import make_unsw_like
+    from repro_torch.launch import serve
+    from repro_torch.ml.trees import fit_random_forest
+    from repro_torch.models import model as M
+    from repro_torch.models.config import MLAConfig, PrecisionConfig
+    from repro_torch.serving.hybrid_serving import HybridServer
+    full = get_config("deepseek-v3-671b")
+    cfg = dataclasses.replace(
+        full, n_layers=3, d_model=256, n_heads=4, n_kv_heads=4, d_ff=384,
+        vocab_size=512, mtp=False, mla=MLAConfig(128, 64, 32, 16, 32),
+        moe=dataclasses.replace(full.moe, n_experts=32, d_expert=128,
+                                n_dense_layers=1),
+        precision=PrecisionConfig(block=128))
+    x, y = make_unsw_like(4000, seed=5, n_features=5)
+    forest = fit_random_forest(x[:3000], y[:3000], n_classes=2, n_trees=4,
+                               max_depth=3, seed=0, device="cpu")
+    params = M.init_serving_model(cfg, 7, device=cuda)
+    backend = serve.lm_backend(cfg, params)
+    server = HybridServer(map_tree_ensemble(forest, 5), backend,
+                          threshold=0.9, capacity=64, fuse=None,
+                          device=cuda)
+    rows = torch.as_tensor(x[3000:3512], device=cuda)
+    first, _ = server.classify(rows)        # the probe: eager
+    logits0 = backend.logits.clone()
+    assert server._fused_ok is True
+    server.classify(rows)                   # the capture's warm-up, a replay
+    backend.reset_counters()
+    pred, stats = server.classify(rows)
+    pred2, _ = server.classify(rows)
+    torch.cuda.synchronize()
+    assert torch.equal(pred, first) and torch.equal(pred2, first)
+    assert torch.equal(backend.logits, logits0)
+    assert backend.routed_pairs().tolist() == [2 * 8 * 64 * 8] * 2
+    assert int(backend.expert_tokens().sum()) == 2 * 2 * 8 * 64 * 8
+    phases = {p for marks in server.graph_phases().values()
+              for p, _ in marks}
+    assert {"lm.attention", "lm.route", "lm.experts", "lm.shared_ffn",
+            "lm.head"} <= phases
