@@ -5988,13 +5988,18 @@ def _time_b9(torch, smi) -> dict:
     ulps apart; the limit is
     ||Y - Y_plain|| <= 5e-3 ||Y_plain|| and max |Y - Y_plain| <= 0.05
     RMS(Y_plain). The rows B9 stored (its ``stored`` count) must be every
-    pair in every column block. Times: the call (both launches and the
-    plan's gather) from a CUDA graph of 5 and eager, and with the stored
-    count as served (``ms_counted``), each kernel's device
-    time under the profiler, the plain composition eager (it reads the
-    counts on the host, so no graph holds it), ``torch._grouped_mm`` on
-    bf16 copies as ``library_ms``. The row's figures are the uniform
-    case's; ``skew`` holds the other. Raises on a check that fails."""
+    pair in every column block, and its row tiles at each width
+    (``tile_shapes``, the plan's ``shapes``) the plan's
+    (``grouped_gemm.tile_widths``). The weights must dequantize bit for bit
+    as ``dequantize_blocks(..., bf16)`` (``_b9_exact_weights``). Times: the
+    call (both launches and the plan's gather) from a CUDA graph of 5 and
+    eager, and with the stored count as served (``ms_counted``), each
+    kernel's device time under the profiler (gate_up and down apart), the
+    plain composition eager (it reads the counts on the host, so no graph
+    holds it), ``torch._grouped_mm`` on bf16 copies as ``library_ms``; each
+    kernel's registers and shared memory a block (``resources``). The
+    row's figures are the uniform case's; ``skew`` holds the other. Raises
+    on a check that fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import _build
@@ -6012,16 +6017,24 @@ def _time_b9(torch, smi) -> dict:
            "bound_by": "operations at the bf16 tensor rate",
            "bytes": n_bytes, "ops": flops, "plain_ms": None,
            "shape": {"T": t, "K": k, "E": e, "D": d, "F": f,
-                     "block": gg.BLOCK, "BM": gg.BM}}
+                     "block": gg.BLOCK, "BM": gg.BM,
+                     "tile_widths": list(gg.TILE_WIDTHS)},
+           "resources": gg.kernel_info(dev)}
     for case in ("uniform", "skew"):
         x, ids, experts, w = _b9_inputs(torch, dev, t, k, e, d, f,
                                         case == "skew", seed=9)
+        if case == "uniform":
+            res["exact_weights"] = _b9_exact_weights(torch, gg, experts)
         plan = gg.expert_plan(ids, e)
+        plan.shapes = torch.zeros(len(gg.TILE_WIDTHS), dtype=torch.int64,
+                                  device=dev)
         stored = torch.zeros((), dtype=torch.int64, device=dev)
 
         def call():
             return gg.grouped_ffn(x, plan, experts, w)
         got = gg.grouped_ffn(x, plan, experts, w, stored).float()
+        shapes = plan.shapes.tolist()
+        plan.shapes = None
         t0 = time.perf_counter()
         ref = gg.grouped_ffn_ref(x, plan, experts, w).float()
         torch.cuda.synchronize()
@@ -6031,9 +6044,11 @@ def _time_b9(torch, smi) -> dict:
         worst = float((got - ref).abs().max()) / rms
         row = {"rel_fro": rel, "max_over_rms": worst,
                "max_abs_err": float((got - ref).abs().max()),
-               "stored": int(stored), "plain_ms_eager": plain_ms}
+               "stored": int(stored), "plain_ms_eager": plain_ms,
+               "tile_shapes": shapes}
         if not (rel <= 5e-3 and worst <= 0.05
-                and row["stored"] == t * k * gg.column_blocks(d)):
+                and row["stored"] == t * k * gg.column_blocks(d)
+                and shapes == gg.tile_widths(plan.counts).tolist()):
             raise AssertionError(f"B9 != plain ({case}): {row}")
         del got, ref
         row["ms"] = _graph_ms(torch, call, inner=5)
@@ -6063,12 +6078,44 @@ def _time_b9(torch, smi) -> dict:
             res["skew"] = row
         del x, ids, experts, w, plan, lib
         torch.cuda.empty_cache()
-    print(f"time grouped_gemm: kernel {res['ms']:.5f} ms (graph), "
-          f"{res['ms_eager']:.5f} ms (eager call); plain "
-          f"{res['plain_ms_eager']:.5f} ms (eager); library "
-          f"{res['library_ms']} ms; bound {res['bound_ms']:.6f} ms "
-          f"({res['bound_by']}); shape {res['shape']}; on {smi}")
+    print(f"time grouped_gemm: kernel {res['ms']:.5f} ms (graph; "
+          f"{res['kernel_ms']}), {res['ms_eager']:.5f} ms (eager call); "
+          f"skew {res['skew']['ms']:.5f} ms ({res['skew']['kernel_ms']}); "
+          f"plain {res['plain_ms_eager']:.5f} ms (eager); library "
+          f"{res['library_ms']} ms, skew {res['skew']['library_ms']} ms; "
+          f"bound {res['bound_ms']:.6f} ms ({res['bound_by']}); resources "
+          f"{res['resources']}; shape {res['shape']}; on {smi}")
     return res
+
+
+def _b9_exact_weights(torch, gg, experts, chosen=(0, 255)) -> dict:
+    """B9's down launch fed H = the identity (pair i of each chosen expert
+    one-hot at column i, weight 1), so each Y row is one column of Wd[e]
+    (one product a sum, exact in f32): it must equal
+    ``dequantize_blocks(..., bf16)`` bit for bit, but for the sign of a
+    zero (a -0 code sums with the other columns' +0 products to +0).
+    Raises where it does not; -> {"experts", "weights_checked"}."""
+    from repro_torch.core.quantize import dequantize_blocks
+    dev = experts["down"].device
+    n_exp, d, f = experts["down"].shape
+    ids = torch.tensor(chosen, device=dev).repeat_interleave(f)[:, None]
+    plan = gg.expert_plan(ids, n_exp)
+    h = torch.eye(f, device=dev, dtype=torch.bfloat16).repeat(len(chosen), 1)
+    y = torch.empty((len(chosen) * f, d), dtype=torch.bfloat16, device=dev)
+    gg.launch_down(h, plan, experts, torch.ones(len(chosen) * f, device=dev),
+                   y)
+    for i, ex in enumerate(chosen):
+        want = dequantize_blocks(experts["down"][ex],
+                                 experts["down_scale"][ex], 128,
+                                 torch.bfloat16)
+        got = y[i * f:(i + 1) * f].T.contiguous()
+        zero = want == 0
+        if not (torch.equal(got.view(torch.int16)[~zero],
+                            want.view(torch.int16)[~zero])
+                and not bool(got[zero].any())):
+            raise AssertionError(f"B9's down weights of expert {ex} are not "
+                                 f"dequantize_blocks' bit for bit")
+    return {"experts": list(chosen), "weights_checked": len(chosen) * d * f}
 
 
 def _b9_main_path(torch, smi) -> dict:
@@ -6084,7 +6131,8 @@ def _b9_main_path(torch, smi) -> dict:
     holds them). The pairs whose rows B9 stored must be 8 x 8192 a MoE
     layer for each step run, and the backend must be in the classify
     graph. -> {"probe", "capture", "replay", "moe_layers",
-    "per_cell_request"}."""
+    "per_cell_request"}, and each step's row tiles at each of B9's widths
+    a MoE layer (``"<step>_tile_shapes"``, the route log's count)."""
     from repro_torch.core.mapping import map_tree_ensemble
     from repro_torch.data.unsw_like import make_unsw_like
     from repro_torch.kernels import grouped_gemm as gg
@@ -6110,6 +6158,7 @@ def _b9_main_path(torch, smi) -> dict:
         server.classify(rows)
         torch.cuda.synchronize()
         out[step] = gg.LAUNCHES["grouped_gemm"]
+        out[step + "_tile_shapes"] = backend.tile_shapes().tolist()
         pairs = backend.routed_pairs().tolist()
         if pairs != [runs * 8.0 * 1024 * 8] * n_moe:
             raise AssertionError(f"B9 stored {pairs} pairs at the {step}, "

@@ -127,6 +127,12 @@ class LMBackend:
         stored = torch.cat([r["stored"].reshape(-1) for r in self.routes])
         return stored.double() / column_blocks(self.cfg.d_model)
 
+    def tile_shapes(self) -> torch.Tensor:
+        """(MoE layers, 4) int64: B9's row tiles at each of
+        ``grouped_gemm.TILE_WIDTHS`` pairs, summed likewise."""
+        return torch.cat([r["shapes"].reshape(-1, r["shapes"].shape[-1])
+                          for r in self.routes])
+
     def chosen(self) -> torch.Tensor:
         """(MoE layers, tokens, K) int32: the last call's experts."""
         return torch.cat([r["ids"].reshape(-1, *r["ids"].shape[-2:])
@@ -136,6 +142,7 @@ class LMBackend:
         for r in self.routes:
             r["tokens"].zero_()
             r["stored"].zero_()
+            r["shapes"].zero_()
 
 
 def lm_backend(cfg, params) -> LMBackend:

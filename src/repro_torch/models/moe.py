@@ -52,7 +52,8 @@ import torch.nn.functional as F
 from repro_torch.device import mean
 from repro_torch.distributed.sharding import (hint_batch, is_sharded, reshape,
                                               shard_hint)
-from repro_torch.kernels.grouped_gemm import expert_plan, grouped_ffn
+from repro_torch.kernels.grouped_gemm import (TILE_WIDTHS, expert_plan,
+                                              grouped_ffn)
 from repro_torch.models.layers import dense_init, swiglu, swiglu_params
 from repro_torch.obs.profiling import phase
 
@@ -191,12 +192,13 @@ def route_sigmoid(p, m, xf):
 def attach_route_log(params, cfg, tokens: int):
     """Give every MoE layer of the served ``params`` (a tree of
     ``models.transformer``) its route buffers, zeroed: ``tokens`` (E,)
-    int64, each expert's routed tokens, and ``stored`` () int64, the rows
-    B9 stored (``grouped_gemm.grouped_ffn``'s count: the routed pairs
-    written, times ``column_blocks(D)``), both summed in place over calls;
-    ``ids`` (``tokens``, K) int32, the last call's chosen experts. -> the
-    list of the layers' buffers, stacked layers as one dict of (n, ...)
-    tensors."""
+    int64, each expert's routed tokens, ``stored`` () int64, the rows B9
+    stored (``grouped_gemm.grouped_ffn``'s count: the routed pairs
+    written, times ``column_blocks(D)``), and ``shapes`` (4,) int64, B9's
+    row tiles at each width (``grouped_gemm.TILE_WIDTHS``), all summed in
+    place over calls; ``ids`` (``tokens``, K) int32, the last call's
+    chosen experts. -> the list of the layers' buffers, stacked layers as
+    one dict of (n, ...) tensors."""
     m = cfg.moe
     out = []
     for seg in params["segments"]:
@@ -210,6 +212,8 @@ def attach_route_log(params, cfg, tokens: int):
                 "tokens": torch.zeros(lead + (m.n_experts,),
                                       dtype=torch.int64, device=dev),
                 "stored": torch.zeros(lead, dtype=torch.int64, device=dev),
+                "shapes": torch.zeros(lead + (len(TILE_WIDTHS),),
+                                      dtype=torch.int64, device=dev),
                 "ids": torch.zeros(lead + (tokens, m.top_k),
                                    dtype=torch.int32, device=dev)}
             out.append(ffn["route"])
@@ -232,6 +236,8 @@ def moe_sigmoid(p, cfg, x):
     phase("lm.experts")
     plan = expert_plan(ids, m.n_experts)
     route = p.get("route")
+    if route is not None:
+        plan.shapes = route.get("shapes")
     y = grouped_ffn(xf.contiguous(), plan, p["experts"], w,
                     None if route is None else route["stored"])
     out = y.reshape(t, m.top_k, d).sum(1, dtype=F32)

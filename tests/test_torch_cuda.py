@@ -2636,6 +2636,13 @@ def test_window_deferred_and_flush_graphs_split_by_their_marks(
 # B9: the grouped expert GEMM (DeepSeek-V3's dropless MoE, fp8 experts)
 # ---------------------------------------------------------------------------
 
+# pairs of each expert in the "edges" routing (16 experts, 600 tokens x 4):
+# none, one, a row tile less one, a tile, a tile and one, a third of the
+# pairs, and widths 64-256 around the 64-pair steps of a tile's N
+B9_EDGES = (0, 1, 255, 256, 257, 800, 150, 65, 64, 130, 200, 22,
+            50, 50, 50, 50)
+
+
 def _b9_case(dev, t, k, e, d, f, route, seed):
     from repro_torch.core.quantize import quantize_blocks
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2643,12 +2650,23 @@ def _b9_case(dev, t, k, e, d, f, route, seed):
     experts = {}
     for name, (n_out, n_in) in (("gate", (f, d)), ("up", (f, d)),
                                 ("down", (d, f))):
-        w = torch.randn((e, n_out, n_in), generator=gen, device=dev)
-        experts[name], experts[name + "_scale"] = quantize_blocks(
-            w * n_in ** -0.5, 128)
+        codes = torch.empty((e, n_out, n_in), dtype=torch.float8_e4m3fn,
+                            device=dev)
+        scales = torch.empty((e, n_out // 128, n_in // 128),
+                             dtype=torch.float32, device=dev)
+        for i in range(e):     # a matrix at a time: the cell's widths fit
+            w = torch.randn((n_out, n_in), generator=gen, device=dev)
+            codes[i], scales[i] = quantize_blocks(w * n_in ** -0.5, 128)
+        experts[name], experts[name + "_scale"] = codes, scales
     if route == "one":
         ids = torch.zeros((t, 1), dtype=torch.int64, device=dev).expand(
             t, k).contiguous() + torch.arange(k, device=dev)
+    elif route == "edges":
+        assert len(B9_EDGES) == e and sum(B9_EDGES) == t * k
+        labels = torch.repeat_interleave(torch.arange(e, device=dev),
+                                         torch.tensor(B9_EDGES, device=dev))
+        perm = torch.randperm(t * k, generator=gen, device=dev)
+        ids = labels[perm].reshape(t, k)
     else:
         ids = torch.rand((t, e), generator=gen, device=dev).topk(k).indices
     return x, ids, experts, torch.rand((t, k), generator=gen, device=dev)
@@ -2656,38 +2674,106 @@ def _b9_case(dev, t, k, e, d, f, route, seed):
 
 @pytest.mark.parametrize("t, k, e, d, f, route", [
     (37, 4, 16, 256, 128, "uniform"), (300, 8, 32, 384, 256, "uniform"),
-    (130, 8, 16, 256, 384, "one"), (1, 2, 8, 128, 128, "uniform")])
+    (130, 8, 16, 256, 384, "one"), (1, 2, 8, 128, 128, "uniform"),
+    (600, 4, 16, 384, 256, "edges"), (512, 8, 16, 7168, 2048, "uniform")])
 def test_grouped_gemm_equals_plain(cuda, t, k, e, d, f, route):
     """B9 against its plain composition: the dequantized weights, H and Y
     rounded to bf16 on both sides, the f32 sums in another order, so the
     two agree to a few bf16 ulps of Y (``||dY|| <= 5e-3 ||Y||``); every
-    row of Y written."""
+    row of Y written; the row tiles at each width as the plan's. The
+    cases: small widths, every tile width and an expert of none, one and
+    256 +- 1 pairs ("edges"), and the cell's widths (D 7168, F 2048) over
+    16 experts (0.7 GB of codes)."""
     from repro_torch.kernels import grouped_gemm as gg
     x, ids, experts, w = _b9_case(cuda, t, k, e, d, f, route, 3)
     plan = gg.expert_plan(ids, e)
+    plan.shapes = torch.zeros(len(gg.TILE_WIDTHS), dtype=torch.int64,
+                              device=cuda)
     before = gg.LAUNCHES["grouped_gemm"]
     stored = torch.zeros((), dtype=torch.int64, device=cuda)
     got = gg.grouped_ffn(x, plan, experts, w, stored).float()
     assert gg.LAUNCHES["grouped_gemm"] == before + 2
+    shapes = plan.shapes.clone()
+    plan.shapes = None
     ref = gg.grouped_ffn_ref(x, plan, experts, w).float()
     assert bool(torch.isfinite(got).all())
     assert float((got - ref).norm()) <= 5e-3 * float(ref.norm())
     assert int(stored) == t * k * gg.column_blocks(d)
+    assert shapes.tolist() == gg.tile_widths(plan.counts).tolist()
+
+
+def test_grouped_gemm_dequantizes_bit_for_bit(cuda):
+    """The down launch fed H = the identity (pair i of expert e one-hot at
+    column i, weight 1) writes each of its experts' weights: Y's rows are
+    Wd[e]^T exactly as ``dequantize_blocks(..., bf16)`` gives it, bit for
+    bit (one product a sum, exact in f32), but for the sign of a zero: a
+    code of -0 sums with the +0 products of the other columns to +0."""
+    from repro_torch.core.quantize import dequantize_blocks
+    from repro_torch.kernels import grouped_gemm as gg
+    e, d, f = 4, 256, 384
+    _, _, experts, _ = _b9_case(cuda, 1, 1, e, d, f, "uniform", 6)
+    chosen = (0, 3)
+    ids = torch.tensor(chosen, device=cuda).repeat_interleave(f)[:, None]
+    plan = gg.expert_plan(ids, e)
+    h = torch.eye(f, device=cuda).repeat(len(chosen), 1).to(torch.bfloat16)
+    y = torch.empty((len(chosen) * f, d), dtype=torch.bfloat16, device=cuda)
+    w = torch.ones(len(chosen) * f, device=cuda)
+    gg.launch_down(h, plan, experts, w, y)
+    torch.cuda.synchronize()
+    want = dequantize_blocks(experts["down"], experts["down_scale"], 128,
+                             torch.bfloat16)
+    for i, ex in enumerate(chosen):
+        got = y[i * f:(i + 1) * f].T.contiguous()
+        zero = want[ex] == 0
+        assert torch.equal(got.view(torch.int16)[~zero],
+                           want[ex].view(torch.int16)[~zero])
+        assert not bool(got[zero].any())
+
+
+def test_grouped_gemm_in_a_cuda_graph_replays_any_routing(cuda):
+    """``expert_plan`` and both launches captured in one CUDA graph, then
+    replayed on a uniform routing and on every token sent to K experts:
+    each replay equals the eager call bit for bit, and stores every pair
+    in every column block."""
+    from repro_torch.kernels import grouped_gemm as gg
+    t, k, e, d, f = 300, 8, 32, 384, 256
+    x, uniform, experts, w = _b9_case(cuda, t, k, e, d, f, "uniform", 7)
+    _, skew, _, _ = _b9_case(cuda, t, k, e, d, f, "one", 7)
+    ids = uniform.clone()
+    stored = torch.zeros((), dtype=torch.int64, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        gg.grouped_ffn(x, gg.expert_plan(ids, e), experts, w)   # warm-up
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = gg.grouped_ffn(x, gg.expert_plan(ids, e), experts, w, stored)
+    for route in (uniform, skew):
+        ids.copy_(route)
+        stored.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = gg.grouped_ffn(x, gg.expert_plan(route, e), experts, w)
+        assert torch.equal(y, eager)
+        assert int(stored) == t * k * gg.column_blocks(d)
 
 
 def test_grouped_gemm_counts_the_rows_it_stored(cuda):
-    """B9's ``stored`` counts the rows its down blocks wrote, not the
-    plan: with the last tile cut from ``tile_start`` (the blocks past it
-    exit) the count falls short by that tile's rows in every column
-    block."""
+    """B9's ``stored`` counts the rows its down tiles wrote, not the
+    plan: with the tile list's last row tile cut (``tile_start`` past the
+    walk's last expert with pairs one less, so that expert's last row
+    tile runs in no column block) the count falls short by that tile's
+    rows in every column block."""
     from repro_torch.kernels import grouped_gemm as gg
     t, k, e, d, f = 300, 8, 16, 256, 128
     x, ids, experts, w = _b9_case(cuda, t, k, e, d, f, "uniform", 5)
     plan = gg.expert_plan(ids, e)
-    last = int((plan.counts > 0).nonzero().max())
+    place = int((plan.counts > 0).sum()) - 1        # walk: most pairs first
+    last = int(plan.walk[place])
     tail = int(plan.counts[last]) - gg.BM * (
         (int(plan.counts[last]) - 1) // gg.BM)
-    plan.tile_start[last + 1:] -= 1
+    plan.tile_start[place + 1:] -= 1
     stored = torch.zeros((), dtype=torch.int64, device=cuda)
     gg.grouped_ffn(x, plan, experts, w, stored)
     torch.cuda.synchronize()

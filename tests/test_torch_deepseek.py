@@ -356,6 +356,48 @@ def test_expert_plan_sorts_pairs_by_expert():
     assert big.tile_start.tolist() == [0, 3, 3, 3]
 
 
+def test_expert_plan_walks_the_largest_experts_first():
+    """The tile list both launches walk: the experts by pairs, most first
+    (ties in expert order), ``tile_start`` the prefix of their row tiles of
+    ``BM`` along that walk; ``tile_widths`` counts each tile at its pairs
+    rounded up to 64."""
+    counts = [3, 0, 600, 257, 256, 1, 64, 65]
+    ids = torch.repeat_interleave(torch.arange(8), torch.tensor(counts))
+    plan = gg.expert_plan(ids[torch.randperm(len(ids))][:, None], 8)
+    assert plan.counts.tolist() == counts
+    assert plan.walk.tolist() == [2, 3, 4, 7, 6, 0, 5, 1]
+    assert plan.tile_start.tolist() == [0, 3, 5, 6, 7, 8, 9, 10, 10]
+    assert gg.BM == 256 and gg.TILE_WIDTHS == (64, 128, 192, 256)
+    # 600 = 2 x 256 + 88 (128), 257 = 256 + 1 (64), 256, 65 (128), 64, 3, 1
+    assert gg.tile_widths(plan.counts).tolist() == [4, 2, 0, 4]
+    # 192 (192); 193 (256); 511 = 256 + 255 (256)
+    assert gg.tile_widths(torch.tensor([0, 192, 193, 511])).tolist() == [
+        0, 0, 1, 3]
+
+
+def test_grouped_ffn_counts_row_tiles_by_width():
+    """The plan's ``shapes``, when set, gains the row tiles at each width
+    (the plain version adds the plan's ``tile_widths``; the kernel counts
+    the tiles its down launch ran), call after call; None counts none."""
+    cfg = small_cfg()
+    ex = _moe_layer(cfg, 35)["ffn"]["experts"]
+    t, k = 40, 8
+    x = _x((t, cfg.d_model), 36).to(torch.bfloat16)
+    ids = torch.rand((t, cfg.moe.n_experts),
+                     generator=torch.Generator().manual_seed(7)).topk(
+        k).indices
+    w = torch.rand((t, k), generator=torch.Generator().manual_seed(8))
+    plan = gg.expert_plan(ids, cfg.moe.n_experts)
+    y0 = gg.grouped_ffn(x, plan, ex, w)
+    plan.shapes = torch.zeros(len(gg.TILE_WIDTHS), dtype=torch.int64)
+    y1 = gg.grouped_ffn(x, plan, ex, w)
+    gg.grouped_ffn(x, plan, ex, w)
+    assert torch.equal(y0, y1)
+    want = gg.tile_widths(plan.counts)
+    assert int(want.sum()) == int((plan.counts > 0).sum())
+    assert plan.shapes.tolist() == (2 * want).tolist()
+
+
 def test_grouped_ffn_plain_equals_a_loop_over_pairs():
     cfg = small_cfg()
     ex = _moe_layer(cfg, 31)["ffn"]["experts"]
@@ -400,6 +442,8 @@ def test_whole_model_logits_match_reference():
     close(ref, got, LOGIT_REL)
     assert routes[0]["stored"].tolist() == [
         8 * toks.numel() * gg.column_blocks(cfg.d_model)] * 2
+    assert routes[0]["shapes"].tolist() == [
+        gg.tile_widths(c).tolist() for c in routes[0]["tokens"]]
 
 
 def test_served_bf16_model_runs_and_stays_near_float32():
